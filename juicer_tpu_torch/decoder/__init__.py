@@ -1,0 +1,7 @@
+from .artifact import DecoderArtifact
+from .core import TorchDecoder, TorchDecoderConfig
+from .network import DecoderNetwork
+from .results import DecodeResult, WordHyp
+
+__all__ = ["DecoderArtifact", "DecoderNetwork", "DecodeResult",
+           "TorchDecoder", "TorchDecoderConfig", "WordHyp"]
