@@ -16,22 +16,37 @@ Phases (any failure raises and exits non-zero before the result line):
      plain and library-call (matmul + logsumexp) times over CUDA events,
      and the kernel's bound (the larger of its float32 operations over the
      card's CUDA-core peak and its bytes over the memory rate);
-  4. decode: the 2k-word WSJ-order task (`scripts/_wsj_cache_2k`, its
-     artifact built on first use) at the reference bench's operating
-     point (beam 70 / end-beam 50 / maxHyps 500, K=1024, E=1408), 8
-     sampled utterances of ~1000 frames tiled to a batch of 16, features
-     scored by the kernel and decoded on the card. Certified in-run:
-     overflow 0/16, dead 0/16, and the traced-back words equal each
-     utterance's generating transcript. Launch counts are zeroed just
-     before this main path and read just after it. Then frames/s over one
-     timed wave after a warm-up wave (diagnostics off, as the bench runs).
-     Parity: a short whole sentence (300 frames, sampled with seed 12; a
+  4. plain decode, the reference run: the 2k-word WSJ-order task
+     (`scripts/_wsj_cache_2k`, its artifact built on first use) at the
+     reference bench's operating point (beam 70 / end-beam 50 / maxHyps
+     500, K=1024, E=1408), 8 sampled utterances of ~1000 frames tiled to a
+     batch of 16, scored by the GMM kernel and decoded by the plain frame
+     loop `TorchDecoder.run` (diagnostics on; then one timed wave with
+     diagnostics off, as the bench runs, without a further warm-up).
+     Certified in-run: overflow 0/16, dead 0/16, and the traced-back
+     words equal each utterance's generating transcript;
+  5. frame-step kernel vs plain: the fused scan on the same (T, B, G)
+     scores as the plain reference wave, all fifteen `ys` fields, the
+     carry (`norm`, overflow, frontier) and the traced-back words and
+     word-end frames equal bit for bit, at the full-width wave; the same
+     with `max_emit_hyps=0` (the TPU kernel's scope) on a short sentence,
+     in one launch and in two chunks with the carried state. The first
+     differing field, frame, utterance and slot are printed on failure;
+  6. the main path through the kernels: launch counts of both kernels are
+     zeroed just before and read just after `BatchDecoder(dec)` (default
+     `use_fused="auto"`) decodes the batch (features -> GMM kernel ->
+     frame-step kernel, one launch per wave -> host traceback), certified
+     as in 4, then a warm-up and one timed wave; frames/s beside the plain
+     loop's. Then the kernel's time per wave over CUDA events and its
+     bound (the bytes it must move, counted from the shapes and the
+     wave's measured candidates and active slots, over the memory rate);
+  7. parity: a short whole sentence (300 frames, sampled with seed 12; a
      cut utterance reaches no final state) decodes on the card and with
      device="cpu" from the same scores (words, word-end frames and the
      traceback record arrays equal), and from the plain CPU scorer's
      scores (words and word-end frames equal, records reported); its
      words must equal its transcript;
-  5. result: a `kernels` JSON line, the card line, and last
+  8. result: a `kernels` JSON line (both kernels), the card line, and last
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
@@ -84,7 +99,10 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     try:
         from juicer_tpu_torch import _cuda_build
+        from juicer_tpu_torch.decoder import fused_scan
         from juicer_tpu_torch.decoder.core import TorchDecoder, host_batch
+        from juicer_tpu_torch.decoder.fused_scan import (
+            FusedDecodeScan, assemble_results, state_differences)
         from juicer_tpu_torch.harness import wsj_task
         from juicer_tpu_torch.ops import gmm_cuda
         from juicer_tpu_torch.ops.gmm import gmm_scores_dense, make_gmm_scorer
@@ -107,7 +125,13 @@ def main() -> int:
     print(f"[build] {len(_cuda_build.SOURCES)} kernel source(s) in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     for name, rep in reports.items():
+        entry = ""
         for line in rep.splitlines():
+            if "Compiling entry function" in line:
+                entry = line
+            # frame_step is compiled per HMM state count; S=5 is the task's
+            if name == "frame_step" and "ILi5E" not in entry:
+                continue
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
@@ -171,7 +195,7 @@ def main() -> int:
           f"({'operations' if t_ops >= t_bytes else 'bytes'}: {flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB) | {card}", flush=True)
 
-    # ---- 4. decode: the main path ------------------------------------------
+    # ---- 4. plain decode: the reference run ----------------------------------
     art = task.artifact
     cfg = wsj_task.decoder_config(p, emit_diagnostics=True)
     dec = TorchDecoder(art, cfg, device="cuda")
@@ -181,53 +205,159 @@ def main() -> int:
     print(f"[decode] K={dec.K} E={dec.E} F={dec.F}, beams {p['beam']}/"
           f"{p['end_beam']}/{p['maxhyps']}", flush=True)
 
-    def wave(decoder):
-        scores = scorer(x).view(B, Tmax, G)
-        return decoder.run(scores)
+    def certify(results, what):
+        n_ov = sum(r.overflow for r in results)
+        dead = sum(r.empty for r in results)
+        wrong = []
+        for i, r in enumerate(results):
+            hyp = [w for w in r.words if w not in markers]
+            ref = [labels[w] for w in utts[i % len(utts)][0]]
+            if hyp != ref:
+                wrong.append(i)
+        print(f"[{what}] overflow {n_ov}/{B}, dead {dead}/{B}, transcript mismatches "
+              f"{wrong}; peak active {max(r.max_active for r in results)}, peak "
+              f"candidates {max(r.max_cand for r in results)}", flush=True)
+        if n_ov or dead or wrong:
+            raise RuntimeError(f"{what}: certification failed at the operating point")
 
-    gmm_cuda.counter.launches = 0
-    # certification wave: diagnostics on, traceback of every utterance
-    t0 = time.perf_counter()
+    def frames_of(r):
+        return [h.end_frame for h in r.word_hyps]
+
+    def require_equal(what, got, want):
+        diffs = state_differences(got, want)
+        for line in diffs:
+            print(f"[{what}] DIFFERS {line}", flush=True)
+        if diffs:
+            raise RuntimeError(f"{what}: frame_step disagrees with the plain version")
+
+    # the plain reference wave: diagnostics on, traceback of every utterance
     scores = scorer(x).view(B, Tmax, G)
-    results = BatchDecoder(dec).decode_scores_batch(scores, lengths)
-    t_cert = time.perf_counter() - t0
-    # bench waves: diagnostics off; warm-up, then one timed wave
-    carry, _, _ = wave(fast)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    carry, _, _ = wave(fast)
+    plain_state = dec.run(scores)
     torch.cuda.synchronize()
-    t_wave = time.perf_counter() - t0
-    launches = gmm_cuda.counter.launches
-    if launches == 0:
-        raise RuntimeError("the main path did not launch gmm_logsumexp")
+    t_plain_diag = time.perf_counter() - t0
+    host = host_batch(*plain_state)
+    plain_results = [dec.traceback(host, b, Tmax, true_T=lengths[b]) for b in range(B)]
+    del host
+    certify(plain_results, "plain")
+    # the plain bench wave: GMM kernel + frame loop, diagnostics off (the
+    # wave above was its warm-up)
+    t0 = time.perf_counter()
+    carry, _, _ = fast.run(scorer(x).view(B, Tmax, G))
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    if int(carry["overflow"].sum()) or int((carry["best_final"]["score"] <= -0.5e30).sum()):
+        raise RuntimeError("plain bench wave overflowed or died")
+    fps_plain = B * Tmax / t_plain
+    print(f"[plain] reference wave (diagnostics on) {t_plain_diag:.3f}s; timed wave: "
+          f"{B} x {Tmax} frames in {t_plain:.3f}s = {fps_plain:.1f} frames/s (GMM "
+          f"kernel + plain frame loop, diagnostics off, one wave) | {card}", flush=True)
 
-    n_ov = sum(r.overflow for r in results) + int(carry["overflow"].sum())
-    dead = sum(r.empty for r in results) + int(
-        (carry["best_final"]["score"] <= -0.5e30).sum())
-    wrong = []
-    for i, r in enumerate(results):
-        hyp = [w for w in r.words if w not in markers]
-        ref = [labels[w] for w in utts[i % len(utts)][0]]
-        if hyp != ref:
-            wrong.append(i)
-    print(f"[decode] certification wave ({t_cert:.2f}s incl. traceback): "
-          f"overflow {n_ov}/{2 * B}, dead {dead}/{2 * B}, transcript "
-          f"mismatches {wrong}; peak active {max(r.max_active for r in results)}, "
-          f"peak candidates {max(r.max_cand for r in results)}", flush=True)
-    if n_ov or dead or wrong:
-        raise RuntimeError("certification failed at the operating point")
-    fps = B * Tmax / t_wave
-    print(f"[decode] timed wave: {B} x {Tmax} frames in {t_wave:.3f}s = "
-          f"{fps:.1f} frames/s (GMM kernel + frame loop, diagnostics off) | "
-          f"{card}", flush=True)
+    # ---- 5. frame-step kernel vs plain ---------------------------------------
+    fs = FusedDecodeScan(dec, B)
+    print(f"[fused] one block per utterance: {B} blocks, "
+          f"{fused_scan.smem_bytes(**fs.dims)} bytes of dynamic shared memory each "
+          f"(hash table of {fs.dims['HT']})", flush=True)
+    scores_tbg = scores.transpose(0, 1).contiguous()
+    fused_state = fs(scores_tbg)
+    torch.cuda.synchronize()
+    require_equal("fused", fused_state, plain_state[:2])
+    float_err = max(float((fused_state[1][k] - plain_state[1][k]).abs().max())
+                    for k in ("rec_score", "rec_ac", "rec_lm", "bf_score", "bf_ac", "bf_lm"))
+    fused_results = assemble_results(dec, fs, *fused_state, lengths)
+    for i, (a, b) in enumerate(zip(fused_results, plain_results)):
+        if a.words != b.words or frames_of(a) != frames_of(b) or a.score != b.score:
+            raise RuntimeError(f"fused and plain tracebacks differ for utterance {i}")
+    print(f"[fused] full-width wave {B} x {Tmax} at {p['beam']}/{p['end_beam']}/"
+          f"{p['maxhyps']}: 15 ys fields, carry, words and word-end frames equal to "
+          f"the plain version (max |float diff| {float_err})", flush=True)
+    n_cand_sum = int(fused_state[1]["n_cand"].sum())
+    n_active_sum = int(fused_state[1]["n_active"].sum())
+    del plain_state, fused_state, fused_results
 
-    # ---- card vs CPU parity on one short utterance -----------------------
-    # a whole sentence: a cut one reaches no final state and has no words
+    # the TPU kernel's scope (no histogram) on a short whole sentence, in one
+    # launch and in two chunks with the carried state
     words_s, xs = wsj_task.sample_utterances(
         task.cache, models, n_utts=2, target_frames=250, seed=12)[1]
     xs = torch.as_tensor(xs)
     sc_card = scorer(xs.to(dev))
+    Ts = sc_card.shape[0]
+    dec0 = TorchDecoder(art, wsj_task.decoder_config(dict(p, maxhyps=0)), device="cuda")
+    sc3 = sc_card[:, None, :].expand(-1, 3, -1).contiguous()
+    fs0 = FusedDecodeScan(dec0, 3)
+    whole = fs0(sc3)
+    c0, y0, _ = dec0.run(sc3.transpose(0, 1))
+    require_equal("fused maxhyps=0", whole, (c0, y0))
+    half = Ts // 2
+    first = fs0(sc3[:half])
+    second = fs0(sc3[half:], carry=first[0], t0=half)
+    joined = {k: torch.cat([first[1][k], second[1][k]]) for k in whole[1]}
+    require_equal("fused two chunks", (second[0], joined), whole)
+    chunked = FusedDecodeScan(dec0, 3, chunk=half)(sc3)
+    require_equal("fused chunk=", chunked, whole)
+    print(f"[fused] max_emit_hyps=0, {Ts} frames x 3: equal to the plain version whole, "
+          f"in two carried calls and with chunk={half} (overflow "
+          f"{int(whole[0]['overflow'].sum())}/3)", flush=True)
+    del whole, first, second, joined, chunked, c0, y0
+
+    # ---- 6. the main path through the kernels ---------------------------------
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    t0 = time.perf_counter()
+    bd = BatchDecoder(dec)
+    results = bd.decode_scores_batch(scorer(x).view(B, Tmax, G), lengths)
+    t_cert = time.perf_counter() - t0
+
+    def fused_wave():
+        sc = scorer(x).view(B, Tmax, G).transpose(0, 1).contiguous()
+        return fs(sc)
+
+    fused_wave()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, _ = fused_wave()
+    torch.cuda.synchronize()
+    t_wave = time.perf_counter() - t0
+    launches = gmm_cuda.counter.launches
+    fs_launches = fused_scan.counter.launches
+    if launches == 0:
+        raise RuntimeError("the main path did not launch gmm_logsumexp")
+    if fs_launches == 0:
+        raise RuntimeError("the main path did not launch frame_step")
+    certify(results, "main path")
+    if int(carry["overflow"].sum()) or int((carry["best_final"]["score"] <= -0.5e30).sum()):
+        raise RuntimeError("fused timed wave overflowed or died")
+    fps = B * Tmax / t_wave
+    print(f"[main path] BatchDecoder (fused route) {t_cert:.2f}s incl. traceback; "
+          f"launches: gmm_logsumexp {launches}, frame_step {fs_launches}", flush=True)
+    print(f"[main path] timed wave: {B} x {Tmax} frames in {t_wave:.4f}s = {fps:.1f} "
+          f"frames/s (GMM kernel + frame-step kernel, diagnostics as the kernel writes "
+          f"them) beside {fps_plain:.1f} frames/s of the plain loop | {card}", flush=True)
+
+    # the kernel alone, and its bound: every input read once (scores, the
+    # carry, the metadata row of each active slot, the four entry-table
+    # columns of each candidate), every output written once
+    fs_ms = cuda_ms(lambda: fs(scores_tbg), 3)
+    K, S = dec.K, dec.S
+    carry_bytes = B * (K * (8 + S * 16) + 17)
+    fs_bytes = (4.0 * scores_tbg.numel() + 2 * carry_bytes + 48.0 * n_active_sum
+                + 24.0 * n_cand_sum + 4.0 * Tmax * B * (7 * K + 8))
+    # per slot and frame: S*S adds and compares of the propagation and a
+    # few per state after it; per candidate a handful
+    fs_ops = float(Tmax) * B * K * (2 * S * S + 12 * S) + 20.0 * n_cand_sum
+    fs_t_ops, fs_t_bytes = fs_ops / PEAK_F32_FLOPS * 1e3, fs_bytes / PEAK_BYTES * 1e3
+    fs_bound = max(fs_t_ops, fs_t_bytes)
+    print(f"[frame_step] {B} x {Tmax} frames: kernel {fs_ms:.3f} ms a wave "
+          f"({fs_ms * 1e3 / Tmax:.2f} us a frame), plain loop {t_plain_diag * 1e3:.1f} ms, "
+          f"bound {fs_bound:.4f} ms ({'operations' if fs_t_ops >= fs_t_bytes else 'bytes'}: "
+          f"{fs_bytes / 1e6:.1f} MB, {fs_ops / 1e9:.2f} G operations; the kernel sits at "
+          f"the latency of its dependent stages with {B} of 132 SMs busy, not at this "
+          f"bound) | {card}", flush=True)
+
+    # ---- 7. card vs CPU parity on one short utterance -----------------------
+    # a whole sentence (sampled above): a cut one reaches no final state and
+    # has no words
     cpu_dec = TorchDecoder(art, cfg, device="cpu")
     cpu_scorer = make_gmm_scorer(params, device="cpu")
 
@@ -239,9 +369,6 @@ def main() -> int:
     r_cpu, ys_cpu = decode_records(cpu_dec, sc_card.cpu())
     r_plain, ys_plain = decode_records(cpu_dec, cpu_scorer(xs))
 
-    def frames(r):
-        return [h.end_frame for h in r.word_hyps]
-
     rec_names = ("rec_prev", "rec_seq", "rec_src", "rec_arc")
     same_rec = all((ys_card[k] == ys_cpu[k]).all() for k in rec_names)
     plain_rec = all((ys_card[k] == ys_plain[k]).all() for k in rec_names)
@@ -250,17 +377,17 @@ def main() -> int:
     print(f"[parity] {xs.shape[0]} frames, {len(r_card.words)} words (transcript "
           f"{ok_words}): card vs "
           f"cpu (same scores) words {r_card.words == r_cpu.words}, frames "
-          f"{frames(r_card) == frames(r_cpu)}, records {same_rec}; card vs cpu "
+          f"{frames_of(r_card) == frames_of(r_cpu)}, records {same_rec}; card vs cpu "
           f"plain scorer words {r_card.words == r_plain.words}, frames "
-          f"{frames(r_card) == frames(r_plain)}, records {plain_rec}, "
+          f"{frames_of(r_card) == frames_of(r_plain)}, records {plain_rec}, "
           f"score diff {abs(r_card.score - r_plain.score):.2e}", flush=True)
     if not (ok_words and r_card.words == r_cpu.words
-            and frames(r_card) == frames(r_cpu) and same_rec
+            and frames_of(r_card) == frames_of(r_cpu) and same_rec
             and r_card.words == r_plain.words
-            and frames(r_card) == frames(r_plain)):
+            and frames_of(r_card) == frames_of(r_plain)):
         raise RuntimeError("card and CPU decodes disagree")
 
-    # ---- 5. result ------------------------------------------------------
+    # ---- 8. result ------------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "gmm_logsumexp", "route": "cuda",
         "source": "juicer_tpu_torch/csrc/gmm_logsumexp.cu",
@@ -269,6 +396,14 @@ def main() -> int:
         "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": library_ms,
+    }, {
+        "name": "frame_step", "route": "cuda",
+        "source": "juicer_tpu_torch/csrc/frame_step.cu",
+        "replaces": "juicer_tpu/decoder/pallas_scan.py:285",
+        "launches": fs_launches, "max_abs_err": float_err, "equal_to_plain": True,
+        "ms": fs_ms, "plain_ms": t_plain_diag * 1e3, "bound_ms": fs_bound,
+        "bound_by": "operations" if fs_t_ops >= fs_t_bytes else "bytes",
+        "library_ms": None,
     }]}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

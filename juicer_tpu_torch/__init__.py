@@ -8,7 +8,12 @@ against; nothing here imports it, or JAX. The port's slices so far:
     in `juicer_tpu/ops/gmm_pallas.py`), on the CPU its plain PyTorch form;
   - `decoder.core`: the static-network 1-best frame-synchronous beam
     search (`juicer_tpu/decoder/tpu_core.py`), with a leading batch axis;
-  - `parallel.batch`: single-device batch decoding with padded lengths.
+  - `decoder.fused_scan`: the fused frame-step scan; on the card a
+    persistent hand-written CUDA kernel (`csrc/frame_step.cu`, the
+    counterpart of `juicer_tpu/decoder/pallas_scan.py`), on the CPU the
+    plain frame loop of `decoder.core`;
+  - `parallel.batch`: single-device batch decoding with padded lengths,
+    through the fused scan where it applies.
 
 Precision: the expanded GMM quadratic form cancels strongly when x is
 close to a mean, and TF32 (or bf16) products perturb scores by ~1e-3,

@@ -19,7 +19,10 @@ import threading
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
-SOURCES = ("gmm_logsumexp",)
+SOURCES = ("gmm_logsumexp", "frame_step")
+# frame_step is held bit for bit to its plain version: no contraction of a
+# multiply and an add into one rounding, should a later edit bring a multiply
+EXTRA_FLAGS = {"frame_step": ["-fmad=false"]}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -37,6 +40,7 @@ def _nvcc() -> str:
 def _cmd(name: str, out: str) -> list[str]:
     return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+            *EXTRA_FLAGS.get(name, ()),
             "-o", out, os.path.join(CSRC, f"{name}.cu")]
 
 

@@ -403,9 +403,12 @@ class TorchDecoder:
             emit_thresh = torch.full_like(
                 normalise, -cfg.emit_prune_win if cfg.emit_prune_win > 0.0 else NEG)
         if cfg.phone_start_prune_win > 0.0:
+            # out of place: the carry handed in may be resumed from again
             start_thresh = carry["best_start"] - cfg.phone_start_prune_win
-            entry = fr["score"][:, :, 0]
-            fr["score"][:, :, 0] = torch.where(entry < start_thresh[:, None], NEG, entry)
+            pruned = fr["score"].clone()
+            entry = pruned[:, :, 0]
+            pruned[:, :, 0] = torch.where(entry < start_thresh[:, None], NEG, entry)
+            fr = dict(fr, score=pruned)
 
         # ---- internal propagation ----------------------------------------
         meta = tab["arc_meta"][fr["arc"].clamp(max=self.n_arcs + 1)]  # (B, K, 6)
@@ -521,25 +524,36 @@ class TorchDecoder:
         }
         return carry, rec0
 
-    def run(self, gmm_scores: torch.Tensor):
+    def run(self, gmm_scores: torch.Tensor, carry=None, t0: int = 0,
+            diagnostics: Optional[bool] = None):
         """Decode a (B, T, n_gmms) float32 score batch on the decoder's
         device. Returns (carry, ys, rec0) as device tensors: ys holds the
-        (T, B, K) traceback records and, with diagnostics, the (T, B)
-        per-frame best-final snapshots and counters."""
+        (T, B, K) traceback records and, with diagnostics (the config's
+        `emit_diagnostics` unless `diagnostics` says otherwise), the (T, B)
+        per-frame best-final snapshots and counters.
+
+        With `carry` (an earlier call's, left unchanged) the decode resumes
+        from it at frame `t0`, which offsets the record ids `t*K + slot`:
+        a decode in chunks equals the decode in one piece. `rec0`, the
+        records of the initial propagation, is None for a resumed call."""
         if gmm_scores.device != self.device:
             raise ValueError(f"scores on {gmm_scores.device}, decoder on {self.device}")
         B, T = gmm_scores.shape[:2]
-        if T * self.K >= 2**31:
-            raise ValueError(f"T*K = {T * self.K} exceeds int32 record ids")
+        t0 = int(t0)
+        if t0 < 0 or (t0 + T) * self.K >= 2**31:
+            raise ValueError(f"(t0+T)*K = {(t0 + T) * self.K} exceeds int32 record ids")
         scores = gmm_scores.to(_F32)
         dev = self.device
         K = self.K
-        carry, rec0 = self._init_carry(B)
+        if carry is None:
+            carry, rec0 = self._init_carry(B)
+        else:
+            rec0 = None
         int_fields = ("rec_prev", "rec_seq", "rec_src", "rec_arc")
         ys = {name: torch.empty((T, B, K), device=dev,
                                 dtype=torch.int32 if name in int_fields else _F32)
               for name in REC_FIELDS}
-        diag = self.cfg.emit_diagnostics
+        diag = self.cfg.emit_diagnostics if diagnostics is None else diagnostics
         if diag:
             for f in BF_FIELDS:
                 ys["bf_" + f] = torch.empty(
@@ -548,7 +562,7 @@ class TorchDecoder:
             ys["n_active"] = torch.empty((T, B), dtype=torch.int32, device=dev)
             ys["n_cand"] = torch.empty((T, B), dtype=torch.int32, device=dev)
         for t in range(T):
-            carry, rec = self._frame_step(carry, scores[:, t], t)
+            carry, rec = self._frame_step(carry, scores[:, t], t0 + t)
             for name in REC_FIELDS:
                 ys[name][t] = rec[name]
             if diag:

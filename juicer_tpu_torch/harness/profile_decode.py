@@ -1,6 +1,6 @@
 """Where a decode wave's time goes on the card.
 
-    python -m juicer_tpu_torch.harness.profile_decode [--frames N] [--trace]
+    python -m juicer_tpu_torch.harness.profile_decode [--frames N] [--fused] [--trace]
 
 Scores the 2k-word WSJ-order task's bench batch (8 sampled utterances
 tiled to 16, `WSJ_POINT`, diagnostics off) with the GMM kernel, runs the
@@ -10,6 +10,9 @@ frame, the device kernel time per frame (sum of kernel durations), the
 device idle share (1 - kernel time / wall time), kernel launches per
 frame, and the ten costliest kernels; `--trace` writes the Chrome trace
 to `chiprun_out/profile_decode.json` (large: tens of MB per 100 frames).
+`--fused` profiles the fused route instead: one launch of the frame-step
+kernel (`decoder/fused_scan.py`) over the same N frames, diagnostics as
+the kernel writes them.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ..decoder.core import TorchDecoder
+from ..decoder.fused_scan import FusedDecodeScan
 from ..ops.gmm import make_gmm_scorer
 from . import wsj_task
 
@@ -32,6 +36,8 @@ from . import wsj_task
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=100)
+    ap.add_argument("--fused", action="store_true",
+                    help="profile the fused frame-step kernel, not the plain loop")
     ap.add_argument("--trace", action="store_true",
                     help="write the Chrome trace to chiprun_out/")
     args = ap.parse_args()
@@ -45,14 +51,26 @@ def main() -> None:
     B = p["batch"]
     T = args.frames
     scorer = make_gmm_scorer(task.models.flat_params(), device="cuda")
-    feats = torch.stack([torch.as_tensor(utts[i % len(utts)][1][:T]) for i in range(B)])
+    # the first T frames of each utterance, edge-padded where it is shorter
+    feats = torch.stack([
+        torch.as_tensor(f).index_select(0, torch.arange(T).clamp(max=f.shape[0] - 1))
+        for f in (utts[i % len(utts)][1] for i in range(B))])
     scores = scorer(feats.cuda().reshape(B * T, -1)).view(B, T, -1)
     dec = TorchDecoder(task.artifact, wsj_task.decoder_config(p, emit_diagnostics=False))
-    dec.run(scores)  # warm-up: allocator, cuBLAS/cub workspaces
+    if args.fused:
+        fs = FusedDecodeScan(dec, B)
+        scores_tbg = scores.transpose(0, 1).contiguous()
+
+        def run():
+            return fs(scores_tbg)
+    else:
+        def run():
+            return dec.run(scores)
+    run()  # warm-up: the kernel build, allocator, cuBLAS/cub workspaces
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        dec.run(scores)
+        run()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     # device-side events only (an aten op and its kernel both carry the
@@ -64,11 +82,11 @@ def main() -> None:
     # the profiler slows the host; time the same run without it too
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    dec.run(scores)
+    run()
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t1
     out = {
-        "card": card, "batch": B, "frames": T,
+        "card": card, "route": "fused" if args.fused else "plain", "batch": B, "frames": T,
         "wall_ms_per_frame": plain_wall / T * 1e3,
         "profiled_wall_ms_per_frame": wall / T * 1e3,
         "kernel_ms_per_frame": kernel_us / T / 1e3,

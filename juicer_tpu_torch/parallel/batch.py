@@ -4,10 +4,14 @@ Single-device counterpart of `BatchDecoder` in
 `juicer_tpu/parallel/mesh.py`: where the JAX package vmaps the
 per-utterance scan and shards the batch over a mesh, the port's frame
 step already carries the batch axis. Utterances are padded to a common
-frame count (repeat the last frame); with `emit_diagnostics` on, each
-result is read at its true length from the per-frame best-final
-snapshots, so padded decodes are exact. The fused Pallas route and the
-mesh are not ported.
+frame count (repeat the last frame); each result is read at its true
+length from the per-frame best-final snapshots, so padded decodes are
+exact.
+
+Two routes, as the JAX class has (`use_pallas` there, `use_fused` here):
+the fused scan (`decoder/fused_scan.py`: on the card one launch of the
+frame-step kernel per batch, on the CPU its plain version) and the plain
+frame loop `TorchDecoder.run`. The mesh is not ported.
 """
 
 from __future__ import annotations
@@ -16,12 +20,35 @@ import numpy as np
 import torch
 
 from ..decoder.core import TorchDecoder, host_batch
+from ..decoder.fused_scan import (FusedDecodeScan, assemble_results,
+                                  fused_eligible, max_scan_T)
 from ..decoder.results import DecodeResult
 
 
 class BatchDecoder:
-    def __init__(self, decoder: TorchDecoder):
+    """`use_fused`: "auto" takes the fused scan when `fused_eligible(decoder)`
+    (on a CUDA decoder that launches the kernel or raises); True raises
+    ValueError when the decoder or the batch is outside its scope; False
+    takes `TorchDecoder.run`. `fused_chunk` splits the fused scan into
+    launches of that many frames (default: one launch per batch)."""
+
+    def __init__(self, decoder: TorchDecoder, use_fused="auto", fused_chunk=None):
+        if use_fused not in ("auto", True, False):
+            raise ValueError(f"use_fused must be 'auto', True or False, not {use_fused!r}")
         self.decoder = decoder
+        self.use_fused = use_fused
+        self.fused_chunk = fused_chunk
+        self._fs: dict[int, FusedDecodeScan] = {}  # batch size -> scan
+
+    def _fused_ok(self, T: int) -> bool:
+        if self.use_fused is False:
+            return False
+        ok = fused_eligible(self.decoder) and 0 < T <= max_scan_T(self.decoder)
+        if not ok and self.use_fused is True:
+            raise ValueError(
+                "use_fused=True but the decoder or the batch is outside the fused "
+                "scan's scope (see fused_scan.fused_eligible; frames in (0, max_scan_T])")
+        return ok
 
     def decode_scores_batch(self, gmm_scores, lengths=None) -> list[DecodeResult]:
         """gmm_scores: (B, T, n_gmms), optionally padded to a common T with
@@ -30,13 +57,23 @@ class BatchDecoder:
         if not isinstance(gmm_scores, torch.Tensor):
             gmm_scores = torch.from_numpy(np.array(gmm_scores, np.float32))
         B, T = gmm_scores.shape[:2]
+        fused = self._fused_ok(T)
         if lengths is not None:
             if len(lengths) != B or min(int(n) for n in lengths) <= 0 or max(
                     int(n) for n in lengths) > T:
                 raise ValueError(f"lengths {list(lengths)} do not fit a batch of {B} x {T}")
-            if not dec.cfg.emit_diagnostics and min(int(n) for n in lengths) < T:
+            # the fused scan always writes the per-frame snapshots
+            if not fused and not dec.cfg.emit_diagnostics and min(int(n) for n in lengths) < T:
                 raise ValueError("padded lengths need emit_diagnostics=True")
-        carry, ys, rec0 = dec.run(gmm_scores.to(dec.device, torch.float32))
+        scores = gmm_scores.to(dec.device, torch.float32)
+        if fused:
+            fs = self._fs.get(B)
+            if fs is None:
+                fs = self._fs[B] = FusedDecodeScan(dec, B, chunk=self.fused_chunk)
+            carry, ys = fs(scores.transpose(0, 1).contiguous())
+            return assemble_results(dec, fs, carry, ys,
+                                    lengths if lengths is not None else [T] * B)
+        carry, ys, rec0 = dec.run(scores)
         host = host_batch(carry, ys, rec0)
         return [
             dec.traceback(host, b, T,

@@ -13,8 +13,15 @@ import numpy as np
 import pytest
 import torch
 
+from juicer_tpu_torch.am.models import LOG_ZERO, AcousticModelSet
 from juicer_tpu_torch.convert import gmm_params_from_numpy
-from juicer_tpu_torch.decoder.core import REC_FIELDS, TorchDecoder, host_batch
+from juicer_tpu_torch.decoder import fused_scan
+from juicer_tpu_torch.decoder.artifact import DecoderArtifact
+from juicer_tpu_torch.decoder.core import (REC_FIELDS, TorchDecoder,
+                                           TorchDecoderConfig, host_batch)
+from juicer_tpu_torch.decoder.fused_scan import (FusedDecodeScan, assemble_results,
+                                                 state_differences)
+from juicer_tpu_torch.decoder.network import DecoderNetwork
 from juicer_tpu_torch.harness import wsj_task
 from juicer_tpu_torch.ops import gmm_cuda
 from juicer_tpu_torch.ops.gmm import gmm_scores_dense, make_gmm_scorer
@@ -94,3 +101,181 @@ def test_card_decode_equals_cpu(card):
     assert r_card.words == r_cpu.words and r_card.score == r_cpu.score
     labels, markers = wsj_task.word_labels(task.cache)
     assert [w for w in r_card.words if w not in markers] == [labels[w] for w in words]
+
+
+# ---- the fused frame-step kernel against its plain version ------------------
+
+
+def _fuzz_artifact(seed, n_states=40, n_models=5, n_emit=3, n_gmms=12):
+    """A random left-to-right HMM set and a random network (epsilon arcs
+    only forward, a chain to a final state), built without the JAX
+    package."""
+    rng = np.random.default_rng(seed)
+    ms = AcousticModelSet()
+    ms.vec_size = 4
+    n = n_emit + 2
+    for h in range(n_models):
+        tm = np.full((n, n), LOG_ZERO)
+        tm[0, 1] = 0.0
+        for j in range(1, n - 1):
+            stay = rng.uniform(0.3, 0.7)
+            tm[j, j] = np.log(stay)
+            tm[j, j + 1] = np.log(1.0 - stay)
+        ms.trans_mats.append(tm)
+        ms.hmm_names.append(f"m{h}")
+        ms.hmm_trans_ind.append(h)
+        ms.hmm_gmm_inds.append(rng.integers(0, n_gmms, size=n_emit))
+    ms._hmm_index = {name: i for i, name in enumerate(ms.hmm_names)}
+    ms.gmm_means = [np.zeros((1, 4))] * n_gmms
+    ms.gmm_vars = [np.ones((1, 4))] * n_gmms
+    ms.gmm_log_weights = [np.zeros(1)] * n_gmms
+
+    arcs = []
+    for _ in range(int(rng.integers(2 * n_states, 4 * n_states))):
+        src, dst = int(rng.integers(n_states)), int(rng.integers(n_states))
+        il = 0 if rng.random() < 0.25 else int(rng.integers(1, n_models + 1))
+        if il == 0 and dst <= src:
+            if src == n_states - 1:
+                continue
+            dst = int(rng.integers(src + 1, n_states))
+        ol = int(rng.integers(1, 6)) if rng.random() < 0.4 else 0
+        # a coarse grid of weights, so that equal path scores do occur
+        arcs.append((src, dst, il, ol, float(np.round(rng.normal(0, 0.8), 1))))
+    for s_ in range(n_states - 1):
+        arcs.append((s_, s_ + 1, int(rng.integers(1, n_models + 1)), 0, -0.1))
+    arcs.sort(key=lambda a: a[0])
+    net = DecoderNetwork()
+    cols = list(zip(*arcs))
+    net.arc_src, net.arc_dst, net.arc_ilabel, net.arc_olabel = (
+        np.asarray(c, np.int32) for c in cols[:4])
+    net.arc_weight = np.asarray(cols[4], np.float64)
+    net.n_states, net.n_arcs, net.init_state = n_states, len(arcs), 0
+    net.row_ptr = np.searchsorted(net.arc_src, np.arange(n_states + 1)).astype(np.int64)
+    net.final_weight = np.full(n_states, LOG_ZERO)
+    net.final_weight[n_states - 1] = -0.5
+    net.final_weight[int(rng.integers(n_states))] = -0.2
+    net.word_end_marker = net.sil_marker = net.sp_marker = -1
+    net.lm_scale, net.ins_pen = 1.0, 0.0
+    return DecoderArtifact(net, ms), n_gmms
+
+
+def _fuzz_scores(seed, T, B, G, device):
+    # a coarse grid again: ties between paths are part of what is checked
+    rng = np.random.default_rng(seed)
+    sc = np.round(rng.normal(-8.0, 3.0, size=(T, B, G)) * 4) / 4
+    return torch.as_tensor(sc.astype(np.float32), device=device)
+
+
+def _assert_kernel_equals_plain(dec, scores, chunk=None):
+    """One fused call (and, with `chunk`, the chunked one) against
+    `TorchDecoder.run` on the same device, bit for bit."""
+    B = scores.shape[1]
+    n0 = fused_scan.counter.launches
+    fs = FusedDecodeScan(dec, B, chunk=chunk)
+    got = fs(scores)
+    torch.cuda.synchronize()
+    assert fused_scan.counter.launches - n0 == (-(-scores.shape[0] // chunk) if chunk else 1)
+    carry, ys, _ = dec.run(scores.transpose(0, 1), diagnostics=True)
+    assert state_differences(got, (carry, ys)) == []
+    return fs, got
+
+
+FUZZ_PRUNING = [
+    dict(),
+    dict(emit_prune_win=40.0, phone_end_prune_win=30.0, word_prune_win=25.0),
+    dict(emit_prune_win=40.0, phone_end_prune_win=30.0, max_emit_hyps=12),
+    dict(phone_start_prune_win=30.0, max_emit_hyps=30),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 3, 16])
+@pytest.mark.parametrize("row", range(len(FUZZ_PRUNING)))
+def test_frame_step_matches_plain_on_fuzz_network(card, row, B):
+    art, G = _fuzz_artifact(seed=row)
+    cfg = TorchDecoderConfig(max_insts=256, expand_budget=2048, final_budget=128,
+                             **FUZZ_PRUNING[row])
+    dec = TorchDecoder(art, cfg, device=card)
+    scores = _fuzz_scores(10 * row + B, 60, B, G, card)
+    fs, whole = _assert_kernel_equals_plain(dec, scores)
+    assert not bool(whole[0]["overflow"].any())
+    assert (whole[1]["rec_seq"] != 0).any() and (whole[1]["bf_score"] > NEG / 2).any()
+    # two chunks with the carried state equal one launch, through both forms
+    _assert_kernel_equals_plain(dec, scores, chunk=37)
+    first = fs(scores[:37])
+    second = fs(scores[37:], carry=first[0], t0=37)
+    joined = {k: torch.cat([first[1][k], second[1][k]]) for k in whole[1]}
+    assert state_differences((second[0], joined), whole) == []
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("budgets", [dict(max_insts=8), dict(expand_budget=6),
+                                     dict(final_budget=1)])
+def test_frame_step_overflow_flags_equal(card, budgets):
+    """Budgets that overflow on purpose: the same flags are set and the
+    same candidates dropped."""
+    art, G = _fuzz_artifact(seed=7)
+    kw = dict(max_insts=256, expand_budget=512, final_budget=128)
+    kw.update(budgets)
+    dec = TorchDecoder(art, TorchDecoderConfig(**kw), device=card)
+    _, got = _assert_kernel_equals_plain(dec, _fuzz_scores(3, 40, 4, G, card))
+    assert bool(got[0]["overflow"].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_emit", [1, 2, 4, 6])
+def test_frame_step_other_state_counts(card, n_emit):
+    """The kernel is compiled per HMM state count S = n_emit + 2."""
+    art, G = _fuzz_artifact(seed=20 + n_emit, n_emit=n_emit)
+    cfg = TorchDecoderConfig(max_insts=256, expand_budget=2048, final_budget=128,
+                             emit_prune_win=40.0, phone_end_prune_win=30.0, max_emit_hyps=25)
+    dec = TorchDecoder(art, cfg, device=card)
+    assert dec.S == n_emit + 2
+    _, got = _assert_kernel_equals_plain(dec, _fuzz_scores(n_emit, 50, 5, G, card), chunk=20)
+    assert (got[1]["rec_seq"] != 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_hyps", [0, 500])
+def test_frame_step_matches_plain_on_wsj_sentence(card, max_hyps):
+    """A short sentence of the 2k-word task at the operating point's
+    budgets, with and without maxHyps, tiled to three utterances; the
+    traced-back words are the transcript."""
+    task = wsj_task.load_task("2k", verbose=False)
+    words, feats = wsj_task.sample_utterances(task.cache, task.models, 2, 250, seed=12)[1]
+    sc = make_gmm_scorer(task.models.flat_params(), device=card)(
+        torch.as_tensor(feats, device=card))
+    cfg = wsj_task.decoder_config(dict(wsj_task.WSJ_POINT, maxhyps=max_hyps))
+    dec = TorchDecoder(task.artifact, cfg, device=card)
+    assert fused_scan.fused_eligible(dec)
+    scores = sc[:, None, :].expand(-1, 3, -1).contiguous()
+    fs, got = _assert_kernel_equals_plain(dec, scores)
+    results = assemble_results(dec, fs, *got, [sc.shape[0]] * 3)
+    labels, markers = wsj_task.word_labels(task.cache)
+    for r in results:
+        assert not r.overflow
+        assert [w for w in r.words if w not in markers] == [labels[w] for w in words]
+
+
+@pytest.mark.gpu
+def test_frame_step_refuses_bad_input(card):
+    art, G = _fuzz_artifact(seed=1)
+    dec = TorchDecoder(art, TorchDecoderConfig(max_insts=128, expand_budget=256), device=card)
+    fs = FusedDecodeScan(dec, 2)
+    scores = _fuzz_scores(0, 5, 2, G, card)
+    d = fs.dims
+    assert fused_scan._get_lib().jtpu_frame_step_smem_bytes(
+        d["K"], d["E"], d["S"], d["G"], d["n_bins"], d["HT"]) == fused_scan.smem_bytes(**d)
+    n0 = fused_scan.counter.launches
+    with pytest.raises(ValueError, match="is on cpu"):
+        fs._launch(scores.cpu(), fs.init, 0)  # the kernel entry takes no CPU tensor
+    with pytest.raises(ValueError, match="float64"):
+        fs(scores.double())
+    with pytest.raises(ValueError, match="not contiguous"):
+        fs(scores.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="GMMs"):
+        fs(scores[:, :, : d["G"] - 1].contiguous())
+    bad = dict(fs.init, norm=fs.init["norm"].double())
+    with pytest.raises(ValueError, match="carry norm"):
+        fs(scores, carry=bad)
+    assert fused_scan.counter.launches == n0
