@@ -18,7 +18,8 @@
 // What changed from the TPU design, and why:
 //   - the TPU's sequential grid over frames is a loop inside the block; the
 //     carry enters and leaves through device memory, so one launch per
-//     utterance batch or one per chunk of frames give the same result;
+//     utterance batch or a call per piece of it (carry and first frame
+//     number handed in) give the same result;
 //   - utterances never interact, so the batch axis is the grid (any B >= 1;
 //     the TPU's sublane groups of 8 are gone);
 //   - tables stay in device memory (L2 at these sizes) and are gathered by
@@ -79,7 +80,7 @@ enum Ptr {
 };
 enum Int {
   I_B, I_K, I_E, I_F, I_S, I_G, I_N_ARCS, I_N_ENT, I_N_FENT, I_N_BINS, I_HT,
-  I_MAX_EMIT_HYPS, I_N_FRAMES, I_FRAME_OFF, I_T_BASE, I_THREADS,
+  I_MAX_EMIT_HYPS, I_N_FRAMES, I_T_BASE, I_THREADS,
   N_INT
 };
 enum Flt { F_EMIT_WIN, F_START_WIN, F_END_WIN, F_WORD_WIN, F_HIST_MIN, F_HIST_MAX, N_FLT };
@@ -282,7 +283,7 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
   __syncthreads();
 
   for (int f = 0; f < p.i[I_N_FRAMES]; ++f) {
-    const size_t row_tb = static_cast<size_t>(p.i[I_FRAME_OFF] + f) * B + b;
+    const size_t row_tb = static_cast<size_t>(f) * B + b;
     const int t = p.i[I_T_BASE] + f;
 
     // ---- frame scalars; load the frame's scores; clear the tables ------

@@ -524,13 +524,11 @@ class TorchDecoder:
         }
         return carry, rec0
 
-    def run(self, gmm_scores: torch.Tensor, carry=None, t0: int = 0,
-            diagnostics: Optional[bool] = None):
+    def run(self, gmm_scores: torch.Tensor, carry=None, t0: int = 0):
         """Decode a (B, T, n_gmms) float32 score batch on the decoder's
         device. Returns (carry, ys, rec0) as device tensors: ys holds the
-        (T, B, K) traceback records and, with diagnostics (the config's
-        `emit_diagnostics` unless `diagnostics` says otherwise), the (T, B)
-        per-frame best-final snapshots and counters.
+        (T, B, K) traceback records and, with `cfg.emit_diagnostics`, the
+        (T, B) per-frame best-final snapshots and counters.
 
         With `carry` (an earlier call's, left unchanged) the decode resumes
         from it at frame `t0`, which offsets the record ids `t*K + slot`:
@@ -553,7 +551,7 @@ class TorchDecoder:
         ys = {name: torch.empty((T, B, K), device=dev,
                                 dtype=torch.int32 if name in int_fields else _F32)
               for name in REC_FIELDS}
-        diag = self.cfg.emit_diagnostics if diagnostics is None else diagnostics
+        diag = self.cfg.emit_diagnostics
         if diag:
             for f in BF_FIELDS:
                 ys["bf_" + f] = torch.empty(

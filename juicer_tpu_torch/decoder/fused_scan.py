@@ -17,7 +17,9 @@ counters, integers as int32.
 
 from __future__ import annotations
 
+import copy
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -38,7 +40,7 @@ MAX_THREADS = 1024
 _TABLES = ("arc_meta", "ent_arc", "ent_score", "ent_ac", "ent_seq", "f_score",
            "f_ac", "f_seq", "trP", "emitting", "state_gmm")
 _INTS = ("B", "K", "E", "F", "S", "G", "n_arcs", "n_ent", "n_fent", "n_bins",
-         "HT", "max_emit_hyps", "n_frames", "frame_off", "t_base", "threads")
+         "HT", "max_emit_hyps", "n_frames", "t_base", "threads")
 _FLOATS = ("emit_win", "start_win", "end_win", "word_win", "hist_min", "hist_max")
 _N_PTR = len(_TABLES) + 1 + 9 + 15 + len(REC_NAMES)
 
@@ -121,6 +123,23 @@ def max_scan_T(dec: TorchDecoder) -> int:
     return (2**31 - 1) // dec.K
 
 
+def why_not_fused(dec: TorchDecoder) -> str | None:
+    """Why the fused kernel does not cover this decoder (the conditions
+    of `fused_eligible`); None when it does."""
+    if not isinstance(dec, TorchDecoder):
+        return f"a {type(dec).__name__} is not a TorchDecoder"
+    if not 2 <= dec.S <= 8:
+        return f"{dec.S} HMM states, the kernel is compiled for 2..8"
+    need = smem_bytes(**_dims(dec))
+    if need > SMEM_LIMIT:
+        return (f"K={dec.K}, E={dec.E}, S={dec.S} need {need} bytes of shared "
+                f"memory a block, the card gives {SMEM_LIMIT}")
+    n_ent = dec.tab["ent_arc"].shape[0]
+    if max(dec.K * _max_fan(dec), n_ent, dec.n_arcs + 2) >= 2**31:
+        return "fan-out sums or table rows exceed int32"
+    return None
+
+
 def fused_eligible(dec: TorchDecoder) -> bool:
     """Whether the fused kernel covers this decoder.
 
@@ -140,12 +159,7 @@ def fused_eligible(dec: TorchDecoder) -> bool:
     here they stay in device memory and are gathered by index); E <= 2048
     and F <= E (the dense (E, E) compare is a hash table, and finals are
     read in place)."""
-    if not isinstance(dec, TorchDecoder) or not 2 <= dec.S <= 8:
-        return False
-    if smem_bytes(**_dims(dec)) > SMEM_LIMIT:
-        return False
-    n_ent = dec.tab["ent_arc"].shape[0]
-    return max(dec.K * _max_fan(dec), n_ent, dec.n_arcs + 2) < 2**31
+    return why_not_fused(dec) is None
 
 
 def _check(name, t, device, dtype, shape):
@@ -166,20 +180,24 @@ class FusedDecodeScan:
     log-likelihoods and returns `(carry, ys)`. Without a carry it starts
     from the initial propagation (`self.init`, built once by the plain
     code; its records are `self.rec0`); with one it resumes at frame
-    `t0`, so chunked calls equal one call. `chunk` splits a CUDA call
-    into launches of that many frames (default: one launch); the plain
-    version on the CPU always runs the frames in one piece.
+    `t0`, so a decode in pieces equals the decode in one call. A call on
+    CUDA tensors is one launch of the kernel.
     """
 
-    def __init__(self, dec: TorchDecoder, B: int, chunk: int | None = None):
-        if not fused_eligible(dec):
-            raise ValueError("decoder outside the fused scan's scope (see fused_eligible)")
-        if B < 1 or (chunk is not None and chunk < 1):
-            raise ValueError(f"batch {B} and chunk {chunk} must be positive")
+    def __init__(self, dec: TorchDecoder, B: int):
+        why = why_not_fused(dec)
+        if why is not None:
+            raise ValueError(f"decoder outside the fused scan's scope: {why}")
+        if B < 1:
+            raise ValueError(f"batch {B} must be positive")
         self.dec = dec
         self.B = B
-        self.chunk = chunk
         self.dims = _dims(dec)
+        # the plain version writes the (T, B) snapshots as the kernel always does
+        self._plain = dec
+        if not dec.cfg.emit_diagnostics:
+            self._plain = copy.copy(dec)
+            self._plain.cfg = dataclasses.replace(dec.cfg, emit_diagnostics=True)
         self.init, self.rec0 = dec._init_carry(B)
 
     # ------------------------------------------------------------------
@@ -234,19 +252,14 @@ class FusedDecodeScan:
                     n_arcs=dec.n_arcs, n_ent=dec.tab["ent_arc"].shape[0],
                     n_fent=dec.tab["f_score"].shape[0], n_bins=d["n_bins"],
                     HT=d["HT"], max_emit_hyps=cfg.max_emit_hyps,
+                    n_frames=T, t_base=t0,
                     threads=min(MAX_THREADS, max(128, -(-K // 32) * 32)))
+        ints = (ctypes.c_int * len(_INTS))(*[vals[k] for k in _INTS])
         stream = torch.cuda.current_stream(dev).cuda_stream
-        step = self.chunk or T
-        for c0 in range(0, T, step):
-            if c0:
-                # the next chunk resumes from the state the last one left
-                ptrs[len(_TABLES) + 1:len(_TABLES) + 10] = [t.data_ptr() for t in outs]
-            vals.update(n_frames=min(step, T - c0), frame_off=c0, t_base=t0 + c0)
-            ints = (ctypes.c_int * len(_INTS))(*[vals[k] for k in _INTS])
-            rc = lib.jtpu_frame_step(ptrs, ints, flts, stream)
-            if rc != 0:
-                raise RuntimeError(f"frame_step: launch failed (code {rc})")
-            counter.launches += 1
+        rc = lib.jtpu_frame_step(ptrs, ints, flts, stream)
+        if rc != 0:
+            raise RuntimeError(f"frame_step: launch failed (code {rc})")
+        counter.launches += 1
         fr = dict(zip(("arc", "score", "ac", "path"), outs[:4]))
         carry_out = dict(zip(("best_emit", "best_start", "kth_emit", "norm", "overflow"), outs[4:]),
                          fr=fr, best_final=bf)
@@ -266,8 +279,7 @@ class FusedDecodeScan:
             carry = self.init
         if scores.device.type == "cpu":
             # the plain version
-            carry, ys, _ = dec.run(scores.transpose(0, 1), carry=carry, t0=t0,
-                                   diagnostics=True)
+            carry, ys, _ = self._plain.run(scores.transpose(0, 1), carry=carry, t0=t0)
             return carry, ys
         return self._launch(scores, carry, t0)
 

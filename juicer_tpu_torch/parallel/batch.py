@@ -21,34 +21,39 @@ import torch
 
 from ..decoder.core import TorchDecoder, host_batch
 from ..decoder.fused_scan import (FusedDecodeScan, assemble_results,
-                                  fused_eligible, max_scan_T)
+                                  max_scan_T, why_not_fused)
 from ..decoder.results import DecodeResult
 
 
 class BatchDecoder:
-    """`use_fused`: "auto" takes the fused scan when `fused_eligible(decoder)`
-    (on a CUDA decoder that launches the kernel or raises); True raises
-    ValueError when the decoder or the batch is outside its scope; False
-    takes `TorchDecoder.run`. `fused_chunk` splits the fused scan into
-    launches of that many frames (default: one launch per batch)."""
+    """`use_fused`: "auto" and True take the fused scan and raise ValueError
+    when the decoder or the batch is outside its scope (`fused_eligible`;
+    frames in (0, `max_scan_T`]); False takes `TorchDecoder.run`. On a CUDA
+    decoder the plain frame loop is therefore reached only by asking for it;
+    on a CPU decoder, where both routes are the plain version, "auto" takes
+    `TorchDecoder.run` for what the kernel would not cover."""
 
-    def __init__(self, decoder: TorchDecoder, use_fused="auto", fused_chunk=None):
+    def __init__(self, decoder: TorchDecoder, use_fused="auto"):
         if use_fused not in ("auto", True, False):
             raise ValueError(f"use_fused must be 'auto', True or False, not {use_fused!r}")
         self.decoder = decoder
         self.use_fused = use_fused
-        self.fused_chunk = fused_chunk
         self._fs: dict[int, FusedDecodeScan] = {}  # batch size -> scan
 
     def _fused_ok(self, T: int) -> bool:
         if self.use_fused is False:
             return False
-        ok = fused_eligible(self.decoder) and 0 < T <= max_scan_T(self.decoder)
-        if not ok and self.use_fused is True:
-            raise ValueError(
-                "use_fused=True but the decoder or the batch is outside the fused "
-                "scan's scope (see fused_scan.fused_eligible; frames in (0, max_scan_T])")
-        return ok
+        dec = self.decoder
+        why = why_not_fused(dec)
+        if why is None and not 0 < T <= max_scan_T(dec):
+            why = f"{T} frames, one scan numbers 1..{max_scan_T(dec)}"
+        if why is None:
+            return True
+        if self.use_fused == "auto" and dec.device.type == "cpu":
+            return False
+        raise ValueError(
+            f"use_fused={self.use_fused!r}: the fused scan does not cover this decode "
+            f"({why}); pass use_fused=False for the plain frame loop")
 
     def decode_scores_batch(self, gmm_scores, lengths=None) -> list[DecodeResult]:
         """gmm_scores: (B, T, n_gmms), optionally padded to a common T with
@@ -69,7 +74,7 @@ class BatchDecoder:
         if fused:
             fs = self._fs.get(B)
             if fs is None:
-                fs = self._fs[B] = FusedDecodeScan(dec, B, chunk=self.fused_chunk)
+                fs = self._fs[B] = FusedDecodeScan(dec, B)
             carry, ys = fs(scores.transpose(0, 1).contiguous())
             return assemble_results(dec, fs, carry, ys,
                                     lengths if lengths is not None else [T] * B)

@@ -136,10 +136,10 @@ def test_chunked_run_equals_one_piece(synth, row):
     carried, equal one run of 128, and the carry handed in is not changed."""
     _, pdec = decoders(synth, **CHUNK_ROWS[row])
     scores = torch.as_tensor(synth[2]).transpose(0, 1)  # (B, T, G)
-    whole_c, whole_y, rec0 = pdec.run(scores, diagnostics=True)
-    c1, y1, rec0_1 = pdec.run(scores[:, :64], diagnostics=True)
+    whole_c, whole_y, rec0 = pdec.run(scores)
+    c1, y1, rec0_1 = pdec.run(scores[:, :64])
     kept = {k: v.clone() for k, v in c1["fr"].items()}
-    c2, y2, none = pdec.run(scores[:, 64:], carry=c1, t0=64, diagnostics=True)
+    c2, y2, none = pdec.run(scores[:, 64:], carry=c1, t0=64)
     assert none is None
     for k, v in kept.items():
         assert torch.equal(v, c1["fr"][k]), k
@@ -220,8 +220,8 @@ def test_batch_decoder_fused_route_equals_plain(synth, use_fused):
         assert (g.score, g.acoustic_score, g.lm_score) == (w.score, w.acoustic_score, w.lm_score)
         assert (g.n_frames, g.overflow, g.max_active, g.max_cand) == (
             w.n_frames, w.overflow, w.max_active, w.max_cand)
-    # unpadded, and with a chunk size (the CPU's plain version ignores it)
-    whole = BatchDecoder(pdec, use_fused=use_fused, fused_chunk=50).decode_scores_batch(btg)
+    # unpadded
+    whole = BatchDecoder(pdec, use_fused=use_fused).decode_scores_batch(btg)
     assert [r.words for r in whole] == [r.words for r in plain.decode_scores_batch(btg)]
 
 
@@ -232,12 +232,50 @@ def test_batch_decoder_refuses_ineligible(synth):
     pdec.K, pdec.E = 4096, 8192
     assert not fused_eligible(pdec)
     btg = np.zeros((2, 4, synth[2].shape[2]), np.float32)
-    with pytest.raises(ValueError, match="use_fused=True"):
+    with pytest.raises(ValueError, match="use_fused=True.*shared memory"):
         BatchDecoder(pdec, use_fused=True).decode_scores_batch(btg)
-    with pytest.raises(ValueError, match="outside the fused scan"):
+    with pytest.raises(ValueError, match="outside the fused scan.*shared memory"):
         FusedDecodeScan(pdec, 2)
     with pytest.raises(ValueError):
         BatchDecoder(pdec, use_fused="yes")
+
+
+def test_batch_decoder_auto_on_ineligible_decoder(synth):
+    """"auto" never gives way to the plain frame loop for a decoder on the
+    card: it raises with the reason. For a CPU decoder, where both routes
+    are the plain version, it takes `TorchDecoder.run`."""
+    _, pdec = decoders(synth)
+    btg = np.ascontiguousarray(synth[2].transpose(1, 0, 2))[:2, :8]
+    want = BatchDecoder(pdec, use_fused=False).decode_scores_batch(btg)
+    K, E = pdec.K, pdec.E
+    pdec.K, pdec.E = 4096, 8192  # beyond one block's shared memory; restored below
+    assert "shared memory" in fused_scan.why_not_fused(pdec)
+    on_card = BatchDecoder(pdec)
+    pdec.device = torch.device("cuda", 0)  # routing looks at the device only
+    with pytest.raises(ValueError, match="use_fused='auto'.*shared memory.*use_fused=False"):
+        on_card.decode_scores_batch(btg)
+    pdec.device = torch.device("cpu")
+    pdec.K, pdec.E = K, E
+    # an eligible decoder, a batch beyond one scan's frame numbers
+    with pytest.raises(ValueError, match="frames"):
+        BatchDecoder(pdec, use_fused=True)._fused_ok(max_scan_T(pdec) + 1)
+    bd = BatchDecoder(pdec)
+    assert bd._fused_ok(max_scan_T(pdec) + 1) is False and bd._fused_ok(8) is True
+    got = bd.decode_scores_batch(btg)
+    assert [r.words for r in got] == [r.words for r in want]
+
+
+def test_fused_scan_of_decoder_without_diagnostics(synth):
+    """The kernel always writes the (T, B) snapshots; so does the CPU route,
+    whatever the decoder's `emit_diagnostics`."""
+    _, pdec = decoders(synth, **BEAMS)
+    quiet = TorchDecoder(synth[1], TorchDecoderConfig(**BUDGETS, emit_diagnostics=False, **BEAMS),
+                         device="cpu")
+    tbg = torch.as_tensor(synth[2][:16])
+    assert set(quiet.run(tbg.transpose(0, 1))[1]) == set(fused_scan.REC_FIELDS)
+    fs = FusedDecodeScan(quiet, B)
+    assert_same_state(fs(tbg), FusedDecodeScan(pdec, B)(tbg))
+    assert quiet.cfg.emit_diagnostics is False
 
 
 def test_eligibility_at_the_operating_point():

@@ -166,16 +166,16 @@ def _fuzz_scores(seed, T, B, G, device):
     return torch.as_tensor(sc.astype(np.float32), device=device)
 
 
-def _assert_kernel_equals_plain(dec, scores, chunk=None):
-    """One fused call (and, with `chunk`, the chunked one) against
-    `TorchDecoder.run` on the same device, bit for bit."""
+def _assert_kernel_equals_plain(dec, scores):
+    """One fused call against `TorchDecoder.run` on the same device, bit
+    for bit."""
     B = scores.shape[1]
     n0 = fused_scan.counter.launches
-    fs = FusedDecodeScan(dec, B, chunk=chunk)
+    fs = FusedDecodeScan(dec, B)
     got = fs(scores)
     torch.cuda.synchronize()
-    assert fused_scan.counter.launches - n0 == (-(-scores.shape[0] // chunk) if chunk else 1)
-    carry, ys, _ = dec.run(scores.transpose(0, 1), diagnostics=True)
+    assert fused_scan.counter.launches - n0 == 1
+    carry, ys, _ = dec.run(scores.transpose(0, 1))
     assert state_differences(got, (carry, ys)) == []
     return fs, got
 
@@ -200,8 +200,7 @@ def test_frame_step_matches_plain_on_fuzz_network(card, row, B):
     fs, whole = _assert_kernel_equals_plain(dec, scores)
     assert not bool(whole[0]["overflow"].any())
     assert (whole[1]["rec_seq"] != 0).any() and (whole[1]["bf_score"] > NEG / 2).any()
-    # two chunks with the carried state equal one launch, through both forms
-    _assert_kernel_equals_plain(dec, scores, chunk=37)
+    # two calls with the carried state equal one launch
     first = fs(scores[:37])
     second = fs(scores[37:], carry=first[0], t0=37)
     joined = {k: torch.cat([first[1][k], second[1][k]]) for k in whole[1]}
@@ -231,8 +230,13 @@ def test_frame_step_other_state_counts(card, n_emit):
                              emit_prune_win=40.0, phone_end_prune_win=30.0, max_emit_hyps=25)
     dec = TorchDecoder(art, cfg, device=card)
     assert dec.S == n_emit + 2
-    _, got = _assert_kernel_equals_plain(dec, _fuzz_scores(n_emit, 50, 5, G, card), chunk=20)
+    scores = _fuzz_scores(n_emit, 50, 5, G, card)
+    fs, got = _assert_kernel_equals_plain(dec, scores)
     assert (got[1]["rec_seq"] != 0).any()
+    first = fs(scores[:20])
+    second = fs(scores[20:], carry=first[0], t0=20)
+    joined = {k: torch.cat([first[1][k], second[1][k]]) for k in got[1]}
+    assert state_differences((second[0], joined), got) == []
 
 
 @pytest.mark.gpu
