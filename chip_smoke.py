@@ -27,12 +27,17 @@ Phases (any failure raises and exits non-zero before the result line):
      Certified in-run: overflow 0/16, dead 0/16, and the traced-back
      words equal each utterance's generating transcript;
   5. frame-step kernel vs plain: the fused scan on the same (T, B, G)
-     scores as the plain reference wave, all fifteen `ys` fields, the
-     carry (`norm`, overflow, frontier) and the traced-back words and
-     word-end frames equal bit for bit, at the full-width wave; the same
-     with `max_emit_hyps=0` (the TPU kernel's scope) on a short sentence,
-     in one launch and in two calls with the carried state. The first
-     differing field, frame, utterance and slot are printed on failure;
+     scores as the plain reference wave. The kernel hands back compact
+     records (only those that landed, in (frame, slot) order, and the
+     running count per frame): they equal `compact_records` of the plain
+     planes, `expand_records` of them equals the plain planes, and the
+     eight snapshots, the carry (`norm`, overflow, frontier) and the
+     traced-back words and word-end frames are equal bit for bit, at the
+     full-width wave; the same with `max_emit_hyps=0` (the TPU kernel's
+     scope) on a short sentence, in one launch and in two calls with the
+     carried state. The first differing field, frame, utterance and slot
+     are printed on failure. Also printed: records landed per frame and
+     utterance (mean, peak) and the bytes a wave copies to the host;
   6. the main path through the kernels: launch counts of both kernels are
      zeroed just before and read just after `BatchDecoder(dec)` (default
      `use_fused="auto"`) decodes the batch twice (features -> GMM kernel ->
@@ -43,13 +48,21 @@ Phases (any failure raises and exits non-zero before the result line):
      the host and no traceback), the frame-step kernel's time per wave
      over CUDA events and its bound (the bytes it must move, counted from
      the shapes and the wave's measured candidates and active slots, over
-     the memory rate);
+     the memory rate), for the compact contract and, as the earlier
+     row, for dense record planes;
+  6b. a card full of utterances: the same 8 utterances tiled to B=132 (one
+     block on every SM), launch counts zeroed before and read after one
+     certified and one timed wave through `BatchDecoder`; every
+     utterance's words, word-end frames and score must equal the B=16
+     wave's; the kernel's ms a wave, the device-only and the entry
+     point's frames/s at B=132 beside those at B=16;
   7. parity: a short whole sentence (300 frames, sampled with seed 12; a
      cut utterance reaches no final state) decodes on the card and with
      device="cpu" from the same scores (words, word-end frames and the
      traceback record arrays equal), and from the plain CPU scorer's
      scores (words and word-end frames equal, records reported); its
-     words must equal its transcript;
+     words must equal its transcript; `TorchDecoder.decode_scores` on the
+     card gives the same result through one launch of the kernel;
   8. result: a `kernels` JSON line (both kernels), the card line, and last
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -106,7 +119,8 @@ def main() -> int:
         from juicer_tpu_torch.decoder import fused_scan
         from juicer_tpu_torch.decoder.core import TorchDecoder, host_batch
         from juicer_tpu_torch.decoder.fused_scan import (
-            FusedDecodeScan, assemble_results, state_differences)
+            REC_NAMES, FusedDecodeScan, assemble_results, compact_records,
+            concat_records, expand_records, state_differences)
         from juicer_tpu_torch.harness import wsj_task
         from juicer_tpu_torch.ops import gmm_cuda
         from juicer_tpu_torch.ops.gmm import gmm_scores_dense, make_gmm_scorer
@@ -133,8 +147,9 @@ def main() -> int:
         for line in rep.splitlines():
             if "Compiling entry function" in line:
                 entry = line
-            # frame_step is compiled per HMM state count; S=5 is the task's
-            if name == "frame_step" and "ILi5E" not in entry:
+            # frame_step is compiled per HMM state count and for staged or
+            # unstaged HMM tables; S=5, staged, is the task's
+            if name == "frame_step" and "ILi5ELb1E" not in entry:
                 continue
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
@@ -210,6 +225,7 @@ def main() -> int:
           f"{p['end_beam']}/{p['maxhyps']}", flush=True)
 
     def certify(results, what):
+        B = len(results)
         n_ov = sum(r.overflow for r in results)
         dead = sum(r.empty for r in results)
         wrong = []
@@ -267,24 +283,47 @@ def main() -> int:
 
     # ---- 5. frame-step kernel vs plain ---------------------------------------
     fs = FusedDecodeScan(dec, B)
-    print(f"[fused] one block per utterance: {B} blocks, "
+    print(f"[fused] one block per utterance: {B} blocks of {fs.threads} threads, "
           f"{fused_scan.smem_bytes(**fs.dims)} bytes of dynamic shared memory each "
           f"(hash table of {fs.dims['HT']})", flush=True)
     scores_tbg = scores.transpose(0, 1).contiguous()
     fused_state = fs(scores_tbg)
     torch.cuda.synchronize()
-    require_equal("fused", fused_state, plain_state[:2])
-    float_err = max(float((fused_state[1][k] - plain_state[1][k]).abs().max())
+    plain_compact = compact_records(plain_state[1])
+    require_equal("fused", fused_state, (plain_state[0], plain_compact))
+    expanded = expand_records(fused_state[1], dec.K)
+    for k in REC_NAMES:
+        if not torch.equal(expanded[k], plain_state[1][k]):
+            raise RuntimeError(f"fused: expand_records differs from the plain plane {k}")
+    float_err = max(float((expanded[k] - plain_state[1][k]).abs().max())
                     for k in ("rec_score", "rec_ac", "rec_lm", "bf_score", "bf_ac", "bf_lm"))
+    del expanded, plain_compact
     fused_results = assemble_results(dec, fs, *fused_state, lengths)
     for i, (a, b) in enumerate(zip(fused_results, plain_results)):
         if a.words != b.words or frames_of(a) != frames_of(b) or a.score != b.score:
             raise RuntimeError(f"fused and plain tracebacks differ for utterance {i}")
     print(f"[fused] full-width wave {B} x {Tmax} at {p['beam']}/{p['end_beam']}/"
-          f"{p['maxhyps']}: 15 ys fields, carry, words and word-end frames equal to "
-          f"the plain version (max |float diff| {float_err})", flush=True)
+          f"{p['maxhyps']}: compact records, their expansion, 8 snapshots, carry, words "
+          f"and word-end frames equal to the plain version (max |float diff| {float_err})",
+          flush=True)
     n_cand_sum = int(fused_state[1]["n_cand"].sum())
     n_active_sum = int(fused_state[1]["n_active"].sum())
+    count = fused_state[1]["rec_count"]
+    n_rec_sum = int(count[-1].sum())
+    per_frame = torch.diff(count, dim=0, prepend=torch.zeros_like(count[:1]))
+    host = host_batch(*fused_state, fs.rec0)
+    carry_h, ys_h, rec0_h = host
+    host_bytes = (sum(v.nbytes for v in ys_h.values()) + sum(v.nbytes for v in rec0_h.values())
+                  + sum(v.nbytes for v in carry_h["best_final"].values())
+                  + carry_h["overflow"].nbytes)
+    dense_bytes = 4 * Tmax * B * (7 * dec.K + 8)
+    print(f"[records] {n_rec_sum} records landed in {B} x {Tmax} frames: "
+          f"{n_rec_sum / (B * Tmax):.3f} a frame and utterance (peak "
+          f"{int(per_frame.max())} in one frame), {32 * n_rec_sum / 1e6:.2f} MB of the "
+          f"{fused_state[1]['records'].numel() * 4 / 1e6:.1f} MB arena written; a wave "
+          f"copies {host_bytes / 1e6:.3f} MB to the host (dense planes: "
+          f"{dense_bytes / 1e6:.1f} MB)", flush=True)
+    del host, carry_h, ys_h, rec0_h, count, per_frame
     del plain_state, fused_state, fused_results
 
     # the TPU kernel's scope (no histogram) on a short whole sentence, in one
@@ -299,11 +338,12 @@ def main() -> int:
     fs0 = FusedDecodeScan(dec0, 3)
     whole = fs0(sc3)
     c0, y0, _ = dec0.run(sc3.transpose(0, 1))
+    y0 = compact_records(y0)
     require_equal("fused maxhyps=0", whole, (c0, y0))
     half = Ts // 2
     first = fs0(sc3[:half])
     second = fs0(sc3[half:], carry=first[0], t0=half)
-    joined = {k: torch.cat([first[1][k], second[1][k]]) for k in whole[1]}
+    joined = concat_records([first[1], second[1]])
     require_equal("fused two calls", (second[0], joined), whole)
     print(f"[fused] max_emit_hyps=0, {Ts} frames x 3: equal to the plain version whole "
           f"and in two calls of {half} and {Ts - half} frames with the carried state "
@@ -338,7 +378,8 @@ def main() -> int:
           f"of the records to the host + traceback of {B} utterances) beside "
           f"{fps_plain:.1f} frames/s of the plain loop (no copy, no traceback) | {card}",
           flush=True)
-    del results, again
+    results16 = results
+    del again
 
     # the device's share of that wave, outside the counted run: both kernels,
     # the records left on the card
@@ -353,17 +394,23 @@ def main() -> int:
     t_wave = time.perf_counter() - t0
     if int(carry["overflow"].sum()) or int((carry["best_final"]["score"] <= -0.5e30).sum()):
         raise RuntimeError("fused device wave overflowed or died")
+    fps_device = B * Tmax / t_wave
     print(f"[main path] device only (no copy to the host, no traceback): {B} x {Tmax} "
-          f"frames in {t_wave:.4f}s = {B * Tmax / t_wave:.1f} frames/s | {card}", flush=True)
+          f"frames in {t_wave:.4f}s = {fps_device:.1f} frames/s | {card}", flush=True)
 
     # the kernel alone, and its bound: every input read once (scores, the
-    # carry, the metadata row of each active slot, the four entry-table
-    # columns of each candidate), every output written once
+    # carry, the 32-byte metadata row of each active slot, the four
+    # entry-table columns of each candidate), every output written once
+    # (the landed records, the count and the eight snapshots per frame)
     fs_ms = cuda_ms(lambda: fs(scores_tbg), 3)
     K, S = dec.K, dec.S
     carry_bytes = B * (K * (8 + S * 16) + 17)
-    fs_bytes = (4.0 * scores_tbg.numel() + 2 * carry_bytes + 48.0 * n_active_sum
-                + 24.0 * n_cand_sum + 4.0 * Tmax * B * (7 * K + 8))
+    touched = 4.0 * scores_tbg.numel() + 2 * carry_bytes + 24.0 * n_cand_sum
+    fs_bytes = touched + 32.0 * n_active_sum + 32.0 * n_rec_sum + 4.0 * Tmax * B * 9
+    # the earlier contract, kept as the earlier row: int64 metadata rows,
+    # seven dense (K) planes a frame
+    dense_bound = (touched + 48.0 * n_active_sum + 4.0 * Tmax * B * (7 * K + 8)
+                   ) / PEAK_BYTES * 1e3
     # per slot and frame: S*S adds and compares of the propagation and a
     # few per state after it; per candidate a handful
     fs_ops = float(Tmax) * B * K * (2 * S * S + 12 * S) + 20.0 * n_cand_sum
@@ -372,9 +419,64 @@ def main() -> int:
     print(f"[frame_step] {B} x {Tmax} frames: kernel {fs_ms:.3f} ms a wave "
           f"({fs_ms * 1e3 / Tmax:.2f} us a frame), plain loop {t_plain_diag * 1e3:.1f} ms, "
           f"bound {fs_bound:.4f} ms ({'operations' if fs_t_ops >= fs_t_bytes else 'bytes'}: "
-          f"{fs_bytes / 1e6:.1f} MB, {fs_ops / 1e9:.2f} G operations; the kernel sits at "
-          f"the latency of its dependent stages with {B} of 132 SMs busy, not at this "
-          f"bound) | {card}", flush=True)
+          f"{fs_bytes / 1e6:.1f} MB, {fs_ops / 1e9:.2f} G operations; with dense record "
+          f"planes the bound was {dense_bound:.4f} ms; the kernel sits at the latency of "
+          f"its dependent stages with {B} of 132 SMs busy, not at this bound) | {card}",
+          flush=True)
+
+    # ---- 6b. a card full of utterances: one block on every SM ----------------
+    B2 = 132
+    feats2 = feats[torch.arange(B2, device=dev) % B]
+    x2 = feats2.reshape(B2 * Tmax, D).contiguous()
+    lengths2 = [lengths[i % B] for i in range(B2)]
+    del feats2
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    t0 = time.perf_counter()
+    results2 = bd.decode_scores_batch(scorer(x2).view(B2, Tmax, G), lengths2)
+    t_cert2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again2 = bd.decode_scores_batch(scorer(x2).view(B2, Tmax, G), lengths2)
+    t_entry2 = time.perf_counter() - t0
+    launches2 = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    if launches2 != (2, 2):
+        raise RuntimeError(f"B={B2}: two waves launched gmm_logsumexp, frame_step "
+                           f"{launches2} times; expected one each a wave")
+    certify(results2, f"B={B2}")
+    for i, (a, c) in enumerate(zip(results2, again2)):
+        ref = results16[i % B]
+        for r in (a, c):
+            if (r.words != ref.words or frames_of(r) != frames_of(ref)
+                    or r.score != ref.score or r.overflow):
+                raise RuntimeError(f"B={B2}: utterance {i} differs from the B={B} wave")
+    del results2, again2, results16
+    fs2 = bd._fs[B2]
+    scores2_tbg = scorer(x2).view(B2, Tmax, G).transpose(0, 1).contiguous()
+    fs_ms2 = cuda_ms(lambda: fs2(scores2_tbg), 3)
+    del scores2_tbg
+
+    def device_wave2():
+        return fs2(scorer(x2).view(B2, Tmax, G).transpose(0, 1).contiguous())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    carry, _ = device_wave2()
+    torch.cuda.synchronize()
+    t_wave2 = time.perf_counter() - t0
+    if int(carry["overflow"].sum()) or int((carry["best_final"]["score"] <= -0.5e30).sum()):
+        raise RuntimeError(f"B={B2}: fused device wave overflowed or died")
+    fps2, fps_device2 = B2 * Tmax / t_entry2, B2 * Tmax / t_wave2
+    print(f"[B={B2}] {len(utts)} utterances tiled to {B2} x {Tmax} frames, one block an SM: "
+          f"every utterance's words, word-end frames and score equal the B={B} wave's; "
+          f"launches of two waves: gmm_logsumexp {launches2[0]}, frame_step {launches2[1]}; "
+          f"first wave {t_cert2:.3f}s", flush=True)
+    print(f"[B={B2}] frame_step {fs_ms2:.3f} ms a wave ({fs_ms2 * 1e3 / Tmax:.2f} us a frame "
+          f"of {B2}) beside {fs_ms:.3f} ms at B={B} ({fs_ms2 / fs_ms:.2f}x the time for "
+          f"{B2 / B:.2f}x the utterances) | {card}", flush=True)
+    print(f"[B={B2}] entry point {fps2:.1f} frames/s (wave {t_entry2:.4f}s), device only "
+          f"{fps_device2:.1f} frames/s (wave {t_wave2:.4f}s); at B={B}: entry point "
+          f"{fps:.1f}, device only {fps_device:.1f} frames/s | {card}", flush=True)
+    del x2, carry
 
     # ---- 7. card vs CPU parity on one short utterance -----------------------
     # a whole sentence (sampled above): a cut one reaches no final state and
@@ -387,6 +489,13 @@ def main() -> int:
         return decoder.traceback(host, 0, scores.shape[0]), host[1]
 
     r_card, ys_card = decode_records(dec, sc_card)
+    n0 = fused_scan.counter.launches
+    r_entry = dec.decode_scores(sc_card)  # the card's route: the kernel at B=1
+    if fused_scan.counter.launches - n0 != 1:
+        raise RuntimeError("decode_scores on the card did not launch frame_step once")
+    if (r_entry.words != r_card.words or frames_of(r_entry) != frames_of(r_card)
+            or r_entry.score != r_card.score):
+        raise RuntimeError("decode_scores through the kernel differs from the plain loop")
     r_cpu, ys_cpu = decode_records(cpu_dec, sc_card.cpu())
     r_plain, ys_plain = decode_records(cpu_dec, cpu_scorer(xs))
 
@@ -425,6 +534,10 @@ def main() -> int:
         "ms": fs_ms, "plain_ms": t_plain_diag * 1e3, "bound_ms": fs_bound,
         "bound_by": "operations" if fs_t_ops >= fs_t_bytes else "bytes",
         "library_ms": None,
+        # ms_before: this wave on the same card model before the kernel's
+        # redesign (24 barriers a frame, dense record planes)
+        "ms_before": 17.603, "bound_ms_dense": dense_bound, "ms_b132": fs_ms2,
+        "launches_b132": launches2[1],
     }]}))
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {

@@ -49,8 +49,9 @@ def fused_state_from_jax(carry: dict, ys: dict):
     ids as int64, the frontier as (B, K, S) and scalars as (B,). The TPU
     carry has no `kth_emit` or `best_final` (no histogram; the snapshot
     is in `ys`), so neither has the result. `ys` keeps its (T, B, K) and
-    (T, B) shapes; integer fields become int32. Returns (carry, ys) of
-    numpy arrays."""
+    (T, B) shapes; integer fields become int32: the dense form, which the
+    port's compact `ys` gives through `fused_scan.expand_records`. Returns
+    (carry, ys) of numpy arrays."""
     def col(name, dtype=np.float32):
         return np.asarray(carry[name])[:, 0].astype(dtype)
 

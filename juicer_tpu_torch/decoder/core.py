@@ -56,6 +56,9 @@ _I64 = torch.int64
 REC_FIELDS = ("rec_prev", "rec_seq", "rec_score", "rec_ac", "rec_lm",
               "rec_src", "rec_arc")
 BF_FIELDS = ("score", "ac", "lm", "path", "seq", "src")
+# the eight int32 words of a compact record (`fused_scan.compact_records`):
+# its id t*K + slot and the seven fields, floats as their bit patterns
+REC_WORDS = ("rec_id",) + REC_FIELDS
 
 
 @dataclass
@@ -570,8 +573,27 @@ class TorchDecoder:
                 ys["n_cand"][t] = rec["n_cand"]
         return carry, ys, rec0
 
+    def _fused_single(self, sc: torch.Tensor):
+        """One utterance (T, n_gmms) through the fused scan at B=1: one
+        launch of the frame-step kernel. Raises where the kernel does not
+        cover the decode, as `BatchDecoder(use_fused="auto")` does."""
+        from .fused_scan import FusedDecodeScan, why_not_covered
+
+        why = why_not_covered(self, int(sc.shape[0]))
+        if why is not None:
+            raise ValueError(
+                f"decode_scores: the fused scan does not cover this decode ({why}); "
+                f"TorchDecoder.run is the plain frame loop")
+        fs = self.__dict__.get("_fused1")
+        if fs is None:
+            fs = self._fused1 = FusedDecodeScan(self, 1)
+        carry, ys = fs(sc[:, None, :].contiguous())
+        return carry, ys, fs.rec0
+
     def decode_scores(self, gmm_scores) -> DecodeResult:
-        """Decode from a precomputed (T, n_gmms) log-likelihood matrix."""
+        """Decode from a precomputed (T, n_gmms) log-likelihood matrix. A
+        decoder on the card goes through the frame-step kernel (one launch)
+        or raises; a CPU decoder runs the plain frame loop `run`."""
         if not isinstance(gmm_scores, torch.Tensor):
             gmm_scores = torch.from_numpy(np.array(gmm_scores, np.float32))
         sc = gmm_scores.to(self.device, _F32)
@@ -582,7 +604,10 @@ class TorchDecoder:
             if T_pad != T and T > 0:
                 sc = torch.cat([sc, sc[-1:].expand(T_pad - T, -1)])
                 true_T = T
-        carry, ys, rec0 = self.run(sc[None])
+        if self.device.type == "cuda" and T > 0:
+            carry, ys, rec0 = self._fused_single(sc)
+        else:
+            carry, ys, rec0 = self.run(sc[None])
         return self.traceback(host_batch(carry, ys, rec0), 0, int(sc.shape[0]),
                               true_T=true_T)
 
@@ -592,7 +617,9 @@ class TorchDecoder:
 
     def traceback(self, host, b: int, T: int, true_T: Optional[int] = None) -> DecodeResult:
         """Words of utterance `b` from a host copy of a batch decode
-        (`host_batch`), as `TpuDecoder._traceback` reads them."""
+        (`host_batch`), as `TpuDecoder._traceback` reads them. The records
+        are the dense (T, B, K) planes of `run` or the compact records of
+        the fused scan; one lookup reads a record from either."""
         carry, ys, rec0 = host
         if true_T is not None and 0 < true_T < T:
             # padded batch entry: the best-final snapshot at the true length
@@ -617,23 +644,39 @@ class TorchDecoder:
         score = float(bf["score"])
         if score <= NEG / 2:
             return DecodeResult([], [], NEG, NEG, NEG, T, **stats)
-        rec = {name: ys[name][:, b].reshape(-1) for name in REC_FIELDS}
-        r0 = {name: rec0[name][b] for name in REC_FIELDS}
         K = self.K
         seqs = self.art.seqs
+        if "records" in ys:
+            # this utterance's records, ascending in id
+            lo, hi = ys["rec_offsets"][b], ys["rec_offsets"][b + 1]
+            rows = ys["records"][lo:hi]
+            rows_f = rows.view(np.float32)
+            ids = rows[:, 0]
+
+            def lookup(pid):
+                i = int(np.searchsorted(ids, pid))
+                if i >= len(ids) or ids[i] != pid:
+                    raise RuntimeError(f"traceback: no record {pid} of utterance {b}")
+                return (int(rows[i, 1]), int(rows[i, 2]), float(rows_f[i, 3]),
+                        float(rows_f[i, 4]), float(rows_f[i, 5]),
+                        int(rows[i, 6]), int(rows[i, 7]))
+        else:
+            def lookup(pid):
+                at = (pid // K, b, pid % K)
+                return tuple(conv(ys[name][at]) for name, conv in zip(
+                    REC_FIELDS, (int, int, float, float, float, int, int)))
 
         def rec_fields(pid):
             if pid >= 0:
-                src, at = rec, pid
-                frame = pid // K
-            else:
-                # init records are encoded at t=-1 -> pid in [-K, 0); their
-                # words are reported at frame 0, like the reference
-                src, at, frame = r0, pid + K, 0
-            return (int(src["rec_prev"][at]), int(src["rec_seq"][at]),
-                    float(src["rec_score"][at]), float(src["rec_ac"][at]),
-                    float(src["rec_lm"][at]), frame,
-                    int(src["rec_src"][at]), int(src["rec_arc"][at]))
+                prev, seq_id, s, a, l, src, arc_b = lookup(pid)
+                return prev, seq_id, s, a, l, pid // K, src, arc_b
+            # init records are encoded at t=-1 -> pid in [-K, 0); their
+            # words are reported at frame 0, like the reference
+            at = pid + K
+            return (int(rec0["rec_prev"][b, at]), int(rec0["rec_seq"][b, at]),
+                    float(rec0["rec_score"][b, at]), float(rec0["rec_ac"][b, at]),
+                    float(rec0["rec_lm"][b, at]), 0,
+                    int(rec0["rec_src"][b, at]), int(rec0["rec_arc"][b, at]))
 
         # a record stores its LANDING values; each label's crossing-time
         # values differ by a per-closure-edge constant (artifact.remainders);
@@ -676,13 +719,35 @@ class TorchDecoder:
         )
 
 
+def written_records(records: torch.Tensor, n: torch.Tensor):
+    """The written prefix of every utterance's record arena, end to end:
+    records (B, cap, 8), n (B,) counts -> ((N, 8) rows in utterance order,
+    (B + 1,) offsets, both on the records' device). Nothing beyond the
+    counts is read."""
+    n = n.to(torch.int64)
+    offsets = torch.zeros(n.shape[0] + 1, dtype=torch.int64, device=n.device)
+    offsets[1:] = torch.cumsum(n, 0)
+    n_max = int(n.max()) if n.numel() else 0
+    b_idx, pos = (torch.arange(n_max, device=n.device)[None] < n[:, None]).nonzero(as_tuple=True)
+    return records[b_idx, pos], offsets
+
+
 def host_batch(carry, ys, rec0):
     """One device-to-host copy of what the traceback reads: best-final and
-    overflow from the carry, the record arena and the init records."""
+    overflow from the carry, the init records, the (T, B) snapshots, and
+    the records: the dense planes of `run`, or of a fused scan's compact
+    `ys` the running counts and only the written prefix of each
+    utterance's arena (`records` (N, 8) with `rec_offsets` (B + 1,))."""
     carry_h = {
         "best_final": {f: v.cpu().numpy() for f, v in carry["best_final"].items()},
         "overflow": carry["overflow"].cpu().numpy(),
     }
-    ys_h = {k: v.cpu().numpy() for k, v in ys.items()}
+    if "records" in ys:
+        rows, offsets = written_records(ys["records"], ys["rec_count"][-1])
+        ys_h = {k: v.cpu().numpy() for k, v in ys.items() if k != "records"}
+        ys_h["records"] = rows.cpu().numpy()
+        ys_h["rec_offsets"] = offsets.cpu().numpy()
+    else:
+        ys_h = {k: v.cpu().numpy() for k, v in ys.items()}
     rec0_h = {k: rec0[k].cpu().numpy() for k in REC_FIELDS}
     return carry_h, ys_h, rec0_h

@@ -1,6 +1,7 @@
 """Where a decode wave's time goes on the card.
 
-    python -m juicer_tpu_torch.harness.profile_decode [--frames N] [--fused] [--trace]
+    python -m juicer_tpu_torch.harness.profile_decode [--frames N] [--batch B]
+        [--fused [--knobs M] | --entry] [--trace]
 
 Scores the 2k-word WSJ-order task's bench batch (8 sampled utterances
 tiled to 16, `WSJ_POINT`, diagnostics off) with the GMM kernel, runs the
@@ -12,7 +13,19 @@ frame, and the ten costliest kernels; `--trace` writes the Chrome trace
 to `chiprun_out/profile_decode.json` (large: tens of MB per 100 frames).
 `--fused` profiles the fused route instead: one launch of the frame-step
 kernel (`decoder/fused_scan.py`) over the same N frames, diagnostics as
-the kernel writes them.
+the kernel writes them; `--knobs M` sets the kernel's measurement
+switches (1: clear the recombination table every frame; 2: no score
+prefetch; 4: HMM tables read from device memory, not staged in shared
+memory), to show what each part of the design is worth; with 8 the
+kernel's thread 0 counts the cycles of each phase of the frame (top, A
+propagation, B exit scan, C candidates, D winners scan, E slots, F
+insertion, G records), printed as the share of each. `--entry`
+profiles one whole `BatchDecoder.decode_scores_batch` call on N frames
+(the fused route, as a user calls it): its wall time, the device's busy
+time and idle share, and beside it the same work stage by stage with a
+synchronise after each: the scan, the copy to the host (`host_batch`,
+with its bytes) and the traceback of B utterances. `--batch B` tiles the
+8 sampled utterances to B (132 = one block on every SM).
 """
 
 from __future__ import annotations
@@ -27,8 +40,9 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ..decoder.core import TorchDecoder
-from ..decoder.fused_scan import FusedDecodeScan
+from ..decoder.core import TorchDecoder, host_batch
+from ..decoder.fused_scan import PHASES, FusedDecodeScan
+from ..parallel.batch import BatchDecoder
 from ..ops.gmm import make_gmm_scorer
 from . import wsj_task
 
@@ -38,6 +52,13 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=100)
     ap.add_argument("--fused", action="store_true",
                     help="profile the fused frame-step kernel, not the plain loop")
+    ap.add_argument("--knobs", type=int, default=0,
+                    help="with --fused: the kernel's measurement switches (1, 2, 4, 8)")
+    ap.add_argument("--threads", type=int, default=0,
+                    help="with --fused: threads a block (default: the wrapper's choice)")
+    ap.add_argument("--entry", action="store_true",
+                    help="profile one whole BatchDecoder.decode_scores_batch call")
+    ap.add_argument("--batch", type=int, default=0, help="utterances a wave (default 16)")
     ap.add_argument("--trace", action="store_true",
                     help="write the Chrome trace to chiprun_out/")
     args = ap.parse_args()
@@ -48,7 +69,7 @@ def main() -> None:
     p = wsj_task.WSJ_POINT
     utts = wsj_task.sample_utterances(task.cache, task.models, p["n_utts"],
                                       p["frames"], seed=11)
-    B = p["batch"]
+    B = args.batch or p["batch"]
     T = args.frames
     scorer = make_gmm_scorer(task.models.flat_params(), device="cuda")
     # the first T frames of each utterance, edge-padded where it is shorter
@@ -57,8 +78,18 @@ def main() -> None:
         for f in (utts[i % len(utts)][1] for i in range(B))])
     scores = scorer(feats.cuda().reshape(B * T, -1)).view(B, T, -1)
     dec = TorchDecoder(task.artifact, wsj_task.decoder_config(p, emit_diagnostics=False))
-    if args.fused:
+    stages = {}
+    if args.entry:
+        bd = BatchDecoder(dec)
+
+        def run():
+            return bd.decode_scores_batch(scores)
+    elif args.fused:
         fs = FusedDecodeScan(dec, B)
+        fs.knobs = args.knobs & 11
+        fs.threads = args.threads or fs.threads
+        if args.knobs & 4:
+            fs.dims = dict(fs.dims, hmm_words=0)
         scores_tbg = scores.transpose(0, 1).contiguous()
 
         def run():
@@ -85,13 +116,40 @@ def main() -> None:
     run()
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t1
+    if args.entry:
+        # the same call stage by stage, a synchronise after each
+        fs = bd._fs[B]
+        clock = time.perf_counter
+        t = [clock()]
+        carry, ys = fs(scores.transpose(0, 1).contiguous())
+        torch.cuda.synchronize()
+        t.append(clock())
+        host = host_batch(carry, ys, fs.rec0)
+        t.append(clock())
+        results = [dec.traceback(host, b, T) for b in range(B)]
+        t.append(clock())
+        n_rec = ys["rec_count"][-1].sum().item()
+        stages = {
+            "scan_ms": (t[1] - t[0]) * 1e3, "copy_to_host_ms": (t[2] - t[1]) * 1e3,
+            "traceback_ms": (t[3] - t[2]) * 1e3,
+            "bytes_to_host": sum(v.nbytes for v in host[1].values()),
+            "records": n_rec, "records_per_frame_utt": n_rec / (T * B),
+            "words": sum(len(r.words) for r in results),
+        }
+    if args.fused and args.knobs & 8:
+        clocks = fs.clocks.double().mean(dim=0)
+        stages = {"cycles_per_frame": dict(zip(PHASES, (clocks / T).tolist())),
+                  "share": dict(zip(PHASES, (clocks / clocks.sum()).tolist()))}
+    route = "entry" if args.entry else "fused" if args.fused else "plain"
     out = {
-        "card": card, "route": "fused" if args.fused else "plain", "batch": B, "frames": T,
+        "card": card, "route": route, "knobs": args.knobs, "threads": args.threads,
+        "batch": B, "frames": T,
         "wall_ms_per_frame": plain_wall / T * 1e3,
         "profiled_wall_ms_per_frame": wall / T * 1e3,
         "kernel_ms_per_frame": kernel_us / T / 1e3,
         "device_idle_share": 1.0 - kernel_us / 1e6 / plain_wall,
         "launches_per_frame": launches / T,
+        **stages,
     }
     print(json.dumps(out))
     by_name: dict[str, list] = {}

@@ -21,7 +21,7 @@ import torch
 
 from ..decoder.core import TorchDecoder, host_batch
 from ..decoder.fused_scan import (FusedDecodeScan, assemble_results,
-                                  max_scan_T, why_not_fused)
+                                  why_not_covered)
 from ..decoder.results import DecodeResult
 
 
@@ -44,9 +44,7 @@ class BatchDecoder:
         if self.use_fused is False:
             return False
         dec = self.decoder
-        why = why_not_fused(dec)
-        if why is None and not 0 < T <= max_scan_T(dec):
-            why = f"{T} frames, one scan numbers 1..{max_scan_T(dec)}"
+        why = why_not_covered(dec, T)
         if why is None:
             return True
         if self.use_fused == "auto" and dec.device.type == "cpu":

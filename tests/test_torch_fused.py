@@ -3,8 +3,10 @@
 The same numpy scores go through the JAX `PallasDecodeScan` (in interpret
 mode, as `tests/test_decode_pallas.py` runs it on the CPU) and through
 the port's `FusedDecodeScan` on `device="cpu"`, where the wrapper runs the
-kernel's plain version (`TorchDecoder.run`). Integer fields, liveness and
-overflow must be equal. Float fields are held within 1e-4: both sides are
+kernel's plain version (`TorchDecoder.run`, its planes made compact by
+`compact_records`). The port's compact `ys`, expanded again by
+`expand_records`, is held against the JAX planes: integer fields, liveness
+and overflow must be equal. Float fields are held within 1e-4: both sides are
 float32 step for step, but the TPU kernel selects payloads by one-hot
 sums (an exact 0.0 added per unselected term) where the port gathers, so
 the tolerance is stated rather than relying on bit equality across two
@@ -30,9 +32,11 @@ from juicer_tpu.utils.synth import make_synth_task
 from juicer_tpu_torch.convert import fused_state_from_jax
 from juicer_tpu_torch.decoder import TorchDecoder, TorchDecoderConfig
 from juicer_tpu_torch.decoder import fused_scan
-from juicer_tpu_torch.decoder.fused_scan import (REC_NAMES, FusedDecodeScan,
-                                                 assemble_results, fused_eligible,
-                                                 max_scan_T, state_differences)
+from juicer_tpu_torch.decoder.fused_scan import (REC_NAMES, YS_NAMES, FusedDecodeScan,
+                                                 assemble_results, compact_records,
+                                                 concat_records, expand_records,
+                                                 fused_eligible, max_scan_T,
+                                                 state_differences)
 from juicer_tpu_torch.harness import wsj_task
 from juicer_tpu_torch.parallel.batch import BatchDecoder
 
@@ -87,8 +91,8 @@ def assert_ys_close(ys, ref, ctx=""):
 
 
 def assert_same_state(a, b):
-    """Two (carry, ys) of the port, bit for bit."""
-    assert set(a[1]) == set(b[1]) == set(REC_NAMES)
+    """Two (carry, compact ys) of the port, bit for bit."""
+    assert set(a[1]) == set(b[1]) == set(YS_NAMES)
     assert state_differences(a, b) == []
 
 
@@ -104,6 +108,10 @@ def test_fused_scan_matches_pallas(synth, beams):
 
     fs = FusedDecodeScan(pdec, B)
     carry, ys = fs(torch.as_tensor(scores))
+    assert set(ys) == set(YS_NAMES)
+    assert ys["records"].shape[::2] == (B, 8) and ys["rec_count"].shape == (T, B)
+    assert ys["records"].dtype == ys["rec_count"].dtype == torch.int32
+    ys = expand_records(ys, pdec.K)
     assert set(ys) == set(REC_NAMES)
     assert ys["rec_prev"].shape == (T, B, pdec.K) and ys["bf_score"].shape == (T, B)
     assert all(ys[k].dtype == torch.int32 for k in INT_FIELDS)
@@ -145,8 +153,11 @@ def test_chunked_run_equals_one_piece(synth, row):
         assert torch.equal(v, c1["fr"][k]), k
     for k in rec0:
         assert torch.equal(rec0[k], rec0_1[k]), k
-    ys = {k: torch.cat([y1[k], y2[k]]) for k in y1}
-    assert_same_state((c2, ys), (whole_c, whole_y))
+    for k in y1:
+        assert torch.equal(torch.cat([y1[k], y2[k]]), whole_y[k]), k
+    whole_compact = compact_records(whole_y)
+    assert_same_state((c2, concat_records([compact_records(y1), compact_records(y2, 64)])),
+                      (whole_c, whole_compact))
     assert (whole_y["rec_prev"][64:] >= 64 * pdec.K).any()  # ids carry the offset
 
     # the same through the fused scan's interface (its plain version)
@@ -154,8 +165,11 @@ def test_chunked_run_equals_one_piece(synth, row):
     tbg = torch.as_tensor(synth[2])
     f1 = fs(tbg[:64])
     f2 = fs(tbg[64:], carry=f1[0], t0=64)
-    assert_same_state((f2[0], {k: torch.cat([f1[1][k], f2[1][k]]) for k in f1[1]}), fs(tbg))
-    assert_same_state(fs(tbg), (whole_c, whole_y))
+    assert_same_state((f2[0], concat_records([f1[1], f2[1]])), fs(tbg))
+    assert_same_state(fs(tbg), (whole_c, whole_compact))
+    late = expand_records(f2[1], pdec.K, t0=64)
+    for k in REC_NAMES:
+        assert torch.equal(late[k], whole_y[k][64:]), k
 
 
 def test_assemble_results_match_pallas(synth):
@@ -193,6 +207,7 @@ def test_fused_scan_with_histogram_matches_tpu_decoder(synth, max_hyps):
     jcarry, jys = jax.vmap(one, in_axes=1)(jnp.asarray(scores))
     jys = {k: np.moveaxis(np.asarray(v), 0, 1) for k, v in jys.items()}  # (B, T, ..) -> (T, B, ..)
     carry, ys = FusedDecodeScan(pdec, B)(torch.as_tensor(scores))
+    ys = expand_records(ys, pdec.K)
     assert_ys_close({k: v.numpy() for k, v in ys.items()},
                     {k: jys[k] for k in INT_FIELDS + FLOAT_FIELDS})
     np.testing.assert_array_equal(carry["overflow"].numpy(), np.asarray(jcarry["overflow"]))

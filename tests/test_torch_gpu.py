@@ -19,7 +19,9 @@ from juicer_tpu_torch.decoder import fused_scan
 from juicer_tpu_torch.decoder.artifact import DecoderArtifact
 from juicer_tpu_torch.decoder.core import (REC_FIELDS, TorchDecoder,
                                            TorchDecoderConfig, host_batch)
-from juicer_tpu_torch.decoder.fused_scan import (FusedDecodeScan, assemble_results,
+from juicer_tpu_torch.decoder.fused_scan import (REC_NAMES, FusedDecodeScan,
+                                                 assemble_results, compact_records,
+                                                 concat_records, expand_records,
                                                  state_differences)
 from juicer_tpu_torch.decoder.network import DecoderNetwork
 from juicer_tpu_torch.harness import wsj_task
@@ -168,16 +170,25 @@ def _fuzz_scores(seed, T, B, G, device):
 
 def _assert_kernel_equals_plain(dec, scores):
     """One fused call against `TorchDecoder.run` on the same device, bit
-    for bit."""
+    for bit: the kernel's compact output equals `compact_records` of the
+    plain planes, and expands to them."""
     B = scores.shape[1]
     n0 = fused_scan.counter.launches
     fs = FusedDecodeScan(dec, B)
     got = fs(scores)
     torch.cuda.synchronize()
     assert fused_scan.counter.launches - n0 == 1
+    assert got[1]["records"].shape == (B, scores.shape[0] * dec.K, 8)
     carry, ys, _ = dec.run(scores.transpose(0, 1))
-    assert state_differences(got, (carry, ys)) == []
+    assert state_differences(got, (carry, compact_records(ys))) == []
+    dense = expand_records(got[1], dec.K)
+    for k in REC_NAMES:
+        assert torch.equal(dense[k], ys[k]), k
     return fs, got
+
+
+def _n_records(state):
+    return int(state[1]["rec_count"][-1].sum())
 
 
 FUZZ_PRUNING = [
@@ -199,12 +210,11 @@ def test_frame_step_matches_plain_on_fuzz_network(card, row, B):
     scores = _fuzz_scores(10 * row + B, 60, B, G, card)
     fs, whole = _assert_kernel_equals_plain(dec, scores)
     assert not bool(whole[0]["overflow"].any())
-    assert (whole[1]["rec_seq"] != 0).any() and (whole[1]["bf_score"] > NEG / 2).any()
+    assert _n_records(whole) > 0 and (whole[1]["bf_score"] > NEG / 2).any()
     # two calls with the carried state equal one launch
     first = fs(scores[:37])
     second = fs(scores[37:], carry=first[0], t0=37)
-    joined = {k: torch.cat([first[1][k], second[1][k]]) for k in whole[1]}
-    assert state_differences((second[0], joined), whole) == []
+    assert state_differences((second[0], concat_records([first[1], second[1]])), whole) == []
 
 
 @pytest.mark.gpu
@@ -232,11 +242,10 @@ def test_frame_step_other_state_counts(card, n_emit):
     assert dec.S == n_emit + 2
     scores = _fuzz_scores(n_emit, 50, 5, G, card)
     fs, got = _assert_kernel_equals_plain(dec, scores)
-    assert (got[1]["rec_seq"] != 0).any()
+    assert _n_records(got) > 0
     first = fs(scores[:20])
     second = fs(scores[20:], carry=first[0], t0=20)
-    joined = {k: torch.cat([first[1][k], second[1][k]]) for k in got[1]}
-    assert state_differences((second[0], joined), got) == []
+    assert state_differences((second[0], concat_records([first[1], second[1]])), got) == []
 
 
 @pytest.mark.gpu
@@ -268,8 +277,10 @@ def test_frame_step_refuses_bad_input(card):
     fs = FusedDecodeScan(dec, 2)
     scores = _fuzz_scores(0, 5, 2, G, card)
     d = fs.dims
+    assert d["hmm_words"] == dec.H * dec.S * (dec.S + 1)  # staged: they fit
     assert fused_scan._get_lib().jtpu_frame_step_smem_bytes(
-        d["K"], d["E"], d["S"], d["G"], d["n_bins"], d["HT"]) == fused_scan.smem_bytes(**d)
+        d["K"], d["E"], d["S"], d["G"], d["n_bins"], d["HT"],
+        d["hmm_words"]) == fused_scan.smem_bytes(**d)
     n0 = fused_scan.counter.launches
     with pytest.raises(ValueError, match="is on cpu"):
         fs._launch(scores.cpu(), fs.init, 0)  # the kernel entry takes no CPU tensor
@@ -283,3 +294,112 @@ def test_frame_step_refuses_bad_input(card):
     with pytest.raises(ValueError, match="carry norm"):
         fs(scores, carry=bad)
     assert fused_scan.counter.launches == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knobs", [1, 2, 4])
+def test_frame_step_variants_equal_plain(card, knobs):
+    """The kernel's measurement switches (table cleared every frame, no
+    score prefetch) and the HMM tables read from device memory instead of
+    shared memory (4) change no result."""
+    art, G = _fuzz_artifact(seed=2)
+    cfg = TorchDecoderConfig(max_insts=256, expand_budget=2048, final_budget=128,
+                             **FUZZ_PRUNING[2])
+    dec = TorchDecoder(art, cfg, device=card)
+    scores = _fuzz_scores(5, 60, 3, G, card)
+    fs = FusedDecodeScan(dec, 3)
+    want = fs(scores)
+    fs.knobs = knobs & 3
+    if knobs & 4:
+        fs.dims = dict(fs.dims, hmm_words=0)
+    assert state_differences(fs(scores), want) == []
+    carry, ys, _ = dec.run(scores.transpose(0, 1))
+    assert state_differences(want, (carry, compact_records(ys))) == []
+
+
+def _wide_scores(seed, T, B, G, device):
+    """Two good GMMs near 0 and the rest near -400: most states lie
+    hundreds of histogram bins below the frame's best."""
+    rng = np.random.default_rng(seed)
+    sc = np.round(rng.normal(-400.0, 40.0, size=(T, B, G)))
+    sc[:, :, :2] = np.round(rng.normal(-2.0, 1.0, size=(T, B, 2)) * 4) / 4
+    return torch.as_tensor(sc.astype(np.float32), device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_hyps", [6, 40])
+def test_frame_step_histogram_threshold_far_below_the_best(card, max_hyps):
+    """The kernel scans the histogram from the best score's bin down, a
+    window of bins at a time: here the bin that reaches maxHyps lies
+    beyond the first window in many frames."""
+    art, G = _fuzz_artifact(seed=5)
+    cfg = TorchDecoderConfig(max_insts=256, expand_budget=2048, final_budget=128,
+                             max_emit_hyps=max_hyps)
+    dec = TorchDecoder(art, cfg, device=card)
+    scores = _wide_scores(max_hyps, 50, 4, G, card)
+    fs, got = _assert_kernel_equals_plain(dec, scores)
+    # the threshold really went that far: after the last frame it lies more
+    # than a window (256 bins) below 0, the score of a frame's best state
+    # before its GMM score is added
+    assert float(got[0]["kth_emit"].min()) < -256.0 - 20.0
+
+
+@pytest.mark.gpu
+def test_record_order_is_the_same_in_every_launch(card):
+    """Positions come from ballots and warp counts, not from the order in
+    which threads arrive: three launches write identical arenas."""
+    art, G = _fuzz_artifact(seed=0)
+    dec = TorchDecoder(art, TorchDecoderConfig(max_insts=256, expand_budget=2048,
+                                               final_budget=128), device=card)
+    scores = _fuzz_scores(1, 60, 16, G, card)
+    fs = FusedDecodeScan(dec, 16)
+    runs = [fs(scores) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert _n_records(runs[0]) > 0
+    for other in runs[1:]:
+        assert state_differences(other, runs[0]) == []
+    n = runs[0][1]["rec_count"][-1]
+    for u in range(16):
+        ids = runs[0][1]["records"][u, : n[u], 0]
+        assert bool((ids[1:] > ids[:-1]).all())
+
+
+@pytest.mark.gpu
+def test_a_card_full_of_utterances_equals_the_small_batch(card):
+    """132 blocks (one an SM): each tiled utterance gives the records,
+    counts and snapshots it gives in a batch of 16."""
+    art, G = _fuzz_artifact(seed=3)
+    cfg = TorchDecoderConfig(max_insts=256, expand_budget=2048, final_budget=128,
+                             **FUZZ_PRUNING[3])
+    dec = TorchDecoder(art, cfg, device=card)
+    small = _fuzz_scores(7, 60, 16, G, card)
+    tile = torch.arange(132, device=card) % 16
+    _, y16 = FusedDecodeScan(dec, 16)(small)
+    c132, y132 = FusedDecodeScan(dec, 132)(small[:, tile].contiguous())
+    torch.cuda.synchronize()
+    assert not bool(c132["overflow"].any())
+    for k in y16:
+        if k != "records":
+            assert torch.equal(y132[k], y16[k][:, tile]), k
+    n = y16["rec_count"][-1]
+    for u in range(132):
+        m = int(n[u % 16])
+        assert torch.equal(y132["records"][u, :m], y16["records"][u % 16, :m]), u
+
+
+@pytest.mark.gpu
+def test_decode_scores_on_the_card_launches_the_kernel_once(card):
+    art, G = _fuzz_artifact(seed=4)
+    cfg = TorchDecoderConfig(max_insts=256, expand_budget=2048, final_budget=128)
+    dec = TorchDecoder(art, cfg, device=card)
+    cpu = TorchDecoder(art, cfg, device="cpu")
+    sc = _fuzz_scores(9, 75, 1, G, "cpu")[:, 0]
+    n0 = fused_scan.counter.launches
+    got = dec.decode_scores(sc)
+    assert fused_scan.counter.launches - n0 == 1
+    want = cpu.decode_scores(sc)
+    assert got == want and got.n_frames == 75
+    dec.K, dec.E = 4096, 8192  # beyond one block's shared memory
+    with pytest.raises(ValueError, match="decode_scores.*shared memory"):
+        dec.decode_scores(sc)
+    assert fused_scan.counter.launches - n0 == 1
