@@ -411,15 +411,17 @@ def main() -> int:
     # seven dense (K) planes a frame
     dense_bound = (touched + 48.0 * n_active_sum + 4.0 * Tmax * B * (7 * K + 8)
                    ) / PEAK_BYTES * 1e3
-    # per slot and frame: S*S adds and compares of the propagation and a
-    # few per state after it; per candidate a handful
-    fs_ops = float(Tmax) * B * K * (2 * S * S + 12 * S) + 20.0 * n_cand_sum
+    # per active slot and frame (this wave's count, as for the bytes): S*S
+    # adds and compares of the propagation and a few per state after it;
+    # per candidate a handful
+    fs_ops = float(n_active_sum) * (2 * S * S + 12 * S) + 20.0 * n_cand_sum
     fs_t_ops, fs_t_bytes = fs_ops / PEAK_F32_FLOPS * 1e3, fs_bytes / PEAK_BYTES * 1e3
     fs_bound = max(fs_t_ops, fs_t_bytes)
     print(f"[frame_step] {B} x {Tmax} frames: kernel {fs_ms:.3f} ms a wave "
           f"({fs_ms * 1e3 / Tmax:.2f} us a frame), plain loop {t_plain_diag * 1e3:.1f} ms, "
           f"bound {fs_bound:.4f} ms ({'operations' if fs_t_ops >= fs_t_bytes else 'bytes'}: "
-          f"{fs_bytes / 1e6:.1f} MB, {fs_ops / 1e9:.2f} G operations; with dense record "
+          f"{fs_bytes / 1e6:.1f} MB, {fs_ops / 1e9:.3f} G operations over {n_active_sum} active "
+          f"slot-frames of {Tmax * B * K}; with dense record "
           f"planes the bound was {dense_bound:.4f} ms; the kernel sits at the latency of "
           f"its dependent stages with {B} of 132 SMs busy, not at this bound) | {card}",
           flush=True)
@@ -534,9 +536,7 @@ def main() -> int:
         "ms": fs_ms, "plain_ms": t_plain_diag * 1e3, "bound_ms": fs_bound,
         "bound_by": "operations" if fs_t_ops >= fs_t_bytes else "bytes",
         "library_ms": None,
-        # ms_before: this wave on the same card model before the kernel's
-        # redesign (24 barriers a frame, dense record planes)
-        "ms_before": 17.603, "bound_ms_dense": dense_bound, "ms_b132": fs_ms2,
+        "bound_ms_dense": dense_bound, "ms_b132": fs_ms2,
         "launches_b132": launches2[1],
     }]}))
     print(f"[card] {card}")

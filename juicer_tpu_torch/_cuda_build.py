@@ -23,6 +23,11 @@ SOURCES = ("gmm_logsumexp", "frame_step")
 # frame_step is held bit for bit to its plain version: no contraction of a
 # multiply and an add into one rounding, should a later edit bring a multiply
 EXTRA_FLAGS = {"frame_step": ["-fmad=false"]}
+# libraries built from another library's source with more flags; not in
+# SOURCES, so only the caller that asks for one builds it.
+# frame_step_clocks: the frame-step kernel with a cycle counter at each
+# phase of the frame (harness/profile_decode.py --fused --clocks)
+VARIANTS = {"frame_step_clocks": ("frame_step", ["-DJTPU_FS_CLOCKS"])}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -37,11 +42,17 @@ def _nvcc() -> str:
     return path
 
 
+def _source(name: str) -> tuple[str, list[str]]:
+    """The source file of library `name` and the flags of its own."""
+    src, flags = VARIANTS.get(name, (name, []))
+    return os.path.join(CSRC, f"{src}.cu"), [*EXTRA_FLAGS.get(src, ()), *flags]
+
+
 def _cmd(name: str, out: str) -> list[str]:
+    src, flags = _source(name)
     return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-            *EXTRA_FLAGS.get(name, ()),
-            "-o", out, os.path.join(CSRC, f"{name}.cu")]
+            *flags, "-o", out, src]
 
 
 def _lib_path(name: str) -> str:
@@ -51,7 +62,7 @@ def _lib_path(name: str) -> str:
 def _stale(name: str) -> bool:
     lib = _lib_path(name)
     return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(
-        os.path.join(CSRC, f"{name}.cu"))
+        _source(name)[0])
 
 
 def build_all(names=SOURCES) -> dict[str, str]:

@@ -36,7 +36,8 @@
 //
 // What bounds it on an H100: neither bytes nor operations, but the chain of
 // dependent stages inside one frame, which no second SM can share. Measured
-// (harness/profile_decode.py --fused --knobs 8, the cycles of each phase),
+// (harness/profile_decode.py --fused --clocks, the cycles of each phase
+// from a build of this file with -DJTPU_FS_CLOCKS),
 // a phase takes about the number of instructions of its busiest thread
 // times the four to five cycles between dependent instructions, plus the
 // device-memory latencies it waits for. The design therefore keeps that
@@ -138,20 +139,34 @@ enum Ptr {
   P_OUT_BF_SRC,
   P_RECORDS, P_REC_COUNT,
   P_BF_SCORE, P_BF_AC, P_BF_LM, P_BF_PATH, P_BF_SEQ, P_BF_SRC, P_N_ACTIVE,
-  P_N_CAND, P_CLOCKS,
+  P_N_CAND,
   N_PTR
 };
 enum Int {
   I_B, I_K, I_E, I_F, I_S, I_G, I_H, I_N_ARCS, I_N_ENT, I_N_FENT, I_N_BINS, I_HT,
-  I_MAX_EMIT_HYPS, I_N_FRAMES, I_T_BASE, I_THREADS, I_REC_CAP, I_HMM_SMEM, I_KNOBS,
+  I_MAX_EMIT_HYPS, I_N_FRAMES, I_T_BASE, I_THREADS, I_REC_CAP, I_HMM_SMEM,
   N_INT
 };
 enum Flt { F_EMIT_WIN, F_START_WIN, F_END_WIN, F_WORD_WIN, F_HIST_MIN, F_HIST_MAX, N_FLT };
-// measurement switches (I_KNOBS): what the design would cost without a part
-constexpr int kKnobClearEveryFrame = 1;  // clear the table every frame
-constexpr int kKnobNoPrefetch = 2;       // load a frame's scores when it starts
-constexpr int kKnobClocks = 8;           // thread 0 sums the cycles of each phase
+
+// The profiling build (-DJTPU_FS_CLOCKS, a library of its own that only
+// harness/profile_decode.py loads): thread 0 of each block sums the cycles
+// between the marks of a frame, per phase, and leaves them in `g_clocks`.
+#ifdef JTPU_FS_CLOCKS
 constexpr int kPhases = 11;  // top, A, B scan, B rest, C, D scan, D rest, E, F, G records, G rest
+constexpr int kClockBlocks = 1024;  // blocks beyond these are not recorded
+__device__ long long g_clocks[kClockBlocks * kPhases];
+#define FS_MARK(phase)                       \
+  do {                                       \
+    if (tid == 0) {                          \
+      const long long now = clock64();       \
+      sh_clocks[phase] += now - last_clock;  \
+      last_clock = now;                      \
+    }                                        \
+  } while (0)
+#else
+#define FS_MARK(phase)
+#endif
 
 struct Params {
   const void* ptr[N_PTR];
@@ -326,7 +341,6 @@ struct Reduce {
 struct Shared {
   Reduce r[2];
   int ws[2][kLanes][32];
-  long long clocks[kPhases];
 };
 
 __host__ __device__ inline size_t rup4(size_t n) { return (n + 3) & ~static_cast<size_t>(3); }
@@ -359,7 +373,6 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
   const int H = p.i[I_H];
   const int n_arcs = p.i[I_N_ARCS], n_ent = p.i[I_N_ENT], n_fent = p.i[I_N_FENT];
   const int n_bins = p.i[I_N_BINS], HT = p.i[I_HT], max_hyps = p.i[I_MAX_EMIT_HYPS];
-  const int knobs = p.i[I_KNOBS];
   const int dead = n_arcs + 1;
   const float emit_win = p.f[F_EMIT_WIN], start_win = p.f[F_START_WIN];
   const float end_win = p.f[F_END_WIN], word_win = p.f[F_WORD_WIN];
@@ -471,8 +484,7 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
   int bf_path = -1, bf_seq = 0, bf_src = -1;
   // the table's generation: key = gen << abits | arc; 0 is the cleared table
   const int abits = 32 - __clz(dead);
-  const unsigned gen_max =
-      (knobs & kKnobClearEveryFrame) ? 1u : (1u << min(32 - abits, 16)) - 1u;
+  const unsigned gen_max = (1u << min(32 - abits, 16)) - 1u;
   unsigned gen = gen_max;  // the first frame clears
   int scan_buf = 0;
   int rec_base = 0;  // records this launch has written for the utterance
@@ -482,19 +494,14 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
   int bound = K, act_prev = K;
   int4* records = at<int4>(p, P_RECORDS) +
                   static_cast<size_t>(b) * static_cast<size_t>(p.i[I_REC_CAP]) * 2;
-  // with kKnobClocks, thread 0 adds the cycles since the last mark to a phase
+#ifdef JTPU_FS_CLOCKS
+  __shared__ long long sh_clocks[kPhases];
   long long last_clock = 0;
-  auto mark = [&](int phase) {
-    if ((knobs & kKnobClocks) && tid == 0) {
-      const long long now = clock64();
-      sh.clocks[phase] += now - last_clock;
-      last_clock = now;
-    }
-  };
   if (tid == 0) {
-    for (int i = 0; i < kPhases; ++i) sh.clocks[i] = 0;
+    for (int i = 0; i < kPhases; ++i) sh_clocks[i] = 0;
     last_clock = clock64();
   }
+#endif
   __syncthreads();
 
   for (int f = 0; f < p.i[I_N_FRAMES]; ++f) {
@@ -515,7 +522,7 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
       emit_thresh = emit_win > 0.0f ? -emit_win : kNeg;
     }
     const float start_thresh = best_start - start_win;
-    if (f + 1 < p.i[I_N_FRAMES] && !(knobs & kKnobNoPrefetch)) {
+    if (f + 1 < p.i[I_N_FRAMES]) {
       const float* next = scores + (row_tb + B) * G;
       float* dst = s_gmm + ((f + 1) & 1) * G4;
       for (int g = tid; g < G; g += nt) cp_async4(dst + g, next + g);
@@ -529,7 +536,7 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
       gen = 1;
       __syncthreads();
     }
-    mark(0);
+    FS_MARK(0);
 
     // ---- A. internal propagation, emit beam, histogram counts, exit ----
     for (int k = tid; k < bound_r; k += nt) {
@@ -631,7 +638,7 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
       }
     }
     __syncthreads();  // 1
-    mark(1);
+    FS_MARK(1);
 
     // ---- B. exit beams; one scan: exits, both fan-outs, the histogram ----
     if (tid == 0) {
@@ -680,7 +687,7 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
         },
         tot1);
     const int n_x = tot1[0], total = tot1[1], ftotal = tot1[2];
-    mark(2);
+    FS_MARK(2);
     for (int seen = n_hw, cum = tot1[3]; hist_binds && cum < max_hyps && seen <= bin_hi;) {
       const int n_more = min(bin_hi + 1 - seen, nt * kIpt);
       int tot[1];
@@ -696,7 +703,7 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
       seen += n_more;
     }
     __syncthreads();  // 3 (the scan's own was 2)
-    mark(3);
+    FS_MARK(3);
 
     // ---- C. closure expansion into candidates; finals; hash inserts ------
     const int n_c = min(total, E);
@@ -796,7 +803,7 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
       }
     }
     __syncthreads();  // 4
-    mark(4);
+    FS_MARK(4);
 
     // one thread asks for the snapshot's table row; the loads are in flight
     // through phases D to F and are used after barrier 7
@@ -848,13 +855,13 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
         },
         tot2);
     const int n_new = tot2[0], n_holes = tot2[1];
-    mark(5);
+    FS_MARK(5);
     const int n_free = K - n_live;
     // slots below `top` may hold something after this frame
     const int top = bound + max(0, min(n_new, n_free) - n_holes);
     const int top_r = (top + 31) & ~31;
     __syncthreads();  // 6 (the scan's own was 5)
-    mark(6);
+    FS_MARK(6);
 
     // ---- E. winners take their slots -------------------------------------
     for (int e = tid; e < ((n_c + 31) & ~31); e += nt) {
@@ -877,7 +884,7 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
       if (lane == 0) atomicMax(&red.red_entry, o_entry);
     }
     __syncthreads();  // 7
-    mark(7);
+    FS_MARK(7);
 
     // ---- F. insertion; count this frame's records by warp -----------------
     for (int k = tid; k < top_r; k += nt) {
@@ -938,9 +945,9 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
         bf_src = bfx_src;
       }
     }
-    if (!(knobs & kKnobNoPrefetch)) cp_async_wait_all();
+    cp_async_wait_all();
     __syncthreads();  // 8
-    mark(8);
+    FS_MARK(8);
 
     // ---- G. this frame's records, in slot order ---------------------------
     // A slot belongs to the same thread here and in phase A of the next
@@ -984,7 +991,7 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
       }
       rec_base += n_rec;
     }
-    mark(9);
+    FS_MARK(9);
     // Slots at or above `bound` are dead and hold exactly the dead state, so
     // the next frame leaves them alone. A slot that died in this frame
     // still holds its last states: it lies below this frame's `act_prev`
@@ -993,13 +1000,6 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
       const int act = red.act;
       bound = max(act, act_prev);
       act_prev = act;
-    }
-    if (knobs & kKnobNoPrefetch) {
-      if (f + 1 < p.i[I_N_FRAMES]) {
-        float* dst = s_gmm + ((f + 1) & 1) * G4;
-        for (int g = tid; g < G; g += nt) dst[g] = scores[(row_tb + B) * G + g];
-      }
-      __syncthreads();
     }
 
     if (bf_thread) {
@@ -1013,11 +1013,13 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
       at<int>(p, P_N_CAND)[row_tb] = total;
       at<int>(p, P_REC_COUNT)[row_tb] = rec_base;
     }
-    mark(10);
+    FS_MARK(10);
   }
-  if ((knobs & kKnobClocks) && tid == 0) {
-    for (int i = 0; i < kPhases; ++i) at<long long>(p, P_CLOCKS)[b * kPhases + i] = sh.clocks[i];
+#ifdef JTPU_FS_CLOCKS
+  if (tid == 0 && b < kClockBlocks) {
+    for (int i = 0; i < kPhases; ++i) g_clocks[b * kPhases + i] = sh_clocks[i];
   }
+#endif
 
   // ---- carry out (a slot is written and read by the same thread) ----------
   {
@@ -1053,9 +1055,14 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
 
 template <int S, bool kStaged>
 int launch(const Params& p, size_t smem, cudaStream_t stream) {
-  // the opt-in to more than 48 KB is set once per instantiation and size
-  static size_t allowed = 48 * 1024;
-  if (smem > allowed) {
+  // the opt-in to more than 48 KB is set once per instantiation, device and
+  // size
+  constexpr int kMaxDevices = 64;
+  static size_t allowed_on[kMaxDevices];
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= kMaxDevices) return -1;
+  size_t& allowed = allowed_on[device];
+  if (smem > 48 * 1024 && smem > allowed) {
     const cudaError_t rc = cudaFuncSetAttribute(
         frame_step_kernel<S, kStaged>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (rc != cudaSuccess) return static_cast<int>(rc);
@@ -1072,6 +1079,17 @@ extern "C" long long jtpu_frame_step_smem_bytes(int K, int E, int S, int G, int 
                                                 int hmm_words) {
   return static_cast<long long>(smem_bytes(K, E, S, G, n_bins, HT, hmm_words));
 }
+
+#ifdef JTPU_FS_CLOCKS
+// The profiling build's cycles: `out` takes n_blocks rows of n_phases sums
+// (host memory). Returns the number of phases, or -1 on a failed copy.
+extern "C" int jtpu_frame_step_read_clocks(long long* out, int n_blocks) {
+  if (n_blocks < 0 || n_blocks > kClockBlocks) return -1;
+  const cudaError_t rc =
+      cudaMemcpyFromSymbol(out, g_clocks, sizeof(long long) * n_blocks * kPhases);
+  return rc == cudaSuccess ? kPhases : -1;
+}
+#endif
 
 extern "C" int jtpu_frame_step_arg_counts(int* n_ptr, int* n_int, int* n_flt) {
   *n_ptr = N_PTR;

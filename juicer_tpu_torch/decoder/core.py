@@ -604,7 +604,11 @@ class TorchDecoder:
             if T_pad != T and T > 0:
                 sc = torch.cat([sc, sc[-1:].expand(T_pad - T, -1)])
                 true_T = T
-        if self.device.type == "cuda" and T > 0:
+        if T == 0:
+            # no frame to step on either route: the result is read from the
+            # initial propagation, which `run` hands back as it built it
+            carry, ys, rec0 = self.run(sc[None])
+        elif self.device.type == "cuda":
             carry, ys, rec0 = self._fused_single(sc)
         else:
             carry, ys, rec0 = self.run(sc[None])

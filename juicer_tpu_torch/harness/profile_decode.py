@@ -1,7 +1,7 @@
 """Where a decode wave's time goes on the card.
 
     python -m juicer_tpu_torch.harness.profile_decode [--frames N] [--batch B]
-        [--fused [--knobs M] | --entry] [--trace]
+        [--fused [--clocks] | --entry] [--trace]
 
 Scores the 2k-word WSJ-order task's bench batch (8 sampled utterances
 tiled to 16, `WSJ_POINT`, diagnostics off) with the GMM kernel, runs the
@@ -13,13 +13,12 @@ frame, and the ten costliest kernels; `--trace` writes the Chrome trace
 to `chiprun_out/profile_decode.json` (large: tens of MB per 100 frames).
 `--fused` profiles the fused route instead: one launch of the frame-step
 kernel (`decoder/fused_scan.py`) over the same N frames, diagnostics as
-the kernel writes them; `--knobs M` sets the kernel's measurement
-switches (1: clear the recombination table every frame; 2: no score
-prefetch; 4: HMM tables read from device memory, not staged in shared
-memory), to show what each part of the design is worth; with 8 the
-kernel's thread 0 counts the cycles of each phase of the frame (top, A
-propagation, B exit scan, C candidates, D winners scan, E slots, F
-insertion, G records), printed as the share of each. `--entry`
+the kernel writes them; with `--clocks` the kernel is the profiling
+build (`-DJTPU_FS_CLOCKS`, a library beside the one every other caller
+loads), in which thread 0 of each block counts the cycles of each phase
+of the frame (top, A propagation, B exit scan, C candidates, D winners
+scan, E slots, F insertion, G records), printed per frame and as the
+share of each; its times are not the kernel's own. `--entry`
 profiles one whole `BatchDecoder.decode_scores_batch` call on N frames
 (the fused route, as a user calls it): its wall time, the device's busy
 time and idle share, and beside it the same work stage by stage with a
@@ -31,6 +30,7 @@ with its bytes) and the traceback of B utterances. `--batch B` tiles the
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
 import subprocess
@@ -41,10 +41,15 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from ..decoder.core import TorchDecoder, host_batch
-from ..decoder.fused_scan import PHASES, FusedDecodeScan
+from ..decoder import fused_scan
+from ..decoder.fused_scan import FusedDecodeScan
 from ..parallel.batch import BatchDecoder
 from ..ops.gmm import make_gmm_scorer
 from . import wsj_task
+
+# the marks of the profiling build of csrc/frame_step.cu, in its order
+PHASES = ("top", "A", "B_scan", "B_rest", "C", "D_scan", "D_rest", "E", "F",
+          "G_records", "G_rest")
 
 
 def main() -> None:
@@ -52,10 +57,8 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=100)
     ap.add_argument("--fused", action="store_true",
                     help="profile the fused frame-step kernel, not the plain loop")
-    ap.add_argument("--knobs", type=int, default=0,
-                    help="with --fused: the kernel's measurement switches (1, 2, 4, 8)")
-    ap.add_argument("--threads", type=int, default=0,
-                    help="with --fused: threads a block (default: the wrapper's choice)")
+    ap.add_argument("--clocks", action="store_true",
+                    help="with --fused: the profiling build, cycles of each phase")
     ap.add_argument("--entry", action="store_true",
                     help="profile one whole BatchDecoder.decode_scores_batch call")
     ap.add_argument("--batch", type=int, default=0, help="utterances a wave (default 16)")
@@ -85,11 +88,9 @@ def main() -> None:
         def run():
             return bd.decode_scores_batch(scores)
     elif args.fused:
+        if args.clocks:
+            fused_scan.LIB_NAME = "frame_step_clocks"
         fs = FusedDecodeScan(dec, B)
-        fs.knobs = args.knobs & 11
-        fs.threads = args.threads or fs.threads
-        if args.knobs & 4:
-            fs.dims = dict(fs.dims, hmm_words=0)
         scores_tbg = scores.transpose(0, 1).contiguous()
 
         def run():
@@ -136,13 +137,21 @@ def main() -> None:
             "records": n_rec, "records_per_frame_utt": n_rec / (T * B),
             "words": sum(len(r.words) for r in results),
         }
-    if args.fused and args.knobs & 8:
-        clocks = fs.clocks.double().mean(dim=0)
+    if args.fused and args.clocks:
+        # of the last launch: the run timed without the profiler
+        n = min(B, 1024)
+        buf = (ctypes.c_longlong * (n * len(PHASES)))()
+        lib = fused_scan._get_lib()
+        lib.jtpu_frame_step_read_clocks.restype = ctypes.c_int
+        lib.jtpu_frame_step_read_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        if lib.jtpu_frame_step_read_clocks(ctypes.addressof(buf), n) != len(PHASES):
+            raise RuntimeError("the profiling build's cycle counts could not be read")
+        clocks = torch.tensor(list(buf), dtype=torch.float64).view(n, len(PHASES)).mean(dim=0)
         stages = {"cycles_per_frame": dict(zip(PHASES, (clocks / T).tolist())),
                   "share": dict(zip(PHASES, (clocks / clocks.sum()).tolist()))}
     route = "entry" if args.entry else "fused" if args.fused else "plain"
     out = {
-        "card": card, "route": route, "knobs": args.knobs, "threads": args.threads,
+        "card": card, "route": route, "clocks": args.clocks,
         "batch": B, "frames": T,
         "wall_ms_per_frame": plain_wall / T * 1e3,
         "profiled_wall_ms_per_frame": wall / T * 1e3,
