@@ -10,12 +10,14 @@ Phases (any failure raises and exits non-zero before the result line):
   2. build: every CUDA kernel of `juicer_tpu_torch/csrc/`, one nvcc each,
      in parallel, with the build time and ptxas report;
   3. GMM kernel vs plain: the hand-written kernel against the plain
-     PyTorch scorer `gmm_scores_dense` on the card, at the shapes of the
-     decode wave below (16 utterances x the longest length, D=39, 141
-     GMMs, 8 components), atol 1e-3 on scores of magnitude ~1e2; kernel,
-     plain and library-call (matmul + logsumexp) times over CUDA events,
-     and the kernel's bound (the larger of its float32 operations over the
-     card's CUDA-core peak and its bytes over the memory rate);
+     PyTorch scorer `gmm_scores_dense` on the card, at the shapes of both
+     decode waves below (16 and 132 utterances x the longest length,
+     T = 23,328 and 192,456; D=39, 141 GMMs, 8 components), atol 1e-3 on
+     scores of magnitude ~1e2; at each: kernel, plain and library-call
+     (one matmul of [x^2 | x] with [V; M] + logsumexp) times over CUDA
+     events, the kernel's bound (the larger of its float32 operations over
+     the card's CUDA-core peak and its bytes over the memory rate) and the
+     share of the bound it reaches;
   4. plain decode, the reference run: the 2k-word WSJ-order task
      (`scripts/_wsj_cache_2k`, its artifact built on first use) at the
      reference bench's operating point (beam 70 / end-beam 50 / maxHyps
@@ -55,7 +57,9 @@ Phases (any failure raises and exits non-zero before the result line):
      certified and one timed wave through `BatchDecoder`; every
      utterance's words, word-end frames and score must equal the B=16
      wave's; the kernel's ms a wave, the device-only and the entry
-     point's frames/s at B=132 beside those at B=16;
+     point's frames/s at B=132 beside those at B=16, and the device wave
+     over CUDA events beside its parts (GMM kernel, the scores' transpose
+     to (T, B, G), frame-step kernel);
   7. parity: a short whole sentence (300 frames, sampled with seed 12; a
      cut utterance reaches no final state) decodes on the card and with
      device="cpu" from the same scores (words, word-end frames and the
@@ -174,45 +178,61 @@ def main() -> int:
     print(f"[task] {len(utts)} utterances T={lengths_u}, batch {B} x {Tmax}",
           flush=True)
 
-    # ---- 3. GMM kernel vs plain ------------------------------------------
+    # ---- 3. GMM kernel vs plain, at both waves' shapes -----------------------
     scorer = make_gmm_scorer(params, device="cuda")
+    C = params.max_comps
     x = feats.reshape(B * Tmax, D).contiguous()
-    T = x.shape[0]
-    ker = gmm_cuda.gmm_logsumexp(x, scorer.W, scorer.b_packed, G)
-    plain = gmm_scores_dense(x, scorer.V, scorer.M, scorer.b, scorer.mask)
-    torch.cuda.synchronize()
-    if not torch.isfinite(ker).all():
-        raise RuntimeError("gmm_logsumexp produced non-finite scores")
-    err = float((ker - plain).abs().max())
-    mag = float(plain.abs().max())
-    C = scorer.W.shape[0]
-    G_pad = scorer.W.shape[2]
-    W_lib = scorer.W.permute(1, 0, 2).reshape(2 * D, C * G_pad).contiguous()
+    B2 = 132  # phase 6b's wave: the same utterances tiled to one block an SM
+    x2 = x.view(B, Tmax, D)[torch.arange(B2, device=dev) % B].reshape(B2 * Tmax, D)
+    # the library yardstick: one matmul of [x^2 | x] with [V; M] and one
+    # logsumexp over the components, in component-major column order
+    VM = torch.cat([scorer.V, scorer.M], dim=0).view(2 * D, G, C).transpose(1, 2)
+    VM = VM.reshape(2 * D, C * G)
+    b_lib = torch.where(scorer.mask, scorer.b.view(G, C), -1e30).t().contiguous()
 
-    def library():
-        x2 = torch.cat([x * x, x], dim=1)
-        return torch.logsumexp(
-            (x2 @ W_lib).view(T, C, G_pad) + scorer.b_packed[None], dim=1)
+    def gmm_phase(xx, what):
+        T = xx.shape[0]
+        ker = gmm_cuda.gmm_logsumexp(xx, scorer.W, scorer.b_packed, G)
+        plain = gmm_scores_dense(xx, scorer.V, scorer.M, scorer.b, scorer.mask)
+        torch.cuda.synchronize()
+        if not torch.isfinite(ker).all():
+            raise RuntimeError(f"gmm_logsumexp produced non-finite scores at {what}")
 
-    lib_err = float((library()[:, :G] - plain).abs().max())
-    print(f"[gmm] kernel vs plain max |err| {err:.3e} (atol {GMM_ATOL}, "
-          f"|score| up to {mag:.1f}); library vs plain {lib_err:.3e}", flush=True)
-    if not err <= GMM_ATOL:
-        raise RuntimeError(f"gmm_logsumexp disagrees with gmm_scores_dense: {err}")
-    n0 = gmm_cuda.counter.launches
-    ms = cuda_ms(lambda: gmm_cuda.gmm_logsumexp(x, scorer.W, scorer.b_packed, G), 20)
-    if gmm_cuda.counter.launches - n0 != 21:
-        raise RuntimeError("gmm_logsumexp launch counter did not count its launches")
-    plain_ms = cuda_ms(lambda: gmm_scores_dense(x, scorer.V, scorer.M, scorer.b, scorer.mask), 20)
-    library_ms = cuda_ms(library, 20)
-    flops = 2.0 * T * G * C * 2 * D
-    nbytes = 4.0 * (x.numel() + scorer.W.numel() + scorer.b_packed.numel() + T * G)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    print(f"[gmm] T={T} D={D} G={G} C={C}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"library {library_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us "
-          f"({'operations' if t_ops >= t_bytes else 'bytes'}: {flops / 1e9:.2f} GFLOP, "
-          f"{nbytes / 1e6:.1f} MB) | {card}", flush=True)
+        def library():
+            return torch.logsumexp(
+                (torch.cat([xx * xx, xx], dim=1) @ VM).view(T, C, G) + b_lib, dim=1)
+
+        err = float((ker - plain).abs().max())
+        lib_err = float((library() - plain).abs().max())
+        print(f"[gmm] {what}: kernel vs plain max |err| {err:.3e} (atol {GMM_ATOL}, "
+              f"|score| up to {float(plain.abs().max()):.1f}); library vs plain "
+              f"{lib_err:.3e}", flush=True)
+        if not err <= GMM_ATOL:
+            raise RuntimeError(f"gmm_logsumexp disagrees with gmm_scores_dense at {what}: {err}")
+        del ker, plain
+        n0 = gmm_cuda.counter.launches
+        ms = cuda_ms(lambda: gmm_cuda.gmm_logsumexp(xx, scorer.W, scorer.b_packed, G), 20)
+        if gmm_cuda.counter.launches - n0 != 21:
+            raise RuntimeError("gmm_logsumexp launch counter did not count its launches")
+        plain_ms = cuda_ms(
+            lambda: gmm_scores_dense(xx, scorer.V, scorer.M, scorer.b, scorer.mask), 20)
+        library_ms = cuda_ms(library, 20)
+        # the function's own work: every real (frame, GMM, component) over
+        # 2D inputs; each input byte read once, each output byte written once
+        flops = 2.0 * T * G * C * 2 * D
+        nbytes = 4.0 * (xx.numel() + 2 * D * G * C + G * C + T * G)
+        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        bound_by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"[gmm] {what}: T={T} D={D} G={G} C={C}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB), "
+              f"{100 * bound_ms / ms:.1f} % of the bound | {card}", flush=True)
+        return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                    bound_ms=bound_ms, bound_by=bound_by)
+
+    gmm16 = gmm_phase(x, f"B={B}")
+    gmm132 = gmm_phase(x2, f"B={B2}")
 
     # ---- 4. plain decode: the reference run ----------------------------------
     art = task.artifact
@@ -427,11 +447,7 @@ def main() -> int:
           flush=True)
 
     # ---- 6b. a card full of utterances: one block on every SM ----------------
-    B2 = 132
-    feats2 = feats[torch.arange(B2, device=dev) % B]
-    x2 = feats2.reshape(B2 * Tmax, D).contiguous()
     lengths2 = [lengths[i % B] for i in range(B2)]
-    del feats2
     gmm_cuda.counter.launches = 0
     fused_scan.counter.launches = 0
     t0 = time.perf_counter()
@@ -453,9 +469,11 @@ def main() -> int:
                 raise RuntimeError(f"B={B2}: utterance {i} differs from the B={B} wave")
     del results2, again2, results16
     fs2 = bd._fs[B2]
-    scores2_tbg = scorer(x2).view(B2, Tmax, G).transpose(0, 1).contiguous()
+    scores2 = scorer(x2).view(B2, Tmax, G)
+    tr_ms2 = cuda_ms(lambda: scores2.transpose(0, 1).contiguous(), 3)
+    scores2_tbg = scores2.transpose(0, 1).contiguous()
     fs_ms2 = cuda_ms(lambda: fs2(scores2_tbg), 3)
-    del scores2_tbg
+    del scores2, scores2_tbg
 
     def device_wave2():
         return fs2(scorer(x2).view(B2, Tmax, G).transpose(0, 1).contiguous())
@@ -467,6 +485,7 @@ def main() -> int:
     t_wave2 = time.perf_counter() - t0
     if int(carry["overflow"].sum()) or int((carry["best_final"]["score"] <= -0.5e30).sum()):
         raise RuntimeError(f"B={B2}: fused device wave overflowed or died")
+    wave_ms2 = cuda_ms(device_wave2, 3)
     fps2, fps_device2 = B2 * Tmax / t_entry2, B2 * Tmax / t_wave2
     print(f"[B={B2}] {len(utts)} utterances tiled to {B2} x {Tmax} frames, one block an SM: "
           f"every utterance's words, word-end frames and score equal the B={B} wave's; "
@@ -478,6 +497,9 @@ def main() -> int:
     print(f"[B={B2}] entry point {fps2:.1f} frames/s (wave {t_entry2:.4f}s), device only "
           f"{fps_device2:.1f} frames/s (wave {t_wave2:.4f}s); at B={B}: entry point "
           f"{fps:.1f}, device only {fps_device:.1f} frames/s | {card}", flush=True)
+    print(f"[B={B2}] device wave {wave_ms2:.4f} ms over CUDA events: gmm_logsumexp "
+          f"{gmm132['ms']:.4f} + scores' transpose {tr_ms2:.4f} + frame_step {fs_ms2:.4f} = "
+          f"{gmm132['ms'] + tr_ms2 + fs_ms2:.4f} ms | {card}", flush=True)
     del x2, carry
 
     # ---- 7. card vs CPU parity on one short utterance -----------------------
@@ -524,10 +546,12 @@ def main() -> int:
         "name": "gmm_logsumexp", "route": "cuda",
         "source": "juicer_tpu_torch/csrc/gmm_logsumexp.cu",
         "replaces": "juicer_tpu/ops/gmm_pallas.py:29",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
+        "launches": launches, "max_abs_err": gmm16["err"], "ms": gmm16["ms"],
+        "plain_ms": gmm16["plain_ms"], "bound_ms": gmm16["bound_ms"],
+        "bound_by": gmm16["bound_by"], "library_ms": gmm16["library_ms"],
+        "max_abs_err_b132": gmm132["err"], "ms_b132": gmm132["ms"],
+        "plain_ms_b132": gmm132["plain_ms"], "bound_ms_b132": gmm132["bound_ms"],
+        "library_ms_b132": gmm132["library_ms"], "launches_b132": launches2[0],
     }, {
         "name": "frame_step", "route": "cuda",
         "source": "juicer_tpu_torch/csrc/frame_step.cu",

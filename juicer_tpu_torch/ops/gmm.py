@@ -48,10 +48,10 @@ def gmm_scores_dense(features: torch.Tensor, V: torch.Tensor, M: torch.Tensor,
 class GmmScorer:
     """(T, D) features -> (T, G) GMM log-likelihoods on one device.
 
-    Parameters live on that device in both layouts: the g-major dense form
-    for the plain version and the component-major packing the kernel
-    reads. CUDA features go to the kernel (no fallback); CPU features to
-    `gmm_scores_dense`."""
+    Parameters live on that device: the g-major dense form for the plain
+    version and, on the card, the same order padded to the kernel's tiles
+    (`gmm_cuda.pack_params`). CUDA features go to the kernel (no
+    fallback); CPU features to `gmm_scores_dense`."""
 
     def __init__(self, params: FlatGmmParams, device="cuda"):
         self.device = resolve_device(device)

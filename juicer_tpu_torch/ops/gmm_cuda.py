@@ -1,10 +1,11 @@
 """Wrapper of the hand-written Hopper GMM kernel `csrc/gmm_logsumexp.cu`.
 
 The kernel replaces the Pallas TPU kernel `_kernel` of
-`juicer_tpu/ops/gmm_pallas.py`. `pack_params` lays the parameters out
-component-major, as `make_pallas_gmm_scorer` does (`gmm_pallas.py:79-90`),
-once per model set; `gmm_logsumexp` launches the kernel on CUDA tensors
-and raises on anything else. Its plain PyTorch version is
+`juicer_tpu/ops/gmm_pallas.py`. `pack_params` keeps the plain scorer's
+g-major column order (a GMM's components side by side) and only pads it,
+once per model set: W (2D, G_pad * C_pad) = [V; M], b (G_pad, C_pad) with
+-1e30 in padded components and GMMs. `gmm_logsumexp` launches the kernel
+on CUDA tensors and raises on anything else. Its plain PyTorch version is
 `ops.gmm.gmm_scores_dense`; `ops.gmm.GmmScorer` dispatches between them by
 the device of the features.
 """
@@ -20,7 +21,10 @@ from .._cuda_build import load
 from ..am.models import FlatGmmParams
 
 NEG = -1e30
-G_ALIGN = 32  # the kernel's GMM tile
+GMM_TILE = 16    # GMMs a block scores; G pads to a multiple
+COMP_CHUNK = 8   # components a thread holds; C pads to a multiple
+MAX_DIM = 192    # feature sizes the kernel takes (the widest the card tests check)
+MAX_COMPS = 32   # components a GMM may have (likewise)
 
 
 class _Counter:
@@ -44,28 +48,36 @@ def _get_lib():
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
-        lib.jtpu_gmm_logsumexp_max_dim.restype = ctypes.c_int
-        lib.jtpu_gmm_logsumexp_max_dim.argtypes = []
         _lib = lib
     return _lib
 
 
+def check_limits(D: int, C: int) -> None:
+    """Raise ValueError unless the kernel takes feature size D and C
+    components a GMM."""
+    if not 1 <= D <= MAX_DIM:
+        raise ValueError(f"gmm_logsumexp: feature size {D} is outside 1..{MAX_DIM}")
+    if not 1 <= C <= MAX_COMPS:
+        raise ValueError(f"gmm_logsumexp: {C} components a GMM is outside 1..{MAX_COMPS}")
+
+
 def pack_params(params: FlatGmmParams):
-    """Component-major packing: W (C, 2D, G_pad) = [V; M] per component,
-    b (C, G_pad) with -1e30 in padded components and GMMs."""
+    """W (2D, G_pad * C_pad) = [V; M] in g-major column order (column
+    g * C_pad + c), zero in padded columns; b (G_pad, C_pad) with -1e30 in
+    padded components and GMMs."""
     G, C, D = params.n_gmms, params.max_comps, params.vec_size
-    G_pad = -(-G // G_ALIGN) * G_ALIGN
+    check_limits(D, C)
+    G_pad, C_pad = -(-G // GMM_TILE) * GMM_TILE, -(-C // COMP_CHUNK) * COMP_CHUNK
 
-    def to_cg(a):  # (D, G*C) g-major -> (C, D, G_pad)
-        a = np.asarray(a, np.float32).reshape(D, G, C).transpose(2, 0, 1)
-        out = np.zeros((C, D, G_pad), np.float32)
-        out[:, :, :G] = a
-        return out
+    def pad(a):  # (D, G*C) -> (D, G_pad * C_pad)
+        out = np.zeros((D, G_pad, C_pad), np.float32)
+        out[:, :G, :C] = np.asarray(a, np.float32).reshape(D, G, C)
+        return out.reshape(D, G_pad * C_pad)
 
-    W = np.concatenate([to_cg(params.V), to_cg(params.M)], axis=1)
-    b = np.full((C, G_pad), NEG, np.float32)
-    b[:, :G] = np.asarray(params.b, np.float32).reshape(G, C).T
-    b[:, :G][~np.asarray(params.mask).T] = NEG
+    W = np.concatenate([pad(params.V), pad(params.M)], axis=0)
+    b = np.full((G_pad, C_pad), NEG, np.float32)
+    b[:G, :C] = np.where(np.asarray(params.mask, bool),
+                         np.asarray(params.b, np.float32).reshape(G, C), NEG)
     return W, b
 
 
@@ -82,23 +94,26 @@ def gmm_logsumexp(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
             raise ValueError(f"gmm_logsumexp: {name} is not contiguous")
         if t.device != x.device:
             raise ValueError("gmm_logsumexp: tensors on different devices")
-    if x.dim() != 2 or W.dim() != 3 or b.dim() != 2:
-        raise ValueError("gmm_logsumexp: expected x (T, D), W (C, 2D, G_pad), b (C, G_pad)")
+    if x.dim() != 2 or W.dim() != 2 or b.dim() != 2:
+        raise ValueError("gmm_logsumexp: expected x (T, D), W (2D, G_pad*C_pad), "
+                         "b (G_pad, C_pad)")
     T, D = x.shape
-    C, D2, G_pad = W.shape
-    if D2 != 2 * D or tuple(b.shape) != (C, G_pad) or not 0 < n_gmms <= G_pad:
+    G_pad, C_pad = b.shape
+    if (tuple(W.shape) != (2 * D, G_pad * C_pad) or G_pad % GMM_TILE or C_pad % COMP_CHUNK
+            or not 0 < n_gmms <= G_pad):
         raise ValueError(
             f"gmm_logsumexp: shapes x {tuple(x.shape)}, W {tuple(W.shape)}, "
             f"b {tuple(b.shape)}, n_gmms {n_gmms} do not fit")
+    check_limits(D, C_pad)
+    if W.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("gmm_logsumexp: W and b must be 16-byte aligned")
     if T >= 2**31 // max(n_gmms, D):
         raise ValueError("gmm_logsumexp: too many frames for one launch")
-    lib = _get_lib()
-    if D > lib.jtpu_gmm_logsumexp_max_dim():
-        raise ValueError(f"gmm_logsumexp: feature size {D} exceeds the kernel's shared-memory tile")
     out = torch.empty((T, n_gmms), dtype=torch.float32, device=x.device)
+    lib = _get_lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = lib.jtpu_gmm_logsumexp(x.data_ptr(), W.data_ptr(), b.data_ptr(),
-                                out.data_ptr(), T, D, n_gmms, G_pad, C, stream)
+                                out.data_ptr(), T, D, n_gmms, G_pad, C_pad, stream)
     if rc != 0:
         raise RuntimeError(f"gmm_logsumexp: launch failed (cudaError {rc})")
     counter.launches += 1

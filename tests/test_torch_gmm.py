@@ -7,9 +7,10 @@ of float32 sums taken in another order: 1e-4 on the small-mean test
 models; 1e-3 on the synthetic D=39 task, whose expanded quadratic terms
 reach ~1e4 and cancel to scores of ~1e2 (one float32 ulp at 1e4 is
 ~1e-3), where the float64 oracle shows both packages equally far from
-the exact score. The kernel's component-major packing is
-checked here through a plain reading of it; the CUDA kernel itself runs
-only on the card (tests/test_torch_gpu.py).
+the exact score. The kernel's padded g-major packing is checked here
+through a plain reading of it that merges components a chunk at a time,
+as the kernel does; the CUDA kernel itself runs only on the card
+(tests/test_torch_gpu.py).
 """
 
 import numpy as np
@@ -72,12 +73,37 @@ def _port_params(p):
 
 
 def _packed_reference(x, W, b, n_gmms):
-    """The function the CUDA kernel computes, read off its packed inputs."""
+    """The function the CUDA kernel computes, read off its packed inputs:
+    W (2D, G_pad * C_pad) g-major, b (G_pad, C_pad); components merged
+    COMP_CHUNK at a time into a running (max, sum), as the kernel does."""
+    T = x.shape[0]
+    G_pad, C_pad = b.shape
     x2 = torch.cat([x * x, x], dim=1)
-    logits = torch.einsum("td,cdg->tcg", x2, W) + b[None]
-    m = logits.amax(dim=1)
-    out = torch.where(m <= NEG / 2, NEG, torch.logsumexp(logits, dim=1))
+    logits = (x2 @ W).view(T, G_pad, C_pad) + b[None]
+    m = torch.full((T, G_pad), -torch.inf)
+    s = torch.zeros((T, G_pad))
+    for c0 in range(0, C_pad, gmm_cuda.COMP_CHUNK):
+        chunk = logits[:, :, c0:c0 + gmm_cuda.COMP_CHUNK]
+        mx = chunk.amax(dim=2)
+        mn = torch.maximum(m, mx)
+        s = s * torch.exp(m - mn) + torch.exp(chunk - mx[..., None]).sum(2) * torch.exp(mx - mn)
+        m = mn
+    out = torch.where(m <= NEG / 2, NEG, m + torch.log(s))
     return out[:, :n_gmms]
+
+
+def _random_params(rng, D, G, C):
+    """Diagonal GMMs in expanded form; GMM g keeps 1 + g % C components
+    (the rest padded) and GMM 1, where there is one, none."""
+    mu = rng.normal(scale=2.0, size=(G, C, D))
+    var = rng.random((G, C, D)) + 0.5
+    mask = np.arange(C)[None, :] <= (np.arange(G) % C)[:, None]
+    if G > 1:
+        mask[1] = False
+    V = (-0.5 / var).reshape(G * C, D).T
+    M = (mu / var).reshape(G * C, D).T
+    b = (-0.5 * (mu * mu / var).sum(-1) - 0.5 * np.log(var).sum(-1)).reshape(-1)
+    return gmm_params_from_numpy(V, M, b, mask), mu
 
 
 @pytest.mark.parametrize("kind", ["make_models", "synth"])
@@ -110,13 +136,53 @@ def test_kernel_packing(kind):
     models = _model_set(kind)
     pp = _port_params(models.flat_params())
     W, b = gmm_cuda.pack_params(pp)
-    C, D2, G_pad = W.shape
-    assert D2 == 2 * pp.vec_size and G_pad % gmm_cuda.G_ALIGN == 0 and G_pad >= pp.n_gmms
+    G_pad, C_pad = b.shape
+    assert W.shape == (2 * pp.vec_size, G_pad * C_pad)
+    assert G_pad % gmm_cuda.GMM_TILE == 0 and 0 <= G_pad - pp.n_gmms < gmm_cuda.GMM_TILE
+    assert C_pad % gmm_cuda.COMP_CHUNK == 0 and 0 <= C_pad - pp.max_comps < gmm_cuda.COMP_CHUNK
     x = torch.as_tensor(_features(models, 64, seed=3))
     dense = gmm_scores_dense(x, torch.as_tensor(pp.V), torch.as_tensor(pp.M),
                              torch.as_tensor(pp.b), torch.as_tensor(pp.mask))
     packed = _packed_reference(x, torch.as_tensor(W), torch.as_tensor(b), pp.n_gmms)
     np.testing.assert_allclose(packed.numpy(), dense.numpy(), atol=ATOL[kind], rtol=0)
+
+
+@pytest.mark.parametrize("C", [1, 3, 5, 8, 13, 32])
+def test_packed_layout_over_component_counts(C):
+    """Padded components (and, above COMP_CHUNK, several chunks merged)
+    score as gmm_scores_dense does, and as the JAX dense scorer."""
+    rng = np.random.default_rng(100 + C)
+    D, G, T = 7, 19, 40
+    pp, mu = _random_params(rng, D, G, C)
+    x = (mu[rng.integers(G, size=T), 0] + rng.normal(size=(T, D))).astype(np.float32)
+    x = torch.as_tensor(x)
+    dense = gmm_scores_dense(x, torch.as_tensor(pp.V), torch.as_tensor(pp.M),
+                             torch.as_tensor(pp.b), torch.as_tensor(pp.mask))
+    W, b = gmm_cuda.pack_params(pp)
+    packed = _packed_reference(x, torch.as_tensor(W), torch.as_tensor(b), G)
+    ref = np.asarray(jax_gmm_scores_dense(
+        jnp.asarray(x.numpy()), jnp.asarray(pp.V), jnp.asarray(pp.M), jnp.asarray(pp.b),
+        jnp.asarray(pp.mask)))
+    assert (dense[:, 1] == NEG).all() and (packed[:, 1] == NEG).all()
+    np.testing.assert_allclose(packed.numpy(), dense.numpy(), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(packed.numpy(), ref, atol=1e-4, rtol=0)
+
+
+def test_kernel_limits():
+    """The wrapper's shape limits, through the check it makes before a
+    launch: D up to MAX_DIM and C up to MAX_COMPS."""
+    gmm_cuda.check_limits(gmm_cuda.MAX_DIM, gmm_cuda.MAX_COMPS)
+    gmm_cuda.check_limits(1, 1)
+    assert (gmm_cuda.MAX_DIM, gmm_cuda.MAX_COMPS) == (192, 32)
+    for D, C in ((193, 8), (0, 8), (39, 33), (39, 0)):
+        with pytest.raises(ValueError):
+            gmm_cuda.check_limits(D, C)
+    pp, _ = _random_params(np.random.default_rng(1), 193, 3, 2)
+    with pytest.raises(ValueError, match="feature size 193"):
+        gmm_cuda.pack_params(pp)
+    pp, _ = _random_params(np.random.default_rng(1), 4, 3, 33)
+    with pytest.raises(ValueError, match="33 components"):
+        gmm_cuda.pack_params(pp)
 
 
 def test_all_padded_gmm_scores_neg():

@@ -9,6 +9,8 @@ conftest (which configures JAX):
 Without a card every test skips.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -40,22 +42,33 @@ def card():
 
 def _random_params(rng, D, G, C):
     """Diagonal GMMs in expanded form; every 4th GMM has one component and
-    GMM 1 none (it must score -1e30)."""
+    GMM 1, where there is one, none (it must score -1e30)."""
     mu = rng.normal(scale=2.0, size=(G, C, D))
     var = rng.random((G, C, D)) + 0.5
     mask = np.ones((G, C), bool)
     mask[::4, 1:] = False
-    mask[1] = False
+    if G > 1:
+        mask[1] = False
     V = (-0.5 / var).reshape(G * C, D).T
     M = (mu / var).reshape(G * C, D).T
     b = (-0.5 * (mu * mu / var).sum(-1) - 0.5 * np.log(var).sum(-1)).reshape(-1)
     return gmm_params_from_numpy(V, M, b, mask), mu
 
 
+# the kernel's tile edges: 64 frames, 16 GMMs, components 8 at a time,
+# input dims of W staged 40 at a time (D=192 takes five chunks)
+EDGES = list(itertools.product([1, 65, 127, 129, 4099], [1, 13, 39, 192], [1, 15, 17, 141],
+                               [1, 3, 8, 16, 32]))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("T,D,G,C", [(1, 4, 3, 2), (100, 39, 141, 8), (4099, 13, 33, 3)])
+@pytest.mark.parametrize("T,D,G,C", [(1, 4, 3, 2), (100, 39, 141, 8), (4099, 13, 33, 3)]
+                         + EDGES)
 def test_kernel_matches_plain(card, T, D, G, C):
-    rng = np.random.default_rng(T + D)
+    """Within 1e-3 of the plain scorer at the repo's D <= 39. The expanded
+    terms' float32 sums over 2D inputs reach ~1e3 at D=192 and drift by
+    more ulps in each order, so the tolerance grows with D above 39."""
+    rng = np.random.default_rng([T, D, G, C])
     params, mu = _random_params(rng, D, G, C)
     scorer = make_gmm_scorer(params, device=card)
     g = rng.integers(G, size=T)
@@ -66,8 +79,11 @@ def test_kernel_matches_plain(card, T, D, G, C):
     torch.cuda.synchronize()
     assert gmm_cuda.counter.launches == n0 + 1
     dense = gmm_scores_dense(x, scorer.V, scorer.M, scorer.b, scorer.mask)
-    assert (out[:, 1] == NEG).all()
-    np.testing.assert_allclose(out.cpu().numpy(), dense.cpu().numpy(), atol=1e-3, rtol=0)
+    assert out.shape == (T, G) and torch.isfinite(out).all()
+    if G > 1:
+        assert (out[:, 1] == NEG).all()
+    np.testing.assert_allclose(out.cpu().numpy(), dense.cpu().numpy(),
+                               atol=1e-3 * max(1.0, D / 39), rtol=0)
 
 
 @pytest.mark.gpu
@@ -81,6 +97,11 @@ def test_kernel_refuses_bad_input(card):
         gmm_cuda.gmm_logsumexp(torch.zeros((8, 5), device=card), scorer.W, scorer.b_packed, 5)
     with pytest.raises(ValueError):
         scorer(torch.zeros((8, 4)))
+    with pytest.raises(ValueError):  # b no longer matches W
+        gmm_cuda.gmm_logsumexp(x, scorer.W, scorer.b_packed[:, :4].contiguous(), 5)
+    big, _ = _random_params(np.random.default_rng(0), gmm_cuda.MAX_DIM + 1, 3, 2)
+    with pytest.raises(ValueError):
+        make_gmm_scorer(big, device=card)
 
 
 @pytest.mark.gpu
