@@ -67,12 +67,37 @@ Phases (any failure raises and exits non-zero before the result line):
      scores (words and word-end frames equal, records reported); its
      words must equal its transcript; `TorchDecoder.decode_scores` on the
      card gives the same result through one launch of the kernel;
-  8. result: a `kernels` JSON line (both kernels), the card line, and last
+  [20k] the reference bench's own task (`scripts/_wsj_cache_20k`: 7,870,751
+     arcs, its artifact of 213,046,110 closure entries built in memory, no
+     cache written), run after the 2k phases' state is released:
+       - the build's seconds and the process's peak host RSS, the tables'
+         bytes on the card and their upload seconds, the fused scope;
+       - 8 utterances sampled with seed 11 at ~1000 frames, tiled to B=16
+         and B=132; the GMM kernel against the plain scorer at both waves'
+         shapes, as in 3;
+       - `autotune_budgets` at margin 1.4 from `WSJ_POINT`'s budgets
+         through the frame-step kernel on the 8 distinct utterances; the
+         tuned budgets must decode every one without overflow to its
+         transcript (a probe outside the kernel's scope raises);
+       - the plain frame loop's B=16 wave as the reference, the kernel
+         equal to it bit for bit as in 5;
+       - certification through `BatchDecoder` at B=16 and B=132 (overflow
+         0, dead 0, transcripts exact, each B=132 result equal to its B=16
+         result), launch counts zeroed before and read after each;
+       - frame-step ms a wave at 20k beside 2k at both B, its bound; the
+         entry point's and the device-only frames/s;
+       - the streaming decoder on one utterance in chunks of 100 frames
+         through the kernel: one launch a chunk, every partial emission a
+         prefix of the final words, `finish()` equal to `decode_scores`;
+       - card vs CPU parity on one short whole sentence (seed 12), as in 7;
+  8. result: a `kernels` JSON line (both kernels, with the 20k fields), the
+     seconds of each phase, the card line, and last
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -86,6 +111,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 GMM_ATOL = 1e-3
+B2 = 132  # the wide wave: the same utterances tiled to one block an SM
+STREAM_CHUNK = 100  # frames a feed of the streaming decoder
 
 
 def card_line() -> str:
@@ -111,6 +138,162 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def tile_features(utts, B, dev):
+    """(B, Tmax, D) features on the card, utterance i % len(utts) in row i,
+    edge-padded like the bench, with the true lengths and Tmax."""
+    import torch
+
+    lengths_u = [f.shape[0] for _, f in utts]
+    Tmax = max(lengths_u)
+    feats = torch.stack([
+        torch.as_tensor(f).index_select(0, torch.arange(Tmax).clamp(max=f.shape[0] - 1))
+        for _, f in (utts[i % len(utts)] for i in range(B))
+    ]).to(dev)
+    return feats, [lengths_u[i % len(utts)] for i in range(B)], Tmax
+
+
+def gmm_phase(scorer, xx, what, card):
+    """The GMM kernel against the plain scorer and the library call on
+    (T, D) features: max |err|, ms of each, the bound and its share."""
+    import torch
+
+    from juicer_tpu_torch.ops import gmm_cuda
+    from juicer_tpu_torch.ops.gmm import gmm_scores_dense
+
+    T, D = xx.shape
+    G, C = scorer.n_gmms, scorer.mask.shape[1]
+    # the library yardstick: one matmul of [x^2 | x] with [V; M] and one
+    # logsumexp over the components, in component-major column order
+    VM = torch.cat([scorer.V, scorer.M], dim=0).view(2 * D, G, C).transpose(1, 2)
+    VM = VM.reshape(2 * D, C * G)
+    b_lib = torch.where(scorer.mask, scorer.b.view(G, C), -1e30).t().contiguous()
+    ker = gmm_cuda.gmm_logsumexp(xx, scorer.W, scorer.b_packed, G)
+    plain = gmm_scores_dense(xx, scorer.V, scorer.M, scorer.b, scorer.mask)
+    torch.cuda.synchronize()
+    if not torch.isfinite(ker).all():
+        raise RuntimeError(f"gmm_logsumexp produced non-finite scores at {what}")
+
+    def library():
+        return torch.logsumexp(
+            (torch.cat([xx * xx, xx], dim=1) @ VM).view(T, C, G) + b_lib, dim=1)
+
+    err = float((ker - plain).abs().max())
+    lib_err = float((library() - plain).abs().max())
+    print(f"[gmm] {what}: kernel vs plain max |err| {err:.3e} (atol {GMM_ATOL}, "
+          f"|score| up to {float(plain.abs().max()):.1f}); library vs plain "
+          f"{lib_err:.3e}", flush=True)
+    if not err <= GMM_ATOL:
+        raise RuntimeError(f"gmm_logsumexp disagrees with gmm_scores_dense at {what}: {err}")
+    del ker, plain
+    n0 = gmm_cuda.counter.launches
+    ms = cuda_ms(lambda: gmm_cuda.gmm_logsumexp(xx, scorer.W, scorer.b_packed, G), 20)
+    if gmm_cuda.counter.launches - n0 != 21:
+        raise RuntimeError("gmm_logsumexp launch counter did not count its launches")
+    plain_ms = cuda_ms(
+        lambda: gmm_scores_dense(xx, scorer.V, scorer.M, scorer.b, scorer.mask), 20)
+    library_ms = cuda_ms(library, 20)
+    # the function's own work: every real (frame, GMM, component) over
+    # 2D inputs; each input byte read once, each output byte written once
+    flops = 2.0 * T * G * C * 2 * D
+    nbytes = 4.0 * (xx.numel() + 2 * D * G * C + G * C + T * G)
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"[gmm] {what}: T={T} D={D} G={G} C={C}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB), "
+          f"{100 * bound_ms / ms:.1f} % of the bound | {card}", flush=True)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def frames_of(r):
+    return [h.end_frame for h in r.word_hyps]
+
+
+def same_result(a, b) -> bool:
+    return a.words == b.words and frames_of(a) == frames_of(b) and a.score == b.score
+
+
+def certify(results, what, utts, labels, markers):
+    """Overflow 0, dead 0 and every utterance's words equal to the
+    transcript it was generated from (row i holds utterance i % len(utts))."""
+    B = len(results)
+    n_ov = sum(r.overflow for r in results)
+    dead = sum(r.empty for r in results)
+    wrong = [i for i, r in enumerate(results)
+             if [w for w in r.words if w not in markers]
+             != [labels[w] for w in utts[i % len(utts)][0]]]
+    print(f"[{what}] overflow {n_ov}/{B}, dead {dead}/{B}, transcript mismatches "
+          f"{wrong}; peak active {max(r.max_active for r in results)}, peak "
+          f"candidates {max(r.max_cand for r in results)}", flush=True)
+    if n_ov or dead or wrong:
+        raise RuntimeError(f"{what}: certification failed at the operating point")
+
+
+def require_equal(what, got, want):
+    from juicer_tpu_torch.decoder.fused_scan import state_differences
+
+    diffs = state_differences(got, want)
+    for line in diffs:
+        print(f"[{what}] DIFFERS {line}", flush=True)
+    if diffs:
+        raise RuntimeError(f"{what}: frame_step disagrees with the plain version")
+
+
+def hold_to_plain(what, dec, fs, scores_tbg, plain_state, plain_results, lengths):
+    """The fused scan on the plain wave's scores, bit for bit: compact
+    records equal `compact_records` of the plain planes and expand to
+    them, snapshots and carry equal, tracebacks equal. Returns the fused
+    state and the largest float difference of the expanded planes (0)."""
+    import torch
+
+    from juicer_tpu_torch.decoder.fused_scan import (REC_NAMES, assemble_results,
+                                                     compact_records, expand_records)
+
+    fused_state = fs(scores_tbg)
+    torch.cuda.synchronize()
+    require_equal(what, fused_state, (plain_state[0], compact_records(plain_state[1])))
+    expanded = expand_records(fused_state[1], dec.K)
+    for k in REC_NAMES:
+        if not torch.equal(expanded[k], plain_state[1][k]):
+            raise RuntimeError(f"{what}: expand_records differs from the plain plane {k}")
+    float_err = max(float((expanded[k] - plain_state[1][k]).abs().max())
+                    for k in ("rec_score", "rec_ac", "rec_lm", "bf_score", "bf_ac", "bf_lm"))
+    del expanded
+    results = assemble_results(dec, fs, *fused_state, lengths)
+    for i, (a, b) in enumerate(zip(results, plain_results)):
+        if not same_result(a, b):
+            raise RuntimeError(f"{what}: fused and plain tracebacks differ for utterance {i}")
+    return fused_state, float_err
+
+
+def frame_step_bound(dec, B, Tmax, n_scores, n_cand, n_active, n_rec):
+    """The frame-step kernel's bound for one wave: every input read once
+    (scores, the carry, the 32-byte metadata row of each active slot, the
+    four entry-table columns of each candidate), every output written once
+    (the landed records, the count and the eight snapshots per frame);
+    with the earlier contract's dense record planes as a second number.
+    Returns (bound ms, bound_by, bytes, operations, dense bound ms)."""
+    K, S = dec.K, dec.S
+    carry_bytes = B * (K * (8 + S * 16) + 17)
+    touched = 4.0 * n_scores + 2 * carry_bytes + 24.0 * n_cand
+    nbytes = touched + 32.0 * n_active + 32.0 * n_rec + 4.0 * Tmax * B * 9
+    dense = (touched + 48.0 * n_active + 4.0 * Tmax * B * (7 * K + 8)) / PEAK_BYTES * 1e3
+    # per active slot and frame: S*S adds and compares of the propagation
+    # and a few per state after it; per candidate a handful
+    ops = float(n_active) * (2 * S * S + 12 * S) + 20.0 * n_cand
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            nbytes, ops, dense)
+
+
+def wave_counts(ys):
+    """Candidates, active slot-frames and landed records of a fused wave."""
+    return (int(ys["n_cand"].sum()), int(ys["n_active"].sum()),
+            int(ys["rec_count"][-1].sum()))
+
+
 def main() -> int:
     import torch
 
@@ -123,16 +306,23 @@ def main() -> int:
         from juicer_tpu_torch.decoder import fused_scan
         from juicer_tpu_torch.decoder.core import TorchDecoder, host_batch
         from juicer_tpu_torch.decoder.fused_scan import (
-            REC_NAMES, FusedDecodeScan, assemble_results, compact_records,
-            concat_records, expand_records, state_differences)
+            FusedDecodeScan, compact_records, concat_records)
         from juicer_tpu_torch.harness import wsj_task
         from juicer_tpu_torch.ops import gmm_cuda
-        from juicer_tpu_torch.ops.gmm import gmm_scores_dense, make_gmm_scorer
+        from juicer_tpu_torch.ops.gmm import make_gmm_scorer
         from juicer_tpu_torch.parallel.batch import BatchDecoder
     except ImportError as e:
         print(f"chip_smoke: the juicer_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
         return 3
+    phase_s = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase
+        t_phase = now
 
     # ---- 1. card ------------------------------------------------------
     card = card_line()
@@ -157,6 +347,7 @@ def main() -> int:
                 continue
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
+    phase_done("build")
 
     # ---- task and the main path's inputs --------------------------------
     task = wsj_task.load_task("2k")
@@ -166,73 +357,19 @@ def main() -> int:
     G, D = params.n_gmms, params.vec_size
     utts = wsj_task.sample_utterances(task.cache, models, n_utts=p["n_utts"],
                                       target_frames=p["frames"], seed=11)
-    lengths_u = [f.shape[0] for _, f in utts]
-    Tmax = max(lengths_u)
     B = p["batch"]
-    feats = torch.stack([
-        torch.as_tensor(f).index_select(
-            0, torch.arange(Tmax).clamp(max=f.shape[0] - 1))
-        for _, f in (utts[i % len(utts)] for i in range(B))
-    ]).to(dev)  # (B, Tmax, D), edge-padded like the bench
-    lengths = [lengths_u[i % len(utts)] for i in range(B)]
-    print(f"[task] {len(utts)} utterances T={lengths_u}, batch {B} x {Tmax}",
-          flush=True)
+    feats, lengths, Tmax = tile_features(utts, B, dev)
+    print(f"[task] {len(utts)} utterances T={[f.shape[0] for _, f in utts]}, batch "
+          f"{B} x {Tmax}", flush=True)
+    phase_done("2k task")
 
     # ---- 3. GMM kernel vs plain, at both waves' shapes -----------------------
     scorer = make_gmm_scorer(params, device="cuda")
-    C = params.max_comps
     x = feats.reshape(B * Tmax, D).contiguous()
-    B2 = 132  # phase 6b's wave: the same utterances tiled to one block an SM
     x2 = x.view(B, Tmax, D)[torch.arange(B2, device=dev) % B].reshape(B2 * Tmax, D)
-    # the library yardstick: one matmul of [x^2 | x] with [V; M] and one
-    # logsumexp over the components, in component-major column order
-    VM = torch.cat([scorer.V, scorer.M], dim=0).view(2 * D, G, C).transpose(1, 2)
-    VM = VM.reshape(2 * D, C * G)
-    b_lib = torch.where(scorer.mask, scorer.b.view(G, C), -1e30).t().contiguous()
-
-    def gmm_phase(xx, what):
-        T = xx.shape[0]
-        ker = gmm_cuda.gmm_logsumexp(xx, scorer.W, scorer.b_packed, G)
-        plain = gmm_scores_dense(xx, scorer.V, scorer.M, scorer.b, scorer.mask)
-        torch.cuda.synchronize()
-        if not torch.isfinite(ker).all():
-            raise RuntimeError(f"gmm_logsumexp produced non-finite scores at {what}")
-
-        def library():
-            return torch.logsumexp(
-                (torch.cat([xx * xx, xx], dim=1) @ VM).view(T, C, G) + b_lib, dim=1)
-
-        err = float((ker - plain).abs().max())
-        lib_err = float((library() - plain).abs().max())
-        print(f"[gmm] {what}: kernel vs plain max |err| {err:.3e} (atol {GMM_ATOL}, "
-              f"|score| up to {float(plain.abs().max()):.1f}); library vs plain "
-              f"{lib_err:.3e}", flush=True)
-        if not err <= GMM_ATOL:
-            raise RuntimeError(f"gmm_logsumexp disagrees with gmm_scores_dense at {what}: {err}")
-        del ker, plain
-        n0 = gmm_cuda.counter.launches
-        ms = cuda_ms(lambda: gmm_cuda.gmm_logsumexp(xx, scorer.W, scorer.b_packed, G), 20)
-        if gmm_cuda.counter.launches - n0 != 21:
-            raise RuntimeError("gmm_logsumexp launch counter did not count its launches")
-        plain_ms = cuda_ms(
-            lambda: gmm_scores_dense(xx, scorer.V, scorer.M, scorer.b, scorer.mask), 20)
-        library_ms = cuda_ms(library, 20)
-        # the function's own work: every real (frame, GMM, component) over
-        # 2D inputs; each input byte read once, each output byte written once
-        flops = 2.0 * T * G * C * 2 * D
-        nbytes = 4.0 * (xx.numel() + 2 * D * G * C + G * C + T * G)
-        t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        bound_ms = max(t_ops, t_bytes)
-        bound_by = "operations" if t_ops >= t_bytes else "bytes"
-        print(f"[gmm] {what}: T={T} D={D} G={G} C={C}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB), "
-              f"{100 * bound_ms / ms:.1f} % of the bound | {card}", flush=True)
-        return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                    bound_ms=bound_ms, bound_by=bound_by)
-
-    gmm16 = gmm_phase(x, f"B={B}")
-    gmm132 = gmm_phase(x2, f"B={B2}")
+    gmm16 = gmm_phase(scorer, x, f"B={B}", card)
+    gmm132 = gmm_phase(scorer, x2, f"B={B2}", card)
+    phase_done("3 gmm")
 
     # ---- 4. plain decode: the reference run ----------------------------------
     art = task.artifact
@@ -243,32 +380,6 @@ def main() -> int:
     labels, markers = wsj_task.word_labels(task.cache)
     print(f"[decode] K={dec.K} E={dec.E} F={dec.F}, beams {p['beam']}/"
           f"{p['end_beam']}/{p['maxhyps']}", flush=True)
-
-    def certify(results, what):
-        B = len(results)
-        n_ov = sum(r.overflow for r in results)
-        dead = sum(r.empty for r in results)
-        wrong = []
-        for i, r in enumerate(results):
-            hyp = [w for w in r.words if w not in markers]
-            ref = [labels[w] for w in utts[i % len(utts)][0]]
-            if hyp != ref:
-                wrong.append(i)
-        print(f"[{what}] overflow {n_ov}/{B}, dead {dead}/{B}, transcript mismatches "
-              f"{wrong}; peak active {max(r.max_active for r in results)}, peak "
-              f"candidates {max(r.max_cand for r in results)}", flush=True)
-        if n_ov or dead or wrong:
-            raise RuntimeError(f"{what}: certification failed at the operating point")
-
-    def frames_of(r):
-        return [h.end_frame for h in r.word_hyps]
-
-    def require_equal(what, got, want):
-        diffs = state_differences(got, want)
-        for line in diffs:
-            print(f"[{what}] DIFFERS {line}", flush=True)
-        if diffs:
-            raise RuntimeError(f"{what}: frame_step disagrees with the plain version")
 
     # the plain reference wave: diagnostics on, traceback of every utterance
     gmm_cuda.counter.launches = 0
@@ -286,7 +397,7 @@ def main() -> int:
     host = host_batch(*plain_state)
     plain_results = [dec.traceback(host, b, Tmax, true_T=lengths[b]) for b in range(B)]
     del host
-    certify(plain_results, "plain")
+    certify(plain_results, "plain", utts, labels, markers)
     # the plain bench wave: GMM kernel + frame loop, diagnostics off (the
     # wave above was its warm-up)
     t0 = time.perf_counter()
@@ -300,6 +411,8 @@ def main() -> int:
           f"gmm_logsumexp {plain_launches[0]}, frame_step {plain_launches[1]}; timed wave: "
           f"{B} x {Tmax} frames in {t_plain:.3f}s = {fps_plain:.1f} frames/s (GMM "
           f"kernel + plain frame loop, diagnostics off, one wave) | {card}", flush=True)
+    del fast
+    phase_done("4 plain")
 
     # ---- 5. frame-step kernel vs plain ---------------------------------------
     fs = FusedDecodeScan(dec, B)
@@ -307,29 +420,14 @@ def main() -> int:
           f"{fused_scan.smem_bytes(**fs.dims)} bytes of dynamic shared memory each "
           f"(hash table of {fs.dims['HT']})", flush=True)
     scores_tbg = scores.transpose(0, 1).contiguous()
-    fused_state = fs(scores_tbg)
-    torch.cuda.synchronize()
-    plain_compact = compact_records(plain_state[1])
-    require_equal("fused", fused_state, (plain_state[0], plain_compact))
-    expanded = expand_records(fused_state[1], dec.K)
-    for k in REC_NAMES:
-        if not torch.equal(expanded[k], plain_state[1][k]):
-            raise RuntimeError(f"fused: expand_records differs from the plain plane {k}")
-    float_err = max(float((expanded[k] - plain_state[1][k]).abs().max())
-                    for k in ("rec_score", "rec_ac", "rec_lm", "bf_score", "bf_ac", "bf_lm"))
-    del expanded, plain_compact
-    fused_results = assemble_results(dec, fs, *fused_state, lengths)
-    for i, (a, b) in enumerate(zip(fused_results, plain_results)):
-        if a.words != b.words or frames_of(a) != frames_of(b) or a.score != b.score:
-            raise RuntimeError(f"fused and plain tracebacks differ for utterance {i}")
+    fused_state, float_err = hold_to_plain("fused", dec, fs, scores_tbg, plain_state,
+                                           plain_results, lengths)
     print(f"[fused] full-width wave {B} x {Tmax} at {p['beam']}/{p['end_beam']}/"
           f"{p['maxhyps']}: compact records, their expansion, 8 snapshots, carry, words "
           f"and word-end frames equal to the plain version (max |float diff| {float_err})",
           flush=True)
-    n_cand_sum = int(fused_state[1]["n_cand"].sum())
-    n_active_sum = int(fused_state[1]["n_active"].sum())
+    n_cand_sum, n_active_sum, n_rec_sum = wave_counts(fused_state[1])
     count = fused_state[1]["rec_count"]
-    n_rec_sum = int(count[-1].sum())
     per_frame = torch.diff(count, dim=0, prepend=torch.zeros_like(count[:1]))
     host = host_batch(*fused_state, fs.rec0)
     carry_h, ys_h, rec0_h = host
@@ -344,7 +442,7 @@ def main() -> int:
           f"copies {host_bytes / 1e6:.3f} MB to the host (dense planes: "
           f"{dense_bytes / 1e6:.1f} MB)", flush=True)
     del host, carry_h, ys_h, rec0_h, count, per_frame
-    del plain_state, fused_state, fused_results
+    del plain_state, fused_state
 
     # the TPU kernel's scope (no histogram) on a short whole sentence, in one
     # launch and in two calls with the carried state
@@ -368,7 +466,8 @@ def main() -> int:
     print(f"[fused] max_emit_hyps=0, {Ts} frames x 3: equal to the plain version whole "
           f"and in two calls of {half} and {Ts - half} frames with the carried state "
           f"(overflow {int(whole[0]['overflow'].sum())}/3)", flush=True)
-    del whole, first, second, joined, c0, y0
+    del whole, first, second, joined, c0, y0, dec0, fs0, sc3
+    phase_done("5 fused vs plain")
 
     # ---- 6. the main path through the kernels ---------------------------------
     bd = BatchDecoder(dec)
@@ -386,7 +485,7 @@ def main() -> int:
         raise RuntimeError("the main path did not launch gmm_logsumexp")
     if fs_launches == 0:
         raise RuntimeError("the main path did not launch frame_step")
-    certify(results, "main path")
+    certify(results, "main path", utts, labels, markers)
     for i, (a, b) in enumerate(zip(again, results)):
         if a.words != b.words or a.score != b.score or a.overflow:
             raise RuntimeError(f"the timed main-path wave differs for utterance {i}")
@@ -418,33 +517,18 @@ def main() -> int:
     print(f"[main path] device only (no copy to the host, no traceback): {B} x {Tmax} "
           f"frames in {t_wave:.4f}s = {fps_device:.1f} frames/s | {card}", flush=True)
 
-    # the kernel alone, and its bound: every input read once (scores, the
-    # carry, the 32-byte metadata row of each active slot, the four
-    # entry-table columns of each candidate), every output written once
-    # (the landed records, the count and the eight snapshots per frame)
+    # the kernel alone, and its bound
     fs_ms = cuda_ms(lambda: fs(scores_tbg), 3)
-    K, S = dec.K, dec.S
-    carry_bytes = B * (K * (8 + S * 16) + 17)
-    touched = 4.0 * scores_tbg.numel() + 2 * carry_bytes + 24.0 * n_cand_sum
-    fs_bytes = touched + 32.0 * n_active_sum + 32.0 * n_rec_sum + 4.0 * Tmax * B * 9
-    # the earlier contract, kept as the earlier row: int64 metadata rows,
-    # seven dense (K) planes a frame
-    dense_bound = (touched + 48.0 * n_active_sum + 4.0 * Tmax * B * (7 * K + 8)
-                   ) / PEAK_BYTES * 1e3
-    # per active slot and frame (this wave's count, as for the bytes): S*S
-    # adds and compares of the propagation and a few per state after it;
-    # per candidate a handful
-    fs_ops = float(n_active_sum) * (2 * S * S + 12 * S) + 20.0 * n_cand_sum
-    fs_t_ops, fs_t_bytes = fs_ops / PEAK_F32_FLOPS * 1e3, fs_bytes / PEAK_BYTES * 1e3
-    fs_bound = max(fs_t_ops, fs_t_bytes)
+    fs_bound, fs_bound_by, fs_bytes, fs_ops, dense_bound = frame_step_bound(
+        dec, B, Tmax, scores_tbg.numel(), n_cand_sum, n_active_sum, n_rec_sum)
     print(f"[frame_step] {B} x {Tmax} frames: kernel {fs_ms:.3f} ms a wave "
           f"({fs_ms * 1e3 / Tmax:.2f} us a frame), plain loop {t_plain_diag * 1e3:.1f} ms, "
-          f"bound {fs_bound:.4f} ms ({'operations' if fs_t_ops >= fs_t_bytes else 'bytes'}: "
-          f"{fs_bytes / 1e6:.1f} MB, {fs_ops / 1e9:.3f} G operations over {n_active_sum} active "
-          f"slot-frames of {Tmax * B * K}; with dense record "
-          f"planes the bound was {dense_bound:.4f} ms; the kernel sits at the latency of "
-          f"its dependent stages with {B} of 132 SMs busy, not at this bound) | {card}",
-          flush=True)
+          f"bound {fs_bound:.4f} ms ({fs_bound_by}: {fs_bytes / 1e6:.1f} MB, {fs_ops / 1e9:.3f} "
+          f"G operations over {n_active_sum} active slot-frames of {Tmax * B * dec.K}; with "
+          f"dense record planes the bound was {dense_bound:.4f} ms; the kernel sits at the "
+          f"latency of its dependent stages with {B} of 132 SMs busy, not at this bound) "
+          f"| {card}", flush=True)
+    phase_done("6 main path")
 
     # ---- 6b. a card full of utterances: one block on every SM ----------------
     lengths2 = [lengths[i % B] for i in range(B2)]
@@ -460,12 +544,11 @@ def main() -> int:
     if launches2 != (2, 2):
         raise RuntimeError(f"B={B2}: two waves launched gmm_logsumexp, frame_step "
                            f"{launches2} times; expected one each a wave")
-    certify(results2, f"B={B2}")
+    certify(results2, f"B={B2}", utts, labels, markers)
     for i, (a, c) in enumerate(zip(results2, again2)):
         ref = results16[i % B]
         for r in (a, c):
-            if (r.words != ref.words or frames_of(r) != frames_of(ref)
-                    or r.score != ref.score or r.overflow):
+            if not same_result(r, ref) or r.overflow:
                 raise RuntimeError(f"B={B2}: utterance {i} differs from the B={B} wave")
     del results2, again2, results16
     fs2 = bd._fs[B2]
@@ -500,46 +583,36 @@ def main() -> int:
     print(f"[B={B2}] device wave {wave_ms2:.4f} ms over CUDA events: gmm_logsumexp "
           f"{gmm132['ms']:.4f} + scores' transpose {tr_ms2:.4f} + frame_step {fs_ms2:.4f} = "
           f"{gmm132['ms'] + tr_ms2 + fs_ms2:.4f} ms | {card}", flush=True)
-    del x2, carry
+    del x2, carry, fs2
+    phase_done("6b B=132")
 
     # ---- 7. card vs CPU parity on one short utterance -----------------------
     # a whole sentence (sampled above): a cut one reaches no final state and
     # has no words
-    cpu_dec = TorchDecoder(art, cfg, device="cpu")
     cpu_scorer = make_gmm_scorer(params, device="cpu")
-
-    def decode_records(decoder, scores):
-        host = host_batch(*decoder.run(scores[None]))
-        return decoder.traceback(host, 0, scores.shape[0]), host[1]
-
-    r_card, ys_card = decode_records(dec, sc_card)
-    n0 = fused_scan.counter.launches
-    r_entry = dec.decode_scores(sc_card)  # the card's route: the kernel at B=1
-    if fused_scan.counter.launches - n0 != 1:
-        raise RuntimeError("decode_scores on the card did not launch frame_step once")
-    if (r_entry.words != r_card.words or frames_of(r_entry) != frames_of(r_card)
-            or r_entry.score != r_card.score):
-        raise RuntimeError("decode_scores through the kernel differs from the plain loop")
-    r_cpu, ys_cpu = decode_records(cpu_dec, sc_card.cpu())
-    r_plain, ys_plain = decode_records(cpu_dec, cpu_scorer(xs))
-
+    r_card, ys_card, r_cpu, ys_cpu = card_cpu_parity(art, cfg, dec, sc_card)
+    r_plain, ys_plain = decode_records(TorchDecoder(art, cfg, device="cpu"), cpu_scorer(xs))
     rec_names = ("rec_prev", "rec_seq", "rec_src", "rec_arc")
-    same_rec = all((ys_card[k] == ys_cpu[k]).all() for k in rec_names)
     plain_rec = all((ys_card[k] == ys_plain[k]).all() for k in rec_names)
     transcript = [labels[w] for w in words_s]
     ok_words = [w for w in r_card.words if w not in markers] == transcript
     print(f"[parity] {xs.shape[0]} frames, {len(r_card.words)} words (transcript "
-          f"{ok_words}): card vs "
-          f"cpu (same scores) words {r_card.words == r_cpu.words}, frames "
-          f"{frames_of(r_card) == frames_of(r_cpu)}, records {same_rec}; card vs cpu "
-          f"plain scorer words {r_card.words == r_plain.words}, frames "
+          f"{ok_words}): card vs cpu (same scores) words, frames and records equal; card "
+          f"vs cpu plain scorer words {r_card.words == r_plain.words}, frames "
           f"{frames_of(r_card) == frames_of(r_plain)}, records {plain_rec}, "
           f"score diff {abs(r_card.score - r_plain.score):.2e}", flush=True)
-    if not (ok_words and r_card.words == r_cpu.words
-            and frames_of(r_card) == frames_of(r_cpu) and same_rec
-            and r_card.words == r_plain.words
+    if not (ok_words and r_card.words == r_plain.words
             and frames_of(r_card) == frames_of(r_plain)):
         raise RuntimeError("card and CPU decodes disagree")
+    del r_cpu, ys_cpu
+    phase_done("7 parity")
+
+    at_2k = dict(fs_ms=fs_ms, fs_ms2=fs_ms2, fps=fps, fps2=fps2, fps_device=fps_device,
+                 fps_device2=fps_device2, gmm16=gmm16, gmm132=gmm132)
+    # release the 2k task's tables and waves before the 20k task's
+    del task, art, dec, bd, fs, scores, scores_tbg, x, feats, sc_card, plain_results
+    torch.cuda.empty_cache()
+    k20 = phase_20k(card, dev, at_2k, phase_done)
 
     # ---- 8. result ------------------------------------------------------
     print(json.dumps({"kernels": [{
@@ -552,21 +625,280 @@ def main() -> int:
         "max_abs_err_b132": gmm132["err"], "ms_b132": gmm132["ms"],
         "plain_ms_b132": gmm132["plain_ms"], "bound_ms_b132": gmm132["bound_ms"],
         "library_ms_b132": gmm132["library_ms"], "launches_b132": launches2[0],
+        **k20["gmm_logsumexp"],
     }, {
         "name": "frame_step", "route": "cuda",
         "source": "juicer_tpu_torch/csrc/frame_step.cu",
         "replaces": "juicer_tpu/decoder/pallas_scan.py:285",
         "launches": fs_launches, "max_abs_err": float_err, "equal_to_plain": True,
         "ms": fs_ms, "plain_ms": t_plain_diag * 1e3, "bound_ms": fs_bound,
-        "bound_by": "operations" if fs_t_ops >= fs_t_bytes else "bytes",
-        "library_ms": None,
+        "bound_by": fs_bound_by, "library_ms": None,
         "bound_ms_dense": dense_bound, "ms_b132": fs_ms2,
         "launches_b132": launches2[1],
+        **k20["frame_step"],
     }]}))
+    print("[time] phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+          + f"; total {sum(phase_s.values()):.1f}", flush=True)
     print(f"[card] {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+def decode_records(decoder, scores):
+    """One utterance through the plain frame loop: (result, host records)."""
+    from juicer_tpu_torch.decoder.core import host_batch
+
+    host = host_batch(*decoder.run(scores[None]))
+    return decoder.traceback(host, 0, scores.shape[0]), host[1]
+
+
+def card_cpu_parity(art, cfg, dec, sc_card):
+    """The same scores through the plain loop on the card and on the CPU
+    (words, word-end frames and traceback records equal), and through
+    `decode_scores` on the card (one launch of the kernel, the same result).
+    Returns the card's and the CPU's (result, records)."""
+    from juicer_tpu_torch.decoder import fused_scan
+    from juicer_tpu_torch.decoder.core import TorchDecoder
+
+    r_card, ys_card = decode_records(dec, sc_card)
+    n0 = fused_scan.counter.launches
+    r_entry = dec.decode_scores(sc_card)  # the card's route: the kernel at B=1
+    if fused_scan.counter.launches - n0 != 1:
+        raise RuntimeError("decode_scores on the card did not launch frame_step once")
+    if not same_result(r_entry, r_card):
+        raise RuntimeError("decode_scores through the kernel differs from the plain loop")
+    r_cpu, ys_cpu = decode_records(TorchDecoder(art, cfg, device="cpu"), sc_card.cpu())
+    same_rec = all((ys_card[k] == ys_cpu[k]).all()
+                   for k in ("rec_prev", "rec_seq", "rec_src", "rec_arc"))
+    if not (same_rec and r_card.words == r_cpu.words and frames_of(r_card) == frames_of(r_cpu)):
+        raise RuntimeError(f"card and CPU decodes of the same scores disagree (records "
+                           f"{same_rec}, words {r_card.words == r_cpu.words})")
+    return r_card, ys_card, r_cpu, ys_cpu
+
+
+def phase_20k(card, dev, at_2k, phase_done):
+    """[20k]: the reference bench's own task on the card (see the module
+    docstring). Returns the kernels line's 20k fields."""
+    import torch
+
+    from juicer_tpu_torch.decoder import autotune_budgets, fused_scan
+    from juicer_tpu_torch.decoder.core import TorchDecoder, host_batch
+    from juicer_tpu_torch.decoder.fused_scan import FusedDecodeScan
+    from juicer_tpu_torch.decoder.stream import StreamingDecoder
+    from juicer_tpu_torch.harness import wsj_task
+    from juicer_tpu_torch.ops import gmm_cuda
+    from juicer_tpu_torch.ops.gmm import make_gmm_scorer
+    from juicer_tpu_torch.parallel.batch import BatchDecoder
+
+    p = wsj_task.WSJ_POINT
+    B = p["batch"]
+    # the smoke reads the artifact once: built in memory, no cache written
+    task = wsj_task.load_task("20k", cache=False)
+    art = task.artifact
+    n_ent = len(art.expansion.arc)
+    c = task.costs
+    print(f"[20k] {task.net.n_arcs} arcs, {art.n_hmm_arcs} HMM arcs, {n_ent} closure "
+          f"entries, {len(art.seqs)} label sequences: network read in {c['network_s']:.1f}s, "
+          f"artifact built in memory in {c['build_s']:.1f}s (no cache written); peak host "
+          f"RSS {c['peak_rss_bytes']} bytes ({c['peak_rss_bytes'] / 2**30:.2f} GiB)",
+          flush=True)
+    cfg = wsj_task.decoder_config(p, emit_diagnostics=True)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    dec = TorchDecoder(art, cfg, device="cuda")
+    fused_scan._meta32(dec)
+    torch.cuda.synchronize()
+    t_upload = time.perf_counter() - t0
+    table_bytes = torch.cuda.memory_allocated() - m0
+    why = fused_scan.why_not_fused(dec)
+    print(f"[20k] tables on the card: {table_bytes} bytes ({table_bytes / 1e9:.3f} GB; the "
+          f"entry tables {24 * n_ent} of them), copied and converted in {t_upload:.2f}s; "
+          f"K x largest fan-out {dec.K * fused_scan._max_fan(dec)}; fused scope: "
+          f"{why or 'covered'}", flush=True)
+    if why is not None:
+        raise RuntimeError(f"20k: the fused scan does not cover the operating point: {why}")
+    phase_done("20k task")
+
+    models = task.models
+    params = models.flat_params()
+    G, D = params.n_gmms, params.vec_size
+    utts = wsj_task.sample_utterances(task.cache, models, n_utts=p["n_utts"],
+                                      target_frames=p["frames"], seed=11)
+    feats, lengths, Tmax = tile_features(utts, B, dev)
+    labels, markers = wsj_task.word_labels(task.cache)
+    print(f"[20k] {len(utts)} utterances T={[f.shape[0] for _, f in utts]}, batch {B} x "
+          f"{Tmax} and {B2} x {Tmax}; {len(labels)} words", flush=True)
+    scorer = make_gmm_scorer(params, device="cuda")
+    x = feats.reshape(B * Tmax, D).contiguous()
+    x2 = x.view(B, Tmax, D)[torch.arange(B2, device=dev) % B].reshape(B2 * Tmax, D)
+    gmm16 = gmm_phase(scorer, x, f"20k B={B}", card)
+    gmm132 = gmm_phase(scorer, x2, f"20k B={B2}", card)
+    print(f"[20k] gmm_logsumexp {gmm16['ms']:.4f} ms at B={B} and {gmm132['ms']:.4f} ms at "
+          f"B={B2} beside {at_2k['gmm16']['ms']:.4f} and {at_2k['gmm132']['ms']:.4f} ms at 2k "
+          f"(the same models, longer waves) | {card}", flush=True)
+    phase_done("20k gmm")
+
+    # ---- autotune: the operating point's budgets, through the kernel -------
+    samples = [scorer(torch.as_tensor(f, device=dev)) for _, f in utts]
+    t0 = time.perf_counter()
+    tuned = autotune_budgets(art, samples, cfg=cfg, margin=1.4, device="cuda", verbose=True)
+    t_tune = time.perf_counter() - t0
+    tdec = TorchDecoder(art, dataclasses.replace(tuned, emit_diagnostics=True), device="cuda")
+    n0 = fused_scan.counter.launches
+    checked = [tdec.decode_scores(s) for s in samples]
+    if fused_scan.counter.launches - n0 != len(samples):
+        raise RuntimeError("20k: the tuned budgets' check did not run through the kernel")
+    certify(checked, "20k tuned", utts, labels, markers)
+    print(f"[20k] autotune_budgets (margin 1.4, start K={p['K']} E={p['E']}, through the "
+          f"frame-step kernel, {t_tune:.1f}s): tuned K={tuned.max_insts} "
+          f"E={tuned.expand_budget} F={tuned.final_budget}; with them peak active "
+          f"{max(r.max_active for r in checked)}, peak candidates "
+          f"{max(r.max_cand for r in checked)}; verified: {len(samples)} utterances, "
+          f"overflow 0, transcripts exact", flush=True)
+    del tdec, checked
+    phase_done("20k autotune")
+
+    # ---- the plain reference wave and the kernel held to it ---------------
+    scores = scorer(x).view(B, Tmax, G)
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_state = dec.run(scores)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    if fused_scan.counter.launches:
+        raise RuntimeError("20k: the plain wave launched frame_step")
+    host = host_batch(*plain_state)
+    plain_results = [dec.traceback(host, b, Tmax, true_T=lengths[b]) for b in range(B)]
+    del host
+    certify(plain_results, "20k plain", utts, labels, markers)
+    fs = FusedDecodeScan(dec, B)
+    scores_tbg = scores.transpose(0, 1).contiguous()
+    fused_state, _ = hold_to_plain("20k fused", dec, fs, scores_tbg, plain_state,
+                                   plain_results, lengths)
+    n_cand, n_active, n_rec = wave_counts(fused_state[1])
+    print(f"[20k] plain frame loop {B} x {Tmax} in {t_plain:.3f}s; the frame-step kernel "
+          f"equal to it bit for bit (compact records, their expansion, 8 snapshots, carry, "
+          f"words and word-end frames); {n_cand} candidates, {n_active} active slot-frames, "
+          f"{n_rec} records", flush=True)
+    del plain_state, fused_state
+    phase_done("20k fused vs plain")
+
+    # ---- certification through BatchDecoder at B=16 and B=132 -------------
+    bd = BatchDecoder(dec)
+    lengths2 = [lengths[i % B] for i in range(B2)]
+    entry = {}
+    for b, xx, lens in ((B, x, lengths), (B2, x2, lengths2)):
+        gmm_cuda.counter.launches = 0
+        fused_scan.counter.launches = 0
+        got = bd.decode_scores_batch(scorer(xx).view(b, Tmax, G), lens)
+        t0 = time.perf_counter()
+        again = bd.decode_scores_batch(scorer(xx).view(b, Tmax, G), lens)
+        t_entry = time.perf_counter() - t0
+        launches = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+        if launches != (2, 2):
+            raise RuntimeError(f"20k B={b}: two waves launched gmm_logsumexp, frame_step "
+                               f"{launches} times; expected one each a wave")
+        certify(got, f"20k B={b}", utts, labels, markers)
+        for i, (a, r) in enumerate(zip(got, again)):
+            if not same_result(a, r) or not same_result(a, plain_results[i % B]):
+                raise RuntimeError(f"20k B={b}: utterance {i} differs from the B={B} wave")
+        entry[b] = (launches, b * Tmax / t_entry, t_entry)
+        del got, again
+    phase_done("20k BatchDecoder")
+
+    # ---- times: the kernel a wave, device-only and entry-point rates -------
+    fs_ms = cuda_ms(lambda: fs(scores_tbg), 3)
+    fs2 = bd._fs[B2]
+    scores2_tbg = scorer(x2).view(B2, Tmax, G).transpose(0, 1).contiguous()
+    fs_ms2 = cuda_ms(lambda: fs2(scores2_tbg), 3)
+    del scores2_tbg
+    bound, bound_by, nbytes, ops, _ = frame_step_bound(dec, B, Tmax, scores_tbg.numel(),
+                                                       n_cand, n_active, n_rec)
+    device = {}
+    for b, xx, f in ((B, x, fs), (B2, x2, fs2)):
+        def wave():
+            return f(scorer(xx).view(b, Tmax, G).transpose(0, 1).contiguous())
+
+        wave()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, _ = wave()
+        torch.cuda.synchronize()
+        t_wave = time.perf_counter() - t0
+        if int(carry["overflow"].sum()) or int((carry["best_final"]["score"] <= -0.5e30).sum()):
+            raise RuntimeError(f"20k B={b}: fused device wave overflowed or died")
+        device[b] = b * Tmax / t_wave
+    print(f"[20k] frame_step {fs_ms:.3f} ms a wave of {B} x {Tmax} ({fs_ms * 1e3 / Tmax:.2f} "
+          f"us a frame; 2k: {at_2k['fs_ms']:.3f} ms) and {fs_ms2:.3f} ms at B={B2} "
+          f"({fs_ms2 * 1e3 / Tmax:.2f} us a frame; 2k: {at_2k['fs_ms2']:.3f} ms); bound at "
+          f"B={B} {bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G "
+          f"operations) | {card}", flush=True)
+    print(f"[20k] entry point {entry[B][1]:.1f} frames/s at B={B} (wave {entry[B][2]:.4f}s), "
+          f"{entry[B2][1]:.1f} at B={B2} (wave {entry[B2][2]:.4f}s); device only "
+          f"{device[B]:.1f} and {device[B2]:.1f} frames/s; 2k: entry point {at_2k['fps']:.1f} "
+          f"and {at_2k['fps2']:.1f}, device only {at_2k['fps_device']:.1f} and "
+          f"{at_2k['fps_device2']:.1f} | {card}", flush=True)
+    del fs2, bd, scores_tbg, scores
+    phase_done("20k times")
+
+    # ---- the streaming decoder through the kernel --------------------------
+    sc0 = samples[0]
+    T0 = int(sc0.shape[0])
+    ref = dec.decode_scores(sc0)
+    stream = StreamingDecoder(dec)
+    n0 = fused_scan.counter.launches
+    emitted, per_chunk = [], []
+    for i in range(0, T0, STREAM_CHUNK):
+        new = stream.feed(sc0[i:i + STREAM_CHUNK])
+        emitted += new
+        per_chunk.append(len(new))
+    fin = stream.finish()
+    n_chunks = len(per_chunk)
+    if fused_scan.counter.launches - n0 != n_chunks:
+        raise RuntimeError(f"20k stream: {fused_scan.counter.launches - n0} launches for "
+                           f"{n_chunks} chunks")
+    hyps = [(h.word, h.end_frame) for h in fin.word_hyps]
+    if [(h.word, h.end_frame) for h in emitted] != hyps[:len(emitted)]:
+        raise RuntimeError("20k stream: a partial emission is not a prefix of the final words")
+    if not same_result(fin, ref) or fin.empty:
+        raise RuntimeError("20k stream: finish() differs from decode_scores")
+    print(f"[20k] StreamingDecoder, {T0} frames in {n_chunks} chunks of {STREAM_CHUNK}: "
+          f"{n_chunks} frame_step launches; words emitted per chunk {per_chunk} "
+          f"({len(emitted)} of {len(fin.words)} before finish), each a prefix of the final "
+          f"words; finish() equal to decode_scores (words, word-end frames, score)",
+          flush=True)
+    phase_done("20k stream")
+
+    # ---- card vs CPU parity on one short whole sentence -------------------
+    words_s, xs = wsj_task.sample_utterances(
+        task.cache, models, n_utts=2, target_frames=250, seed=12)[1]
+    sc_card = scorer(torch.as_tensor(xs, device=dev))
+    t0 = time.perf_counter()
+    r_card, _, _, _ = card_cpu_parity(art, cfg, dec, sc_card)
+    ok_words = [w for w in r_card.words if w not in markers] == [labels[w] for w in words_s]
+    print(f"[20k parity] {sc_card.shape[0]} frames, {len(r_card.words)} words: card and cpu "
+          f"(same scores) words, word-end frames and traceback records equal; decode_scores "
+          f"through one launch equal; transcript {ok_words} ({time.perf_counter() - t0:.1f}s)",
+          flush=True)
+    if not ok_words:
+        raise RuntimeError("20k parity: the sentence's words are not its transcript")
+    phase_done("20k parity")
+
+    return {
+        "gmm_logsumexp": {
+            "ms_20k": gmm16["ms"], "ms_20k_b132": gmm132["ms"],
+            "bound_ms_20k": gmm16["bound_ms"], "bound_ms_20k_b132": gmm132["bound_ms"],
+            "max_abs_err_20k": max(gmm16["err"], gmm132["err"]),
+            "launches_20k": entry[B][0][0], "launches_20k_b132": entry[B2][0][0]},
+        "frame_step": {
+            "ms_20k": fs_ms, "ms_20k_b132": fs_ms2, "bound_ms_20k": bound,
+            "plain_ms_20k": t_plain * 1e3,
+            "launches_20k": entry[B][0][1], "launches_20k_b132": entry[B2][0][1]},
+    }
 
 
 if __name__ == "__main__":

@@ -13,7 +13,13 @@ against; nothing here imports it, or JAX. The port's slices so far:
     counterpart of `juicer_tpu/decoder/pallas_scan.py`), on the CPU the
     plain frame loop of `decoder.core`;
   - `parallel.batch`: single-device batch decoding with padded lengths,
-    through the fused scan where it applies.
+    through the fused scan where it applies;
+  - `decoder.autotune`: the budget autotuner (`autotune_budgets`), through
+    the fused scan on the card;
+  - `decoder.stream`: the streaming decoder with partial results, one
+    launch of the fused scan a chunk on the card;
+  - `harness.wsj_task`: the cached WSJ-order tasks (2k and 20k words) and
+    the reference bench's operating point.
 
 Precision: the expanded GMM quadratic form cancels strongly when x is
 close to a mean, and TF32 (or bf16) products perturb scores by ~1e-3,

@@ -1,7 +1,8 @@
 from .artifact import DecoderArtifact
+from .autotune import autotune_budgets
 from .core import TorchDecoder, TorchDecoderConfig
 from .network import DecoderNetwork
 from .results import DecodeResult, WordHyp
 
 __all__ = ["DecoderArtifact", "DecoderNetwork", "DecodeResult",
-           "TorchDecoder", "TorchDecoderConfig", "WordHyp"]
+           "TorchDecoder", "TorchDecoderConfig", "WordHyp", "autotune_budgets"]

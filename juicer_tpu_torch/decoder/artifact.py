@@ -209,13 +209,16 @@ class DecoderArtifact:
     # -- binary cache (the JAX package's file format) --------------------
 
     def save_npz(self, path: str) -> None:
+        """Write the JAX package's file format, uncompressed (`np.savez`;
+        both packages' `load_npz` read either form): at the 20k-word task's
+        213M entries the compressed form took minutes to write."""
         ex = self.expansion
         seq_flat = np.concatenate(
             [np.asarray(s, np.int32) for s in self.seqs if s]
             or [np.zeros(0, np.int32)]
         )
         seq_len = np.asarray([len(s) for s in self.seqs], np.int32)
-        np.savez_compressed(
+        np.savez(
             path,
             hmm_arc_ids=self.hmm_arc_ids,
             arc_hmm=self.arc_hmm, arc_weight=self.arc_weight,

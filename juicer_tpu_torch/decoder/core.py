@@ -85,9 +85,13 @@ def _rup(x, m=128):
 
 
 def _device_tables(art: DecoderArtifact, device: torch.device) -> dict:
-    """Config-independent tables, cached on the artifact per device: the
-    entry tables are the bulk (17.6M entries on the 2k-word WSJ-order task)
-    and every decoder built on the artifact shares them."""
+    """Config-independent tables, cached on the artifact per device and
+    shared by every decoder built on it. The entry tables are the bulk, 24
+    bytes an entry (`ent_arc` and `ent_seq` int64, `ent_score` and `ent_ac`
+    float32): 17.6M entries (422 MB) on the 2k-word WSJ-order task, 213M
+    (5.1 GB) on the 20k-word one. Each column is copied in the artifact's
+    own dtype and converted on the device, so no converted host copy of a
+    column is made for the card."""
     cache = art.__dict__.setdefault("_torch_tables", {})
     tabs = cache.get(str(device))
     if tabs is not None:
@@ -109,18 +113,18 @@ def _device_tables(art: DecoderArtifact, device: torch.device) -> dict:
         a = np.asarray(a)
         if len(a) < n_min:
             a = np.zeros(n_min, a.dtype)
-        return torch.as_tensor(a.astype(dtype), device=device)
+        return torch.from_numpy(a).to(device).to(dtype)
 
     H = art.trP.shape[0]
     tabs = {
         "arc_meta": torch.as_tensor(meta, device=device),
-        "ent_arc": col(ex.arc, np.int64),
-        "ent_score": col(ex.w_score, np.float32),
-        "ent_ac": col(ex.w_ac, np.float32),
-        "ent_seq": col(ex.seq, np.int64),
-        "f_score": col(ex.f_score, np.float32),
-        "f_ac": col(ex.f_ac, np.float32),
-        "f_seq": col(ex.f_seq, np.int64),
+        "ent_arc": col(ex.arc, _I64),
+        "ent_score": col(ex.w_score, _F32),
+        "ent_ac": col(ex.w_ac, _F32),
+        "ent_seq": col(ex.seq, _I64),
+        "f_score": col(ex.f_score, _F32),
+        "f_ac": col(ex.f_ac, _F32),
+        "f_seq": col(ex.f_seq, _I64),
         "trP": torch.as_tensor(np.asarray(art.trP, np.float32), device=device),
         "emitting": torch.as_tensor(np.asarray(art.state_gmm) >= 0, device=device),
         "state_gmm": torch.as_tensor(
@@ -583,17 +587,28 @@ class TorchDecoder:
         if why is not None:
             raise ValueError(
                 f"decode_scores: the fused scan does not cover this decode ({why}); "
-                f"TorchDecoder.run is the plain frame loop")
+                f"pass use_fused=False for the plain frame loop TorchDecoder.run")
         fs = self.__dict__.get("_fused1")
         if fs is None:
             fs = self._fused1 = FusedDecodeScan(self, 1)
         carry, ys = fs(sc[:, None, :].contiguous())
         return carry, ys, fs.rec0
 
-    def decode_scores(self, gmm_scores) -> DecodeResult:
+    def stream(self):
+        """A streaming session over this decoder (`decoder/stream.py`):
+        feed score chunks, get converged partial words, then `finish`."""
+        from .stream import StreamingDecoder
+
+        return StreamingDecoder(self)
+
+    def decode_scores(self, gmm_scores, use_fused="auto") -> DecodeResult:
         """Decode from a precomputed (T, n_gmms) log-likelihood matrix. A
         decoder on the card goes through the frame-step kernel (one launch)
-        or raises; a CPU decoder runs the plain frame loop `run`."""
+        or raises, unless `use_fused=False` asks for the plain frame loop
+        `run`; a CPU decoder always runs `run`, the kernel's plain version
+        (`BatchDecoder`'s rule at B=1)."""
+        if use_fused not in ("auto", True, False):
+            raise ValueError(f"use_fused must be 'auto', True or False, not {use_fused!r}")
         if not isinstance(gmm_scores, torch.Tensor):
             gmm_scores = torch.from_numpy(np.array(gmm_scores, np.float32))
         sc = gmm_scores.to(self.device, _F32)
@@ -608,7 +623,7 @@ class TorchDecoder:
             # no frame to step on either route: the result is read from the
             # initial propagation, which `run` hands back as it built it
             carry, ys, rec0 = self.run(sc[None])
-        elif self.device.type == "cuda":
+        elif self.device.type == "cuda" and use_fused is not False:
             carry, ys, rec0 = self._fused_single(sc)
         else:
             carry, ys, rec0 = self.run(sc[None])

@@ -186,9 +186,15 @@ def why_not_fused(dec: TorchDecoder) -> str | None:
     if need > SMEM_LIMIT:
         return (f"K={dec.K}, E={dec.E}, S={dec.S} need {need} bytes of shared "
                 f"memory a block, the card gives {SMEM_LIMIT}")
-    n_ent = dec.tab["ent_arc"].shape[0]
-    if max(dec.K * _max_fan(dec), n_ent, dec.n_arcs + 2) >= 2**31:
-        return "fan-out sums or table rows exceed int32"
+    # the kernel keeps these in int32: a frame's fan-out sum, the entry
+    # bases of `_meta32` and the rows of every table
+    sizes = {"K x largest fan-out": dec.K * _max_fan(dec),
+             "closure entries": dec.tab["ent_arc"].shape[0],
+             "final entries": dec.tab["f_score"].shape[0],
+             "metadata rows": dec.n_arcs + 2}
+    over = [f"{k} {v:,}" for k, v in sizes.items() if v >= 2**31]
+    if over:
+        return f"{', '.join(over)} reach 2**31 (int32 in the kernel)"
     if max(dec.K, dec.E, dec.F) >= 0xffff:
         return "K, E and F must stay below 65535"
     return None
@@ -372,7 +378,8 @@ def compact_records(ys_dense: dict, t0: int = 0) -> dict:
     """The dense `ys` of `TorchDecoder.run` (seven (T, B, K) record planes,
     the (T, B) snapshots) in the compact form: the plain version of the
     kernel's output stage. A record landed where `rec_seq != 0`; `t0` is
-    the number of the planes' first frame (record ids are `t*K + slot`)."""
+    the number of the planes' first frame (record ids are `t*K + slot`).
+    Snapshots that `ys_dense` lacks (`emit_diagnostics=False`) stay out."""
     seq = ys_dense["rec_seq"]
     T, B, K = seq.shape
     landed = seq != 0
@@ -391,7 +398,7 @@ def compact_records(ys_dense: dict, t0: int = 0) -> dict:
     records = torch.zeros((B, cap, len(REC_WORDS)), dtype=torch.int32, device=seq.device)
     records[b_idx, pos] = torch.stack(words, dim=1)
     out = {"records": records, "rec_count": rec_count}
-    out.update({k: ys_dense[k] for k in SNAP_NAMES})
+    out.update({k: ys_dense[k] for k in SNAP_NAMES if k in ys_dense})
     return out
 
 

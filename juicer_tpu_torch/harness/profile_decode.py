@@ -1,7 +1,7 @@
 """Where a decode wave's time goes on the card.
 
     python -m juicer_tpu_torch.harness.profile_decode [--frames N] [--batch B]
-        [--fused [--clocks] | --entry] [--trace]
+        [--task 2k|20k] [--distinct] [--fused [--clocks] | --entry] [--trace]
 
 Scores the 2k-word WSJ-order task's bench batch (8 sampled utterances
 tiled to 16, `WSJ_POINT`, diagnostics off) with the GMM kernel, runs the
@@ -24,7 +24,12 @@ profiles one whole `BatchDecoder.decode_scores_batch` call on N frames
 time and idle share, and beside it the same work stage by stage with a
 synchronise after each: the scan, the copy to the host (`host_batch`,
 with its bytes) and the traceback of B utterances. `--batch B` tiles the
-8 sampled utterances to B (132 = one block on every SM).
+8 sampled utterances to B (132 = one block on every SM); `--distinct`
+samples B different utterances instead (seed 11), so that no two blocks
+read the same closure-table rows; `--task 20k` decodes the 20k-word task
+(its artifact read from, or built into, the package's `_cache/`). The
+fused route also prints the candidates and active slots a frame and
+utterance of the wave.
 """
 
 from __future__ import annotations
@@ -62,17 +67,21 @@ def main() -> None:
     ap.add_argument("--entry", action="store_true",
                     help="profile one whole BatchDecoder.decode_scores_batch call")
     ap.add_argument("--batch", type=int, default=0, help="utterances a wave (default 16)")
+    ap.add_argument("--task", default="2k", choices=("2k", "20k"))
+    ap.add_argument("--distinct", action="store_true",
+                    help="B different sampled utterances instead of 8 tiled to B")
     ap.add_argument("--trace", action="store_true",
                     help="write the Chrome trace to chiprun_out/")
     args = ap.parse_args()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    task = wsj_task.load_task("2k")
+    task = wsj_task.load_task(args.task)
     p = wsj_task.WSJ_POINT
-    utts = wsj_task.sample_utterances(task.cache, task.models, p["n_utts"],
-                                      p["frames"], seed=11)
     B = args.batch or p["batch"]
+    utts = wsj_task.sample_utterances(task.cache, task.models,
+                                      B if args.distinct else p["n_utts"],
+                                      p["frames"], seed=11)
     T = args.frames
     scorer = make_gmm_scorer(task.models.flat_params(), device="cuda")
     # the first T frames of each utterance, edge-padded where it is shorter
@@ -95,6 +104,10 @@ def main() -> None:
 
         def run():
             return fs(scores_tbg)
+        ys = run()[1]
+        stages = {"cand_per_frame_utt": ys["n_cand"].double().mean().item(),
+                  "active_per_frame_utt": ys["n_active"].double().mean().item()}
+        del ys
     else:
         def run():
             return dec.run(scores)
@@ -147,12 +160,12 @@ def main() -> None:
         if lib.jtpu_frame_step_read_clocks(ctypes.addressof(buf), n) != len(PHASES):
             raise RuntimeError("the profiling build's cycle counts could not be read")
         clocks = torch.tensor(list(buf), dtype=torch.float64).view(n, len(PHASES)).mean(dim=0)
-        stages = {"cycles_per_frame": dict(zip(PHASES, (clocks / T).tolist())),
-                  "share": dict(zip(PHASES, (clocks / clocks.sum()).tolist()))}
+        stages.update(cycles_per_frame=dict(zip(PHASES, (clocks / T).tolist())),
+                      share=dict(zip(PHASES, (clocks / clocks.sum()).tolist())))
     route = "entry" if args.entry else "fused" if args.fused else "plain"
     out = {
-        "card": card, "route": route, "clocks": args.clocks,
-        "batch": B, "frames": T,
+        "card": card, "task": args.task, "route": route, "clocks": args.clocks,
+        "batch": B, "distinct": args.distinct, "frames": T,
         "wall_ms_per_frame": plain_wall / T * 1e3,
         "profiled_wall_ms_per_frame": wall / T * 1e3,
         "kernel_ms_per_frame": kernel_us / T / 1e3,

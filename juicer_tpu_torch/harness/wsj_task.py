@@ -8,17 +8,19 @@ utterance sampler `sample_utterances` (`scripts/wsj_bench.py`), which
 random-walks the task's bigram and synthesises features from the models,
 so every utterance has a known transcript.
 
-The decode artifact is derived from the network and models. It is read
-from this package's `_cache/<task>_artifact.npz` or built and written
-there (a few seconds for the 2k-word task).
+The decode artifact is derived from the network and models. By default
+it is read from this package's `_cache/<task>_artifact.npz`, or built and
+written there uncompressed; `cache=False` builds it in memory and reads
+and writes no file.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import resource
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -51,28 +53,45 @@ class WsjTask:
     net: DecoderNetwork
     models: AcousticModelSet
     artifact: DecoderArtifact
+    # seconds of each step of `load_task` (network, build or load, save)
+    # and the process's peak resident set after it, in bytes
+    costs: dict = field(default_factory=dict)
 
 
-def load_task(name: str = "2k", verbose: bool = True) -> WsjTask:
-    cache = task_dir(name)
-    net = DecoderNetwork.load_npz(os.path.join(cache, "clg.npz"))
-    models = AcousticModelSet.load_npz(os.path.join(cache, "models.npz"))
+def load_task(name: str = "2k", verbose: bool = True, cache: bool = True) -> WsjTask:
+    """The task `scripts/_wsj_cache_<name>` with its decode artifact.
+
+    cache=True reads `_cache/<name>_artifact.npz`, or builds the artifact
+    and writes it there; cache=False builds it in memory and reads and
+    writes no file (for a caller that reads the artifact once)."""
+    cache_dir = task_dir(name)
+    costs = {}
+    t0 = time.perf_counter()
+    net = DecoderNetwork.load_npz(os.path.join(cache_dir, "clg.npz"))
+    models = AcousticModelSet.load_npz(os.path.join(cache_dir, "models.npz"))
+    costs["network_s"] = time.perf_counter() - t0
     path = os.path.join(ARTIFACT_CACHE, f"{name}_artifact.npz")
     t0 = time.perf_counter()
-    built = not os.path.exists(path)
-    if built:
-        art = DecoderArtifact(net, models)
-        os.makedirs(ARTIFACT_CACHE, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp.npz"
-        art.save_npz(tmp)
-        os.replace(tmp, path)
-    else:
+    if cache and os.path.exists(path):
         art = DecoderArtifact.load_npz(path, net, models)
-    dt = time.perf_counter() - t0
+        costs["load_s"] = time.perf_counter() - t0
+    else:
+        art = DecoderArtifact(net, models)
+        costs["build_s"] = time.perf_counter() - t0
+        if cache:
+            t0 = time.perf_counter()
+            os.makedirs(ARTIFACT_CACHE, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp.npz"
+            art.save_npz(tmp)
+            os.replace(tmp, path)
+            costs["save_s"] = time.perf_counter() - t0
+    # the process's peak resident set so far (`ru_maxrss`, KiB on Linux)
+    costs["peak_rss_bytes"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
     if verbose:
-        print(f"[task] {name}: {net.n_arcs} arcs; {art} "
-              f"({'built' if built else 'cached'} in {dt:.1f}s)", flush=True)
-    return WsjTask(name, cache, net, models, art)
+        steps = ", ".join(f"{k[:-2]} {v:.1f}s" for k, v in costs.items() if k.endswith("_s"))
+        print(f"[task] {name}: {net.n_arcs} arcs; {art}; {steps}; peak host RSS "
+              f"{costs['peak_rss_bytes'] / 2**30:.1f} GiB", flush=True)
+    return WsjTask(name, cache_dir, net, models, art, costs)
 
 
 def decoder_config(point=WSJ_POINT, emit_diagnostics=True) -> TorchDecoderConfig:

@@ -324,3 +324,40 @@ def test_fused_scan_needs_no_compiler_on_cpu(synth):
         fs(tbg[:4], t0=max_scan_T(pdec))  # record ids would overflow
     with pytest.raises(ValueError):
         FusedDecodeScan(pdec, 0)
+
+
+def test_int32_scope_at_the_boundary(synth, monkeypatch):
+    """The kernel keeps table rows, entry bases (`_meta32`) and a frame's
+    fan-out sum in int32. Stubbed table sizes (a real table of 2**31 rows
+    cannot be built here): the 20k-word task's 213,046,110 closure entries
+    and largest fan-out 91 at K=1024 are covered, 2**31 - 1 of anything is
+    covered, and 2**31 is refused with the reason."""
+    _, pdec = decoders(synth)
+    pdec.K, pdec.E = 1024, 1408  # the operating point's budgets fit the block
+    tab = pdec.tab
+    fan = {"value": 91}
+    monkeypatch.setattr(fused_scan, "_max_fan", lambda dec: fan["value"])
+
+    def rows(n):  # a column of n rows that takes no memory
+        return torch.zeros(1, dtype=torch.int64).expand(n)
+
+    def why(n_ent=213_046_110, n_fent=1, fan_out=91, n_arcs=pdec.n_arcs):
+        pdec.tab = dict(tab, ent_arc=rows(n_ent), f_score=rows(n_fent))
+        fan["value"] = fan_out
+        pdec.n_arcs = n_arcs
+        return fused_scan.why_not_fused(pdec)
+
+    n_arcs = pdec.n_arcs
+    assert why() is None and pdec.K * 91 == 93_184
+    top = 2**31 - 1
+    assert why(n_ent=top) is None and why(n_fent=top) is None
+    assert why(fan_out=top // 1024) is None and why(n_arcs=top - 2) is None
+    for kw, name in ((dict(n_ent=2**31), "closure entries 2,147,483,648"),
+                     (dict(n_fent=2**31), "final entries 2,147,483,648"),
+                     (dict(fan_out=2**21), "K x largest fan-out 2,147,483,648"),
+                     (dict(n_arcs=2**31 - 2), "metadata rows 2,147,483,648")):
+        reason = why(**kw)
+        assert reason is not None and name in reason and "int32" in reason, (kw, reason)
+        with pytest.raises(ValueError, match="outside the fused scan.*int32"):
+            FusedDecodeScan(pdec, 1)
+    pdec.tab, pdec.n_arcs = tab, n_arcs

@@ -17,7 +17,7 @@ import torch
 
 from juicer_tpu_torch.am.models import LOG_ZERO, AcousticModelSet
 from juicer_tpu_torch.convert import gmm_params_from_numpy
-from juicer_tpu_torch.decoder import fused_scan
+from juicer_tpu_torch.decoder import autotune_budgets, fused_scan
 from juicer_tpu_torch.decoder.artifact import DecoderArtifact
 from juicer_tpu_torch.decoder.core import (REC_FIELDS, TorchDecoder,
                                            TorchDecoderConfig, host_batch)
@@ -26,6 +26,7 @@ from juicer_tpu_torch.decoder.fused_scan import (REC_NAMES, FusedDecodeScan,
                                                  concat_records, expand_records,
                                                  state_differences)
 from juicer_tpu_torch.decoder.network import DecoderNetwork
+from juicer_tpu_torch.decoder.stream import StreamingDecoder
 from juicer_tpu_torch.harness import wsj_task
 from juicer_tpu_torch.ops import gmm_cuda
 from juicer_tpu_torch.ops.gmm import gmm_scores_dense, make_gmm_scorer
@@ -419,3 +420,58 @@ def test_decode_scores_on_the_card_launches_the_kernel_once(card):
     with pytest.raises(ValueError, match="decode_scores.*shared memory"):
         dec.decode_scores(sc)
     assert fused_scan.counter.launches - n0 == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [1, 7, 90])
+def test_stream_through_the_kernel_equals_decode_scores(card, chunk):
+    """Each feed is one launch of the kernel; the partial emissions and the
+    final result equal the CPU stream's (the plain loop), and `finish()`
+    equals `decode_scores` on the card."""
+    art, G = _fuzz_artifact(seed=6)
+    cfg = TorchDecoderConfig(max_insts=256, expand_budget=2048, final_budget=128,
+                             **FUZZ_PRUNING[1])
+    dec = TorchDecoder(art, cfg, device=card)
+    sc = _fuzz_scores(11, 90, 1, G, "cpu")[:, 0]
+    want = dec.decode_scores(sc)
+    stream, cpu_stream = StreamingDecoder(dec), TorchDecoder(art, cfg, device="cpu").stream()
+    n0 = fused_scan.counter.launches
+    for i in range(0, 90, chunk):
+        assert stream.feed(sc[i:i + chunk]) == cpu_stream.feed(sc[i:i + chunk]), i
+    assert fused_scan.counter.launches - n0 == -(-90 // chunk)
+    fin = stream.finish()
+    assert fin == cpu_stream.finish()
+    assert fin.words and fin.words == want.words and fin.score == want.score
+    assert [h.end_frame for h in fin.word_hyps] == [h.end_frame for h in want.word_hyps]
+
+
+@pytest.mark.gpu
+def test_autotune_on_the_card_keeps_to_the_kernel(card):
+    """Through the kernel the tuner gives the CPU plain loop's budgets; a
+    probe outside the kernel's shared memory raises with the reason (the
+    first one, or a doubled one), and only use_fused=False runs the plain
+    loop on the card."""
+    art, G = _fuzz_artifact(seed=2, n_states=500, n_models=300)
+    samples = [_fuzz_scores(30 + i, 40, 1, G, card)[:, 0] for i in range(2)]
+    on_cpu = [s.cpu() for s in samples]
+    prune = FUZZ_PRUNING[2]
+    inside = TorchDecoderConfig(max_insts=1024, expand_budget=1408, final_budget=128, **prune)
+    n0 = fused_scan.counter.launches
+    tuned = autotune_budgets(art, samples, cfg=inside, device=card)
+    assert fused_scan.counter.launches - n0 == 4  # the probe and the verification
+    assert tuned == autotune_budgets(art, on_cpu, cfg=inside, device="cpu")
+    assert tuned.max_insts < inside.max_insts
+
+    big = TorchDecoderConfig(max_insts=1024, expand_budget=8192, final_budget=128, **prune)
+    overflowing = TorchDecoderConfig(max_insts=1024, expand_budget=1408, final_budget=1, **prune)
+    n0 = fused_scan.counter.launches
+    with pytest.raises(ValueError, match="probe K=1024, E=8192.*shared memory.*use_fused=False"):
+        autotune_budgets(art, samples, cfg=big, device=card)
+    with pytest.raises(ValueError, match="probe K=2048, E=2816.*shared memory"):
+        autotune_budgets(art, samples, cfg=overflowing, device=card)
+    assert fused_scan.counter.launches - n0 == 2  # the overflowing first probe
+    with pytest.raises(ValueError, match="use_fused=False"):
+        TorchDecoder(art, big, device=card).decode_scores(samples[0])
+    plain = autotune_budgets(art, samples, cfg=big, device=card, use_fused=False)
+    assert fused_scan.counter.launches - n0 == 2
+    assert plain == autotune_budgets(art, on_cpu, cfg=big, device="cpu")
