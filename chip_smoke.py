@@ -90,6 +90,25 @@ Phases (any failure raises and exits non-zero before the result line):
          through the kernel: one launch a chunk, every partial emission a
          prefix of the final words, `finish()` equal to `decode_scores`;
        - card vs CPU parity on one short whole sentence (seed 12), as in 7;
+  [variants] the configurations outside the frame-step kernel (float64, the
+     exact histogram with a binding maxHyps (the peak of active slots
+     without one), the sort merge, the sort
+     merge with lattices), on the 2k task at `WSJ_POINT` with the sentence
+     of 7 scored by the GMM kernel: "auto" raises on the card with
+     `why_not_fused`'s reason; `run` on the card (the plain loop, ms a
+     frame printed) equals the same decoder on the CPU in every plane
+     (integers exactly, floats within 1e-9 in float64 and 1e-4 in
+     float32); words and word-end frames equal, also through
+     `decode_scores(use_fused=False)`; launch counts zeroed before and read
+     after (gmm_logsumexp > 0, frame_step 0);
+  [lattice] `decode_scores_lattice(use_fused=False)` on that sentence at 2k
+     and on the seed-12 sentence at 20k ("auto" raises): the lattice's best
+     path is the 1-best words at cost -(ac+lm) within 1e-3, and at 2k the
+     lattice equals the CPU's (states, arcs, labels; weights within 1e-4);
+     printed: frames, decode ms a frame, `build_lattice` seconds, states
+     and arcs before and after `connect`, the bytes of the E- and F-wide
+     lattice records copied to the host; launch counts as in [variants].
+     Also in [20k]: gmm_logsumexp at the B=16 shape read five more times;
   8. result: a `kernels` JSON line (both kernels, with the 20k fields), the
      seconds of each phase, the card line, and last
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -607,6 +626,11 @@ def main() -> int:
     del r_cpu, ys_cpu
     phase_done("7 parity")
 
+    variants_phase(art, cfg, scorer, xs, words_s, labels, markers, card)
+    phase_done("variants")
+    lattice_phase("2k", art, cfg, scorer, xs, card, against_cpu=True)
+    phase_done("2k lattice")
+
     at_2k = dict(fs_ms=fs_ms, fs_ms2=fs_ms2, fps=fps, fps2=fps2, fps_device=fps_device,
                  fps_device2=fps_device2, gmm16=gmm16, gmm132=gmm132)
     # release the 2k task's tables and waves before the 20k task's
@@ -643,6 +667,190 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
+
+
+# [variants]: each configuration outside the frame-step kernel, through the
+# plain frame loop on the card (`use_fused=False`), held to the CPU
+VARIANTS = (("float64", dict(dtype="float64")),
+            ("exact", dict(histogram_mode="exact")),
+            ("sort", dict(merge_strategy="sort")),
+            ("sort+lattice", dict(merge_strategy="sort", gen_lattice=True)))
+
+
+def variants_phase(art, cfg, scorer, xs, words, labels, markers, card):
+    """[variants]: one short sentence scored by the GMM kernel, decoded on
+    the card with each configuration of `VARIANTS` through the plain frame
+    loop and equal to the same decoder on the CPU; "auto" refuses each on
+    the card with `why_not_fused`'s reason. Launch counts are zeroed just
+    before and read just after. Returns {name: ms a frame}."""
+    import torch
+
+    from juicer_tpu_torch.decoder import fused_scan
+    from juicer_tpu_torch.decoder.core import TorchDecoder, host_batch, host_planes_diff
+    from juicer_tpu_torch.ops import gmm_cuda
+
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    sc = scorer(xs.to("cuda"))
+    T = int(sc.shape[0])
+    transcript = [labels[w] for w in words]
+    out = {}
+    for name, kw in VARIANTS:
+        vcfg = dataclasses.replace(cfg, **kw)
+        extra = ""
+        if name == "exact":
+            # WSJ_POINT's maxHyps of 500 does not bind on this sentence: the
+            # first of the peak of active slots in the decode without a
+            # histogram (each slot holds up to three emitting hypotheses),
+            # its half and its quarter whose records differ from that decode
+            free = TorchDecoder(art, dataclasses.replace(vcfg, max_emit_hyps=0), device="cuda")
+            free_ys = free.run(sc[None])[1]
+            free_prev, peak = free_ys["rec_prev"], int(free_ys["n_active"].max())
+            for k in (peak, peak // 2, peak // 4):
+                vcfg = dataclasses.replace(vcfg, max_emit_hyps=k)
+                bound_prev = TorchDecoder(art, vcfg, device="cuda").run(sc[None])[1]["rec_prev"]
+                if not torch.equal(free_prev, bound_prev):
+                    break
+            else:
+                raise RuntimeError(f"[variants] exact: maxHyps {peak}, {peak // 2} and "
+                                   f"{peak // 4} do not bind")
+            extra = (f"; maxHyps {k} binds (peak of active slots without it {peak}): the "
+                     f"records differ from the decode without it")
+            del free, free_ys, free_prev, bound_prev
+        dec = TorchDecoder(art, vcfg, device="cuda")
+        why = fused_scan.why_not_fused(dec)
+        try:
+            dec.decode_scores(sc)
+        except ValueError as e:
+            if why is None or why not in str(e):
+                raise RuntimeError(f"[variants] {name}: 'auto' raised without the reason") from e
+        else:
+            raise RuntimeError(f"[variants] {name}: use_fused='auto' decoded on the card")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = dec.run(sc[None])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / T
+        got = host_batch(*state)
+        cpu = TorchDecoder(art, vcfg, device="cpu")
+        want = host_batch(*cpu.run(sc.cpu()[None]))
+        tol = 1e-9 if vcfg.dtype == "float64" else 1e-4
+        try:
+            worst = host_planes_diff(got, want, tol)
+        except ValueError as e:
+            raise RuntimeError(f"[variants] {name}: the card differs from the CPU: {e}") from e
+        r_card = dec.traceback(got, 0, T)
+        r_cpu = cpu.traceback(want, 0, T)
+        r_entry = dec.decode_scores(sc, use_fused=False)
+        if r_cpu.empty:
+            raise RuntimeError(f"[variants] {name}: the sentence decodes to no final state")
+        for r, other in ((r_card, "the CPU"), (r_entry, "decode_scores(use_fused=False)")):
+            if r.words != r_cpu.words or frames_of(r) != frames_of(r_cpu):
+                raise RuntimeError(f"[variants] {name}: the card's words differ from {other}")
+        print(f"[variants] {name}: not in the kernel ({why}); 'auto' raises on the card; "
+              f"plain loop on the card {T} frames at {ms:.3f} ms a frame; records and every "
+              f"plane equal to the CPU (max |float diff| {worst}), words and word-end frames "
+              f"equal; transcript {[w for w in r_card.words if w not in markers] == transcript}"
+              f"{extra} | {card}", flush=True)
+        out[name] = ms
+        del dec, cpu, state, got, want
+    launches = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    if launches[0] == 0 or launches[1] != 0:
+        raise RuntimeError(f"[variants] launched gmm_logsumexp, frame_step {launches} times; "
+                           f"expected > 0 and 0")
+    print(f"[variants] launches: gmm_logsumexp {launches[0]}, frame_step {launches[1]} (the "
+          f"plain loop decodes these configurations, as the JAX engine's lax.scan does)",
+          flush=True)
+    return out
+
+
+def lattice_phase(what, art, cfg, scorer, xs, card, against_cpu):
+    """[lattice]: one utterance through `decode_scores_lattice` on the card
+    (the plain loop: "auto" raises); its best path is the 1-best words at
+    cost -(ac+lm) within 1e-3, and with `against_cpu` the lattice equals
+    the CPU's (states, arcs, labels; weights within 1e-4). Prints the
+    decode's ms a frame, `build_lattice`'s and `connect`'s seconds, the
+    lattice before and after `connect` and the bytes of the lattice
+    records copied to the host. Launch counts are zeroed just before and read just after."""
+    import torch
+
+    from juicer_tpu_torch.decoder import fused_scan
+    from juicer_tpu_torch.decoder.core import (EV_FIELDS, FLAT_FIELDS, LAT_FIELDS,
+                                               TorchDecoder, host_batch)
+    from juicer_tpu_torch.decoder.lattice import build_lattice, shortest_path
+    from juicer_tpu_torch.fst import algos
+    from juicer_tpu_torch.ops import gmm_cuda
+
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    sc = scorer(xs.to("cuda"))
+    T = int(sc.shape[0])
+    lcfg = dataclasses.replace(cfg, gen_lattice=True)
+    dec = TorchDecoder(art, lcfg, device="cuda")
+    try:
+        dec.decode_scores_lattice(sc)
+    except ValueError as e:
+        if fused_scan.why_not_fused(dec) not in str(e):
+            raise RuntimeError(f"[lattice] {what}: 'auto' raised without the reason") from e
+    else:
+        raise RuntimeError(f"[lattice] {what}: use_fused='auto' decoded on the card")
+    res, lat = dec.decode_scores_lattice(sc, use_fused=False)
+    launches = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    cost, words = shortest_path(lat)
+    err = abs(cost + res.acoustic_score + res.lm_score)
+    if words != res.words or not res.words or not err <= 1e-3:
+        raise RuntimeError(f"[lattice] {what}: best path {words} at {cost} vs 1-best "
+                           f"{res.words} at {-(res.acoustic_score + res.lm_score)}")
+    # the entry point's parts, timed apart
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = dec.run(sc[None])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / T
+    host = host_batch(*state)
+    ys = {k: host[1][k][:, 0] for k in LAT_FIELDS + FLAT_FIELDS + EV_FIELDS}
+    rec0 = {k: host[2][k][0] for k in LAT_FIELDS + EV_FIELDS}
+    ef_bytes = sum(ys[k].nbytes for k in LAT_FIELDS + FLAT_FIELDS)
+    k_bytes = sum(ys[k].nbytes for k in EV_FIELDS)
+    t0 = time.perf_counter()
+    raw = build_lattice(art, ys, rec0, T)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    built = algos.connect(raw)
+    t_connect = time.perf_counter() - t0
+    if (built.num_states, built.arc_src, built.arc_dst, built.arc_weight) != (
+            lat.num_states, lat.arc_src, lat.arc_dst, lat.arc_weight):
+        raise RuntimeError(f"[lattice] {what}: a second build differs from the entry point's")
+    edges = int(ys["lat_valid"].sum())
+    cpu_note = ""
+    if against_cpu:
+        _, lat_cpu = TorchDecoder(art, lcfg, device="cpu").decode_scores_lattice(sc.cpu())
+        same = (lat.num_states, lat.start, lat.arc_src, lat.arc_dst, lat.arc_ilabel,
+                lat.arc_olabel, sorted(lat.finals)) == (
+            lat_cpu.num_states, lat_cpu.start, lat_cpu.arc_src, lat_cpu.arc_dst,
+            lat_cpu.arc_ilabel, lat_cpu.arc_olabel, sorted(lat_cpu.finals))
+        w_err = max([abs(a - b) for a, b in zip(lat.arc_weight, lat_cpu.arc_weight)]
+                    + [abs(lat.finals[s] - lat_cpu.finals[s]) for s in lat_cpu.finals
+                       if s in lat.finals] + [0.0])
+        if not same or not w_err <= 1e-4:
+            raise RuntimeError(f"[lattice] {what}: the card's lattice differs from the CPU's "
+                               f"(structure equal {same}, max |weight diff| {w_err})")
+        cpu_note = (f"; equal to the CPU's lattice (states, arcs, labels; max |weight diff| "
+                    f"{w_err})")
+    if launches[0] == 0 or launches[1] != 0:
+        raise RuntimeError(f"[lattice] {what}: launched gmm_logsumexp, frame_step {launches} "
+                           f"times; expected > 0 and 0")
+    print(f"[lattice] {what}: {T} frames, decode (plain loop on the card) {ms:.3f} ms a "
+          f"frame, build_lattice {t_build:.3f} s for {edges} edges ({edges / T:.1f} a frame), "
+          f"connect {t_connect:.3f} s; "
+          f"lattice {raw.num_states} states / {raw.num_arcs} arcs before connect, "
+          f"{lat.num_states} / {lat.num_arcs} after; best path = the 1-best's "
+          f"{len(words)} words, cost error {err:.2e}{cpu_note}; lattice records to the host "
+          f"{ef_bytes} bytes of E- and F-wide fields ({ef_bytes / T:.0f} a frame) and "
+          f"{k_bytes} of K-wide events; launches gmm_logsumexp {launches[0]}, frame_step "
+          f"{launches[1]} | {card}", flush=True)
+    return dict(ms=ms, build_s=t_build, ef_bytes=ef_bytes, states=lat.num_states,
+                arcs=lat.num_arcs)
 
 
 def decode_records(decoder, scores):
@@ -735,6 +943,13 @@ def phase_20k(card, dev, at_2k, phase_done):
     x2 = x.view(B, Tmax, D)[torch.arange(B2, device=dev) % B].reshape(B2 * Tmax, D)
     gmm16 = gmm_phase(scorer, x, f"20k B={B}", card)
     gmm132 = gmm_phase(scorer, x2, f"20k B={B2}", card)
+    # repeated readings at the B=16 shape: one earlier call read 0.1646 ms
+    # where the call before it read 0.1021
+    repeats = [cuda_ms(lambda: gmm_cuda.gmm_logsumexp(x, scorer.W, scorer.b_packed, G), 20)
+               for _ in range(5)]
+    print(f"[20k] gmm_logsumexp at B={B} (T={x.shape[0]}) read five more times, 20 calls "
+          f"each over CUDA events: {', '.join(f'{m:.4f}' for m in repeats)} ms | {card}",
+          flush=True)
     print(f"[20k] gmm_logsumexp {gmm16['ms']:.4f} ms at B={B} and {gmm132['ms']:.4f} ms at "
           f"B={B2} beside {at_2k['gmm16']['ms']:.4f} and {at_2k['gmm132']['ms']:.4f} ms at 2k "
           f"(the same models, longer waves) | {card}", flush=True)
@@ -887,10 +1102,12 @@ def phase_20k(card, dev, at_2k, phase_done):
     if not ok_words:
         raise RuntimeError("20k parity: the sentence's words are not its transcript")
     phase_done("20k parity")
+    lattice_phase("20k", art, cfg, scorer, torch.as_tensor(xs), card, against_cpu=False)
+    phase_done("20k lattice")
 
     return {
         "gmm_logsumexp": {
-            "ms_20k": gmm16["ms"], "ms_20k_b132": gmm132["ms"],
+            "ms_20k": gmm16["ms"], "ms_20k_b132": gmm132["ms"], "ms_20k_repeats": repeats,
             "bound_ms_20k": gmm16["bound_ms"], "bound_ms_20k_b132": gmm132["bound_ms"],
             "max_abs_err_20k": max(gmm16["err"], gmm132["err"]),
             "launches_20k": entry[B][0][0], "launches_20k_b132": entry[B2][0][0]},

@@ -6,8 +6,12 @@ against; nothing here imports it, or JAX. The port's slices so far:
   - `ops.gmm`: all-GMM acoustic scoring; on the card a hand-written CUDA
     kernel (`csrc/gmm_logsumexp.cu`, the counterpart of the Pallas kernel
     in `juicer_tpu/ops/gmm_pallas.py`), on the CPU its plain PyTorch form;
-  - `decoder.core`: the static-network 1-best frame-synchronous beam
-    search (`juicer_tpu/decoder/tpu_core.py`), with a leading batch axis;
+  - `decoder.core`: the static-network frame-synchronous beam search
+    (`juicer_tpu/decoder/tpu_core.py`) with a leading batch axis, in
+    float32 or float64, with the binned or the exact histogram, the dense
+    or the sort merge, with or without lattice records;
+  - `decoder.lattice` and `fst`: word lattices from those records
+    (`decode_scores_lattice`), with the FST utilities they need;
   - `decoder.fused_scan`: the fused frame-step scan; on the card a
     persistent hand-written CUDA kernel (`csrc/frame_step.cu`, the
     counterpart of `juicer_tpu/decoder/pallas_scan.py`), on the CPU the

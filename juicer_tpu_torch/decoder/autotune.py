@@ -23,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
-from .core import TorchDecoder, TorchDecoderConfig
+from .core import TorchDecoder, TorchDecoderConfig, check_use_fused
 from .fused_scan import why_not_covered
 
 
@@ -51,8 +51,7 @@ def autotune_budgets(
     * margin (multiples of 128). With verify=True the tuned config is run
     again; where a sample overflows there, the probe's budgets are
     returned, and where its words or score differ it raises."""
-    if use_fused not in ("auto", True, False):
-        raise ValueError(f"use_fused must be 'auto', True or False, not {use_fused!r}")
+    check_use_fused(use_fused)
     base = cfg or TorchDecoderConfig()
     probe = dataclasses.replace(base, emit_diagnostics=True)
     n_frames = max(int(s.shape[0]) for s in score_samples)

@@ -1,27 +1,38 @@
 """Decoder core: dense-frontier Viterbi beam search in PyTorch.
 
 Counterpart of `juicer_tpu/decoder/tpu_core.py` (`TpuDecoder`) for the
-static network, float32, `merge_strategy="dense"`,
-`histogram_mode="binned"`, 1-best path. Other configurations (on-the-fly
-composition, lattices, the sort merge, the exact histogram, float64)
-raise NotImplementedError.
+static network, in every configuration the JAX engine decodes it:
+float32 or float64 (`dtype`), the binned or the exact histogram
+(`histogram_mode`), the dense or the sort merge (`merge_strategy`;
+"auto" takes the sort merge above E = 32768, as the JAX engine does),
+each with or without lattice records (`gen_lattice`). On-the-fly
+composition (`g_network=`) raises NotImplementedError.
 
 The frame step carries a leading batch axis: the frontier is (B, K, S)
 (K active-arc slots of S padded HMM states per utterance), so one
 decoder runs B utterances at once and `decode_scores` is the case B=1.
-Per frame it does what `TpuDecoder._frame_step` does, op for op in
-float32, so records, words and scores equal the JAX engine's:
+Per frame it does what `TpuDecoder._frame_step` does, op for op in the
+decoder's float dtype, so records, words and scores equal the JAX
+engine's:
 
   - within-HMM max-plus propagation with first-max argmax payloads;
-  - the emit beam and the reference's integer-binned histogram threshold
-    (`Histogram::calcThresh`), counted with one scatter-add per row;
+  - the emit beam and either the reference's integer-binned histogram
+    threshold (`Histogram::calcThresh`), counted with one scatter-add per
+    row, or the exact k-th best emitting score (`torch.topk`);
   - HMM exit, the phone-end and word-end beams;
   - closure expansion through the artifact's per-arc tables
     (`_expand`, `_expand_finals`);
   - recombination: per target arc the best candidate wins, ties to the
-    lowest candidate index, and lands in that arc's live slot or in the
-    next free slot by candidate order (`_merge_and_insert_dense`);
-  - one traceback record per landed winner that crossed output labels.
+    lowest candidate index. The dense merge lands a winner in that arc's
+    live slot or in the next free slot by candidate order
+    (`_merge_and_insert_dense`); the sort merge first compacts the live
+    slots to [0, n_live) in arc order and gives new winners the slots
+    after them (`_merge_and_insert_sort`). The two number slots, and so
+    record ids `t*K + slot`, differently; each equals its JAX strategy;
+  - one traceback record per landed winner that crossed output labels;
+  - with `gen_lattice`, the lattice records: an event per landed slot
+    (`ev_*`), an edge per valid candidate (`lat_*`) and per valid final
+    candidate (`flat_*`), each token carrying the id of its entry event.
 
 What the TPU needed and a GPU does not is gone. One-hot matmuls and
 one-hot payload selects are real gathers (`torch.gather`), which select
@@ -31,10 +42,11 @@ live arcs: the same winners and slots, found in O(E log E). The
 `associative_scan` forward fill is a `cummax` over source positions.
 `mode="drop"` scatters go to an extra dump column that is sliced off,
 and the one winner scatter writes unique indices, so no result depends
-on write order. Record ids (`t*K + slot`) and closure-table offsets are
-integer tensors, so the JAX package's f32 hi/lo base split is not
-needed. The frame loop is a Python loop that never reads a device value
-back: overflow and best-final stay on the device until the loop ends.
+on write order. Record ids (`t*K + slot`), lattice event ids and
+closure-table offsets are integer tensors, so the JAX package's f32
+hi/lo base split and its float32 limit T*K < 2**24 are not needed. The
+frame loop is a Python loop that never reads a device value back:
+overflow and best-final stay on the device until the loop ends.
 """
 
 from __future__ import annotations
@@ -50,15 +62,37 @@ from .artifact import DecoderArtifact
 from .results import DecodeResult, WordHyp
 
 NEG = -1.0e30
-_F32 = torch.float32
 _I64 = torch.int64
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
+# above this expansion budget "auto" takes the sort merge, as the JAX engine
+# does (`tpu_core.py`), so that the records' slot numbering stays the same
+SORT_ABOVE_E = 32768
 
 REC_FIELDS = ("rec_prev", "rec_seq", "rec_score", "rec_ac", "rec_lm",
               "rec_src", "rec_arc")
 BF_FIELDS = ("score", "ac", "lm", "path", "seq", "src")
-# the eight int32 words of a compact record (`fused_scan.compact_records`):
-# its id t*K + slot and the seven fields, floats as their bit patterns
+# the eight words of a compact record (`fused_scan.compact_records`): its
+# id t*K + slot and the seven fields, floats as their bit patterns; int32
+# words for float32 records, int64 words for float64 records
 REC_WORDS = ("rec_id",) + REC_FIELDS
+# the lattice records of `run` with `gen_lattice`: per frame an edge per
+# candidate (E), a final edge per final candidate (F) and an event per
+# slot (K); `rec0` holds the initial propagation's edges and events
+LAT_FIELDS = ("lat_from_ev", "lat_to_arc", "lat_ac", "lat_lm", "lat_seq", "lat_valid")
+FLAT_FIELDS = ("flat_from_ev", "flat_ac", "flat_lm", "flat_seq", "flat_valid")
+EV_FIELDS = ("ev_arc", "ev_ac", "ev_lm")
+
+
+# the integer words of a float dtype's compact records
+RECORD_WORDS = {torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def float_view(words):
+    """Compact record words (numpy or torch) viewed as the floats whose
+    bits they carry: float32 from int32 words, float64 from int64 words."""
+    if isinstance(words, torch.Tensor):
+        return words.view(torch.float64 if words.dtype == torch.int64 else torch.float32)
+    return words.view(np.float64 if words.dtype == np.int64 else np.float32)
 
 
 @dataclass
@@ -71,10 +105,13 @@ class TorchDecoderConfig:
     phone_end_prune_win: float = 0.0
     word_prune_win: float = 0.0
     max_emit_hyps: int = 0
-    histogram_mode: str = "binned"  # "exact" is not ported
-    merge_strategy: str = "auto"  # "auto" = "dense"; "sort" is not ported
-    dtype: str = "float32"  # "float64" is not ported
-    gen_lattice: bool = False  # not ported
+    # "binned": the reference's integer-binned threshold; "exact": the
+    # true k-th best emitting score
+    histogram_mode: str = "binned"
+    # "dense", "sort", or "auto" (the sort merge above E = 32768)
+    merge_strategy: str = "auto"
+    dtype: str = "float32"  # or "float64"
+    gen_lattice: bool = False  # lattice records (`decode_scores_lattice`)
     # per-frame best-final snapshots (exact padded decoding) + active-inst
     # counters; off for benchmarks
     emit_diagnostics: bool = True
@@ -84,54 +121,61 @@ def _rup(x, m=128):
     return max(m, ((int(x) + m - 1) // m) * m)
 
 
-def _device_tables(art: DecoderArtifact, device: torch.device) -> dict:
+def _device_tables(art: DecoderArtifact, device: torch.device, dtype=torch.float32) -> dict:
     """Config-independent tables, cached on the artifact per device and
-    shared by every decoder built on it. The entry tables are the bulk, 24
-    bytes an entry (`ent_arc` and `ent_seq` int64, `ent_score` and `ent_ac`
-    float32): 17.6M entries (422 MB) on the 2k-word WSJ-order task, 213M
-    (5.1 GB) on the 20k-word one. Each column is copied in the artifact's
-    own dtype and converted on the device, so no converted host copy of a
-    column is made for the card."""
+    float dtype and shared by every decoder built on it; the integer
+    columns are shared by both dtypes. The entry tables are the bulk, 24
+    bytes an entry in float32 (`ent_arc` and `ent_seq` int64, `ent_score`
+    and `ent_ac` float32; float64 adds 8): 17.6M entries (422 MB) on the
+    2k-word WSJ-order task, 213M (5.1 GB) on the 20k-word one. Each column
+    is copied in the artifact's own dtype and converted on the device, so
+    no converted host copy of a column is made for the card."""
     cache = art.__dict__.setdefault("_torch_tables", {})
-    tabs = cache.get(str(device))
+    tabs = cache.get((str(device), dtype))
     if tabs is not None:
         return tabs
     ex = art.expansion
-    # per-arc metadata rows [hmm, olabel, ent_base, ent_fan, f_base, f_fan];
-    # row n_arcs = the virtual start source, n_arcs+1 = the dead sentinel
-    n = art.n_hmm_arcs
-    meta = np.zeros((n + 2, 6), np.int64)
-    meta[:n, 0] = art.arc_hmm
-    meta[:n, 1] = art.arc_olabel
-    meta[: n + 1, 2] = ex.row_ptr[:-1]
-    meta[: n + 1, 3] = np.diff(ex.row_ptr)
-    meta[: n + 1, 4] = ex.frow_ptr[:-1]
-    meta[: n + 1, 5] = np.diff(ex.frow_ptr)
 
-    def col(a, dtype, n_min=1):
+    def col(a, dt, n_min=1):
         # tables keep at least one row so clamped gathers stay in range
         a = np.asarray(a)
         if len(a) < n_min:
             a = np.zeros(n_min, a.dtype)
-        return torch.from_numpy(a).to(device).to(dtype)
+        return torch.from_numpy(a).to(device).to(dt)
 
-    H = art.trP.shape[0]
-    tabs = {
-        "arc_meta": torch.as_tensor(meta, device=device),
-        "ent_arc": col(ex.arc, _I64),
-        "ent_score": col(ex.w_score, _F32),
-        "ent_ac": col(ex.w_ac, _F32),
-        "ent_seq": col(ex.seq, _I64),
-        "f_score": col(ex.f_score, _F32),
-        "f_ac": col(ex.f_ac, _F32),
-        "f_seq": col(ex.f_seq, _I64),
-        "trP": torch.as_tensor(np.asarray(art.trP, np.float32), device=device),
-        "emitting": torch.as_tensor(np.asarray(art.state_gmm) >= 0, device=device),
-        "state_gmm": torch.as_tensor(
-            np.maximum(art.state_gmm, 0).reshape(H * art.S).astype(np.int64),
-            device=device),
-    }
-    cache[str(device)] = tabs
+    ints = cache.get(str(device))
+    if ints is None:
+        # per-arc metadata rows [hmm, olabel, ent_base, ent_fan, f_base,
+        # f_fan]; row n_arcs = the virtual start source, n_arcs+1 = the
+        # dead sentinel
+        n = art.n_hmm_arcs
+        meta = np.zeros((n + 2, 6), np.int64)
+        meta[:n, 0] = art.arc_hmm
+        meta[:n, 1] = art.arc_olabel
+        meta[: n + 1, 2] = ex.row_ptr[:-1]
+        meta[: n + 1, 3] = np.diff(ex.row_ptr)
+        meta[: n + 1, 4] = ex.frow_ptr[:-1]
+        meta[: n + 1, 5] = np.diff(ex.frow_ptr)
+        H = art.trP.shape[0]
+        ints = cache[str(device)] = {
+            "arc_meta": torch.as_tensor(meta, device=device),
+            "ent_arc": col(ex.arc, _I64),
+            "ent_seq": col(ex.seq, _I64),
+            "f_seq": col(ex.f_seq, _I64),
+            "emitting": torch.as_tensor(np.asarray(art.state_gmm) >= 0, device=device),
+            "state_gmm": torch.as_tensor(
+                np.maximum(art.state_gmm, 0).reshape(H * art.S).astype(np.int64),
+                device=device),
+        }
+    tabs = dict(ints)
+    tabs.update({
+        "ent_score": col(ex.w_score, dtype),
+        "ent_ac": col(ex.w_ac, dtype),
+        "f_score": col(ex.f_score, dtype),
+        "f_ac": col(ex.f_ac, dtype),
+        "trP": torch.as_tensor(np.asarray(art.trP), device=device).to(dtype),
+    })
+    cache[(str(device), dtype)] = tabs
     return tabs
 
 
@@ -180,19 +224,16 @@ class TorchDecoder:
         cfg = config or TorchDecoderConfig()
         if g_network is not None:
             raise NotImplementedError("on-the-fly composition is not ported")
-        if cfg.gen_lattice:
-            raise NotImplementedError("lattice generation is not ported")
-        if cfg.dtype != "float32":
-            raise NotImplementedError(f"dtype {cfg.dtype!r} is not ported (float32 only)")
-        if cfg.histogram_mode == "exact":
-            raise NotImplementedError("histogram_mode='exact' is not ported")
-        if cfg.histogram_mode != "binned":
+        if cfg.dtype not in DTYPES:
+            raise ValueError(f"unknown dtype {cfg.dtype!r}")
+        if cfg.histogram_mode not in ("binned", "exact"):
             raise ValueError(f"unknown histogram_mode {cfg.histogram_mode!r}")
         if cfg.merge_strategy not in ("auto", "dense", "sort"):
             raise ValueError(f"unknown merge_strategy {cfg.merge_strategy!r}")
         self.art = artifact
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.dtype = DTYPES[cfg.dtype]
 
         # budgets never exceed the network: at most n_hmm_arcs insts are
         # live, and one frame expands each closure entry at most once
@@ -200,13 +241,13 @@ class TorchDecoder:
         self.K = min(cfg.max_insts, _rup(artifact.n_hmm_arcs + 1))
         self.E = min(cfg.expand_budget, _rup(len(ex.arc) + 1))
         self.F = min(cfg.final_budget, _rup(len(ex.f_score) + 1))
-        # the JAX engine's "auto" picks the sort merge above E = 32768
-        if cfg.merge_strategy == "sort" or self.E > 32768:
-            raise NotImplementedError("merge_strategy='sort' is not ported")
+        self.merge_strategy = cfg.merge_strategy
+        if self.merge_strategy == "auto":
+            self.merge_strategy = "sort" if self.E > SORT_ABOVE_E else "dense"
         self.S = artifact.S
         self.n_arcs = artifact.n_hmm_arcs
         self.H = artifact.trP.shape[0]
-        self.tab = _device_tables(artifact, self.device)
+        self.tab = _device_tables(artifact, self.device, self.dtype)
 
         if cfg.max_emit_hyps > 0:
             # reference histogram bounds (`WFSTDecoderLite.cpp:78-80`,
@@ -220,15 +261,16 @@ class TorchDecoder:
     # expansion
     # ------------------------------------------------------------------
 
-    def _expand(self, score, ac, path, base, fan, live, src_arc):
+    def _expand(self, score, ac, path, base, fan, live, src_arc, lat=None):
         """Fixed-budget expansion of exiting tokens (B, K) through the
-        closure tables into E candidates per utterance."""
+        closure tables into E candidates per utterance. `lat`, the exiting
+        tokens' entry-event ids, rides along as the candidates' `lat_from`."""
         tab = self.tab
         k, row, valid, total = _closure_rows(fan, live, base, self.E)
         ent = row.clamp(0, tab["ent_arc"].shape[0] - 1)
         s_score = score.gather(1, k)
         cand_score = torch.where(valid, s_score + tab["ent_score"][ent], NEG)
-        return {
+        cand = {
             "arc": torch.where(valid, tab["ent_arc"][ent], 0),
             "score": cand_score,
             "ac": ac.gather(1, k) + tab["ent_ac"][ent],
@@ -239,10 +281,15 @@ class TorchDecoder:
             "overflow": total > self.E,
             "n_cand": total,
         }
+        if lat is not None:
+            cand["lat_from"] = lat.gather(1, k)
+        return cand
 
-    def _expand_finals(self, score, ac, path, base, fan, live, src_arc, norm):
+    def _expand_finals(self, score, ac, path, base, fan, live, src_arc, norm, lat=None):
         """This frame's best final-state reach per utterance (the
-        bestFinalToken update) and the final-budget overflow flag."""
+        bestFinalToken update) and the final-budget overflow flag; with
+        `lat`, also every final candidate as a lattice final edge
+        (`FLAT_FIELDS`, else None)."""
         tab = self.tab
         k, row, valid, total = _closure_rows(fan, live, base, self.F)
         ent = row.clamp(0, tab["f_score"].shape[0] - 1)
@@ -260,13 +307,23 @@ class TorchDecoder:
             "seq": torch.where(better, tab["f_seq"][ent.gather(1, i)[:, 0]], 0),
             "src": torch.where(better, src_arc.gather(1, k.gather(1, i))[:, 0], -1),
         }
-        return best, total > self.F
+        flat = None
+        if lat is not None:
+            flat = {"flat_from_ev": lat.gather(1, k), "flat_ac": fac,
+                    "flat_lm": sc - fac + norm[:, None], "flat_seq": tab["f_seq"][ent],
+                    "flat_valid": valid}
+        return best, total > self.F, flat
 
     # ------------------------------------------------------------------
     # recombination + insertion
     # ------------------------------------------------------------------
 
     def _merge_and_insert(self, fr, cand, t: int, norm):
+        if self.merge_strategy == "sort":
+            return self._merge_and_insert_sort(fr, cand, t, norm)
+        return self._merge_and_insert_dense(fr, cand, t, norm)
+
+    def _merge_and_insert_dense(self, fr, cand, t: int, norm):
         """Recombine candidates per target arc and land the winners in the
         frontier (counterpart of `_merge_and_insert_dense`).
 
@@ -275,19 +332,15 @@ class TorchDecoder:
         frontier holds at most one live slot per arc, so a winner either
         hits that slot or takes a free one: new winners in candidate order
         take the free slots in slot order."""
-        K, S, E = self.K, self.S, self.E
-        dev = norm.device
-        B = norm.shape[0]
+        K = self.K
         dead = self.n_arcs + 1
-        live = (fr["score"][:, :, : S - 1] > NEG / 2).any(dim=2) & (
-            fr["arc"] <= self.n_arcs) & (fr["arc"] >= 0)
+        live = self._live(fr)
         arc_cur = torch.where(live, fr["arc"], dead)
         n_live = live.sum(dim=1)
 
         valid = cand["valid"]
         ck = torch.where(valid, cand["arc"], dead)
         g_score = torch.where(valid, cand["score"], NEG)
-        g_lm = g_score - cand["ac"] + norm[:, None]
 
         # winners: order by (arc, score descending, index) with two stable
         # sorts; the first candidate of each arc group wins
@@ -316,65 +369,159 @@ class TorchDecoder:
             hit, slot_hit,
             torch.where(need_new & (new_rank < n_free), slot_new, -1))
         w_ok = winner & (slot >= 0) & (slot < K)
+        landed = {"arc": ck, "score": g_score, "ac": cand["ac"], "prev": cand["prev"],
+                  "seq": cand["seq"], "src": cand["src"]}
+        fr_new, rec = self._land(fr, arc_cur, landed, slot, w_ok, t, norm)
+        # surviving + newly allocated insts this frame
+        rec["n_active"] = (live | rec.pop("got")).sum(dim=1)
+        best_new = torch.where(w_ok, g_score, NEG).amax(dim=1)
+        return fr_new, rec, best_new, overflow
 
-        # the one winner scatter: unique slots, losers to the dump column K
+    def _merge_and_insert_sort(self, fr, cand, t: int, norm):
+        """The sort merge (counterpart of `_merge_and_insert_sort`), which
+        the JAX engine takes under "auto" above E=32768, where its dense
+        merge's quadratic compare matrices cost more:
+
+          1. a restore sort compacts the live slots to [0, n_live) in arc
+             order, their token planes (and lattice ids) with them;
+          2. frontier heads (kind 0) and candidates (kind 1) are co-sorted
+             stably by (arc, kind, -score): an arc group's first candidate
+             wins, and merges into the slot of the head just before it;
+          3. winners without a head take slots n_live + rank.
+
+        Its records and frontier equal the dense merge's up to slot
+        numbering; the numbering here is the JAX sort strategy's. The
+        port's dense merge already sorts in O(E log E), so the port keeps
+        this merge for equal records and lattices with the JAX engine, not
+        for speed; its cost on the card above E=32768 is not measured."""
+        K, S, E = self.K, self.S, self.E
+        dev = norm.device
+        B = norm.shape[0]
+        dead = self.n_arcs + 1
+
+        # ---- 1. restore sort ------------------------------------------------
+        live = self._live(fr)
+        arc_r, perm = torch.sort(torch.where(live, fr["arc"], dead), dim=1, stable=True)
+        is_dead = (arc_r >= dead)[:, :, None]
+        perm_s = perm[:, :, None].expand(B, K, S)
+        fr = {name: torch.where(is_dead, fill, fr[name].gather(1, perm_s))
+              for name, fill in (("score", NEG), ("ac", NEG), ("path", -1), ("lat", -1))
+              if name in fr}
+        n_live = live.sum(dim=1)
+
+        # ---- 2. co-sort of frontier heads and candidates ------------------
+        valid = cand["valid"]
+        key = torch.cat([arc_r * 2, torch.where(valid, cand["arc"], dead) * 2 + 1], dim=1)
+        neg_score = torch.cat([torch.zeros((B, K), dtype=self.dtype, device=dev),
+                               torch.where(valid, -cand["score"], -NEG)], dim=1)
+        by_score = torch.argsort(neg_score, dim=1, stable=True)
+        order = by_score.gather(1, torch.argsort(key.gather(1, by_score), dim=1, stable=True))
+        key_s = key.gather(1, order)
+        ck, kind = key_s // 2, key_s % 2
+        same = ck[:, 1:] == ck[:, :-1]
+        no = torch.zeros((B, 1), dtype=torch.bool, device=dev)
+        after_head = torch.cat([no, same & (kind[:, :-1] == 0)], dim=1)
+        after_same = torch.cat([no, same], dim=1)
+        winner = (kind == 1) & (~after_same | after_head) & (ck < dead)
+        heads_before = torch.arange(K + E, device=dev) - (torch.cumsum(kind, dim=1) - kind)
+        hit = winner & after_head
+        need_new = winner & ~after_head
+        alloc = n_live[:, None] + torch.cumsum(need_new.to(_I64), dim=1) - 1
+        overflow = (need_new & (alloc >= K)).any(dim=1)
+        slot = torch.where(hit, heads_before - 1, torch.where(need_new, alloc, -1))
+        w_ok = winner & (slot >= 0) & (slot < K)
+
+        # ---- 3. the winners land ------------------------------------------
+        ci = (order - K).clamp(min=0)  # the candidate of a sorted row
+        landed = {"arc": ck, "score": -neg_score.gather(1, order)}
+        for name in ("ac", "prev", "seq", "src"):
+            landed[name] = cand[name].gather(1, ci)
+        fr_new, rec = self._land(dict(fr, arc=arc_r), arc_r, landed, slot, w_ok, t, norm)
+        # hits land inside the live prefix and must not count twice
+        fresh = rec.pop("got") & (torch.arange(K, device=dev) >= n_live[:, None])
+        rec["n_active"] = n_live + fresh.sum(dim=1)
+        best_new = torch.where(w_ok, landed["score"], NEG).amax(dim=1)
+        return fr_new, rec, best_new, overflow
+
+    def _live(self, fr):
+        """Slots holding a token in states 0..S-2 (entry and exit columns
+        are empty after internal propagation) on a real arc."""
+        return ((fr["score"][:, :, : self.S - 1] > NEG / 2).any(dim=2)
+                & (fr["arc"] <= self.n_arcs) & (fr["arc"] >= 0))
+
+    def _land(self, fr, arc_cur, win_rows, slot, w_ok, t, norm):
+        """The one winner scatter of both merges: the rows `win_rows` whose
+        `w_ok` holds land in their `slot` (unique), as entry tokens and,
+        where they crossed labels, as records; with lattices each landed
+        slot is an event (`EV_FIELDS`) and its entry token carries the
+        event id. Returns (frontier, records with `got`)."""
+        K = self.K
+        dev = norm.device
+        B, n_rows = slot.shape
         win = torch.full((B, K + 1), -1, dtype=_I64, device=dev)
         win.scatter_(1, torch.where(w_ok, slot, K),
-                     torch.arange(E, device=dev).expand(B, E))
+                     torch.arange(n_rows, device=dev).expand(B, n_rows))
         win = win[:, :K]
         got = win >= 0
         wi = win.clamp(min=0)
-        l_arc = ck.gather(1, wi)
-        l_score = g_score.gather(1, wi)
-        l_ac = cand["ac"].gather(1, wi)
-        l_prev = cand["prev"].gather(1, wi)
-        l_seq = cand["seq"].gather(1, wi)
-        has_seq = l_seq != 0
-        rec_id = t * K + torch.arange(K, device=dev)
-        entry_path = torch.where(has_seq, rec_id, l_prev)
+        l = {name: v.gather(1, wi) for name, v in win_rows.items()}
+        l_lm = l["score"] - l["ac"] + norm[:, None]
+        has_seq = l["seq"] != 0
+        slot_id = t * K + torch.arange(K, device=dev)
+        entry_path = torch.where(has_seq, slot_id, l["prev"])
 
-        score = fr["score"]
-        ac = fr["ac"]
-        path = fr["path"]
-        score[:, :, 0] = torch.where(got, l_score, NEG)
-        ac[:, :, 0] = torch.where(got, l_ac, NEG)
+        score, ac, path = fr["score"], fr["ac"], fr["path"]
+        score[:, :, 0] = torch.where(got, l["score"], NEG)
+        ac[:, :, 0] = torch.where(got, l["ac"], NEG)
         path[:, :, 0] = torch.where(got, entry_path, -1)
-        fr_new = {"arc": torch.where(got, l_arc, arc_cur),
-                  "score": score, "ac": ac, "path": path}
+        arc_new = torch.where(got, l["arc"], arc_cur)
+        fr_new = {"arc": arc_new, "score": score, "ac": ac, "path": path}
 
         rec_valid = got & has_seq
         rec = {
-            "rec_prev": torch.where(rec_valid, l_prev, -1),
-            "rec_seq": torch.where(rec_valid, l_seq, 0),
-            "rec_score": torch.where(rec_valid, l_score, NEG),
-            "rec_ac": torch.where(rec_valid, l_ac, NEG),
-            "rec_lm": torch.where(rec_valid, g_lm.gather(1, wi), NEG),
+            "rec_prev": torch.where(rec_valid, l["prev"], -1),
+            "rec_seq": torch.where(rec_valid, l["seq"], 0),
+            "rec_score": torch.where(rec_valid, l["score"], NEG),
+            "rec_ac": torch.where(rec_valid, l["ac"], NEG),
+            "rec_lm": torch.where(rec_valid, l_lm, NEG),
             # source/landing arcs let the traceback recover crossing-time
             # per-label scores (artifact.remainders)
-            "rec_src": torch.where(rec_valid, cand["src"].gather(1, wi), -1),
-            "rec_arc": torch.where(rec_valid, l_arc, -1),
-            # surviving + newly allocated insts this frame
-            "n_active": (live | got).sum(dim=1),
+            "rec_src": torch.where(rec_valid, l["src"], -1),
+            "rec_arc": torch.where(rec_valid, l["arc"], -1),
+            "got": got,
         }
-        best_new = torch.where(w_ok, g_score, NEG).amax(dim=1)
-        return fr_new, rec, best_new, overflow
+        if "lat" in fr:
+            # the landing slot is a new lattice event, numbered as records are
+            lat = fr["lat"]
+            lat[:, :, 0] = torch.where(got, slot_id, -1)
+            fr_new["lat"] = lat
+            rec["ev_arc"] = torch.where(got, arc_new, -1)
+            rec["ev_ac"] = torch.where(got, l["ac"], 0.0)
+            rec["ev_lm"] = torch.where(got, l_lm, 0.0)
+        return fr_new, rec
 
     # ------------------------------------------------------------------
     # per-frame step
     # ------------------------------------------------------------------
 
     def _histogram_thresh(self, e_score, pass_emit):
-        """The reference's `Histogram::calcThresh` with binWidth 1, per
-        utterance: C-round the scores, drop those below minScore, clamp
-        those above maxScore, count per integer bin, and take the lowest
-        bin whose top-down cumulative count reaches maxN, minus 0.5; a
-        count <= maxN gives the minScore floor. One scatter-add of integer
-        counts per row gives the same counts as the JAX engine's
-        (N, n_bins) compare-reduce."""
+        """The emit threshold of the next frame from this frame's emitting
+        scores, per utterance. "exact": the k-th best score (`NEG` when it
+        is not live), k clamped to K*S, as `jax.lax.top_k` gives it.
+        "binned": the reference's `Histogram::calcThresh` with binWidth 1:
+        C-round the scores, drop those below minScore, clamp those above
+        maxScore, count per integer bin, and take the lowest bin whose
+        top-down cumulative count reaches maxN, minus 0.5; a count <= maxN
+        gives the minScore floor. One scatter-add of integer counts per
+        row gives the same counts as the JAX engine's (N, n_bins)
+        compare-reduce."""
         B = e_score.shape[0]
-        nb = self._n_bins
         max_n = self.cfg.max_emit_hyps
         flat = torch.where(pass_emit, e_score, NEG).reshape(B, -1)
+        if self.cfg.histogram_mode == "exact":
+            kth = torch.topk(flat, min(max_n, flat.shape[1]), dim=1).values[:, -1]
+            return torch.where(kth > NEG / 2, kth, NEG)
+        nb = self._n_bins
         sc = torch.trunc(torch.where(flat < 0, flat - 0.5, flat + 0.5))
         sc = torch.clamp(sc, max=self._hist_max)
         ok = (flat > NEG / 2) & (sc >= self._hist_min)
@@ -386,7 +533,7 @@ class TorchDecoder:
         binding = counts.sum(dim=1) > max_n
         bins = torch.arange(nb, device=flat.device)
         idx = torch.where(cum >= max_n, bins, -1).amax(dim=1)
-        return torch.where(binding, self._hist_min + idx.to(_F32) - 0.5,
+        return torch.where(binding, self._hist_min + idx.to(self.dtype) - 0.5,
                            self._hist_min - 0.5)
 
     def _frame_step(self, carry, gmm_t, t: int):
@@ -438,6 +585,10 @@ class TorchDecoder:
         score2 = torch.where(pass_emit, ns + outp, NEG)
         ac2 = torch.where(pass_emit, new_ac + outp, NEG)
         path2 = torch.where(pass_emit, new_path, -1)
+        lat = cfg.gen_lattice
+        if lat:
+            # each token's entry event rides with it like its path
+            lat2 = torch.where(pass_emit, fr["lat"].gather(2, best_i), -1)
 
         best_emit = score2.reshape(B, -1).amax(dim=1)
         if cfg.max_emit_hyps > 0:
@@ -457,6 +608,10 @@ class TorchDecoder:
         best_end = exit_score.amax(dim=1)
 
         fr = {"arc": fr["arc"], "score": score2, "ac": ac2, "path": path2}
+        exit_lat = None
+        if lat:
+            fr["lat"] = lat2
+            exit_lat = torch.where(exit_ok, lat2.gather(2, j_best)[:, :, 0], -1)
 
         # ---- external propagation ----------------------------------------
         end_thresh = (best_end - cfg.phone_end_prune_win
@@ -467,11 +622,17 @@ class TorchDecoder:
         live_exit = exit_ok & (exit_score > thresh_k) & (fr["arc"] <= self.n_arcs)
 
         cand = self._expand(exit_score, exit_ac, exit_path, meta[:, :, 2],
-                            meta[:, :, 3], live_exit, fr["arc"])
-        best_final, f_overflow = self._expand_finals(
+                            meta[:, :, 3], live_exit, fr["arc"], exit_lat)
+        best_final, f_overflow, flat = self._expand_finals(
             exit_score, exit_ac, exit_path, meta[:, :, 4], meta[:, :, 5],
-            live_exit, fr["arc"], norm)
+            live_exit, fr["arc"], norm, exit_lat)
         fr, rec, best_entry, m_overflow = self._merge_and_insert(fr, cand, t, norm)
+        if lat:
+            # every valid candidate, winner or not, is a lattice edge from
+            # its source token's entry event to this frame's event of its
+            # target arc; scores are cumulative
+            rec.update(self._lattice_edges(cand, norm))
+            rec.update(flat)
 
         carry_new = {
             "fr": fr,
@@ -485,6 +646,12 @@ class TorchDecoder:
         rec["n_cand"] = cand["n_cand"]
         return carry_new, rec
 
+    @staticmethod
+    def _lattice_edges(cand, norm):
+        return {"lat_from_ev": cand["lat_from"], "lat_to_arc": cand["arc"],
+                "lat_ac": cand["ac"], "lat_lm": cand["score"] - cand["ac"] + norm[:, None],
+                "lat_seq": cand["seq"], "lat_valid": cand["valid"]}
+
     # ------------------------------------------------------------------
     # full decode
     # ------------------------------------------------------------------
@@ -493,38 +660,46 @@ class TorchDecoder:
         """Initial propagation from the virtual start source (row n_arcs of
         the metadata table), records encoded at t = -1."""
         K, S = self.K, self.S
-        dev = self.device
+        dev, dt = self.device, self.dtype
+        lat = self.cfg.gen_lattice
         fr = {
             "arc": torch.full((B, K), self.n_arcs + 1, dtype=_I64, device=dev),
-            "score": torch.full((B, K, S), NEG, dtype=_F32, device=dev),
-            "ac": torch.full((B, K, S), NEG, dtype=_F32, device=dev),
+            "score": torch.full((B, K, S), NEG, dtype=dt, device=dev),
+            "ac": torch.full((B, K, S), NEG, dtype=dt, device=dev),
             "path": torch.full((B, K, S), -1, dtype=_I64, device=dev),
         }
-        src_score = torch.full((B, K), NEG, dtype=_F32, device=dev)
+        src_score = torch.full((B, K), NEG, dtype=dt, device=dev)
         src_score[:, 0] = 0.0
-        src_zero = torch.zeros((B, K), dtype=_F32, device=dev)
+        src_zero = torch.zeros((B, K), dtype=dt, device=dev)
         src_path = torch.full((B, K), -1, dtype=_I64, device=dev)
+        # -1: the utterance start, the source of the first lattice edges
+        src_lat = src_path if lat else None
+        if lat:
+            fr["lat"] = torch.full((B, K, S), -1, dtype=_I64, device=dev)
         live = torch.zeros((B, K), dtype=torch.bool, device=dev)
         live[:, 0] = True
         meta0 = self.tab["arc_meta"][self.n_arcs].expand(B, K, 6)
         src = torch.full((B, K), self.n_arcs, dtype=_I64, device=dev)
-        norm0 = torch.zeros((B,), dtype=_F32, device=dev)
+        norm0 = torch.zeros((B,), dtype=dt, device=dev)
         cand = self._expand(src_score, src_zero, src_path, meta0[:, :, 2],
-                            meta0[:, :, 3], live, src)
-        best_final, f_ov = self._expand_finals(
+                            meta0[:, :, 3], live, src, src_lat)
+        best_final, f_ov, _ = self._expand_finals(
             src_score, src_zero, src_path, meta0[:, :, 4], meta0[:, :, 5],
             live, src, norm0)
         fr, rec0, best_entry, m_ov = self._merge_and_insert(fr, cand, -1, norm0)
+        if lat:
+            rec0.update(self._lattice_edges(cand, norm0))
         # binned histogram: an empty histogram still thresholds at the
-        # minScore floor on the first frame
-        kth0 = self._hist_min - 0.5 if self.cfg.max_emit_hyps > 0 else NEG
+        # minScore floor on the first frame; the exact one starts unbounded
+        kth0 = (self._hist_min - 0.5
+                if self.cfg.max_emit_hyps > 0 and self.cfg.histogram_mode == "binned" else NEG)
         carry = {
             "fr": fr,
             # the reference updates bestEmitScore on entry-token creation,
             # including the initial propagation
             "best_emit": best_entry,
             "best_start": best_entry,
-            "kth_emit": torch.full((B,), kth0, dtype=_F32, device=dev),
+            "kth_emit": torch.full((B,), kth0, dtype=dt, device=dev),
             "best_final": best_final,
             "norm": norm0,
             "overflow": cand["overflow"] | m_ov | f_ov,
@@ -532,10 +707,13 @@ class TorchDecoder:
         return carry, rec0
 
     def run(self, gmm_scores: torch.Tensor, carry=None, t0: int = 0):
-        """Decode a (B, T, n_gmms) float32 score batch on the decoder's
-        device. Returns (carry, ys, rec0) as device tensors: ys holds the
-        (T, B, K) traceback records and, with `cfg.emit_diagnostics`, the
-        (T, B) per-frame best-final snapshots and counters.
+        """Decode a (B, T, n_gmms) score batch on the decoder's device (the
+        scores are cast to the decoder's dtype). Returns (carry, ys, rec0)
+        as device tensors: ys holds the (T, B, K) traceback records, with
+        `cfg.emit_diagnostics` the (T, B) per-frame best-final snapshots
+        and counters, and with `cfg.gen_lattice` the lattice records
+        (`LAT_FIELDS` (T, B, E), `FLAT_FIELDS` (T, B, F), `EV_FIELDS`
+        (T, B, K)).
 
         With `carry` (an earlier call's, left unchanged) the decode resumes
         from it at frame `t0`, which offsets the record ids `t*K + slot`:
@@ -547,34 +725,30 @@ class TorchDecoder:
         t0 = int(t0)
         if t0 < 0 or (t0 + T) * self.K >= 2**31:
             raise ValueError(f"(t0+T)*K = {(t0 + T) * self.K} exceeds int32 record ids")
-        scores = gmm_scores.to(_F32)
+        dt = self.dtype
+        scores = gmm_scores.to(dt)
         dev = self.device
-        K = self.K
         if carry is None:
             carry, rec0 = self._init_carry(B)
         else:
             rec0 = None
-        int_fields = ("rec_prev", "rec_seq", "rec_src", "rec_arc")
-        ys = {name: torch.empty((T, B, K), device=dev,
-                                dtype=torch.int32 if name in int_fields else _F32)
-              for name in REC_FIELDS}
-        diag = self.cfg.emit_diagnostics
-        if diag:
-            for f in BF_FIELDS:
-                ys["bf_" + f] = torch.empty(
-                    (T, B), device=dev,
-                    dtype=_F32 if f in ("score", "ac", "lm") else torch.int32)
-            ys["n_active"] = torch.empty((T, B), dtype=torch.int32, device=dev)
-            ys["n_cand"] = torch.empty((T, B), dtype=torch.int32, device=dev)
+        widths = {name: self.K for name in REC_FIELDS}
+        if self.cfg.emit_diagnostics:
+            widths.update({"bf_" + f: None for f in BF_FIELDS}, n_active=None, n_cand=None)
+        if self.cfg.gen_lattice:
+            widths.update({f: self.E for f in LAT_FIELDS}, **{f: self.F for f in FLAT_FIELDS},
+                          **{f: self.K for f in EV_FIELDS})
+        ys = {}
+        for name, width in widths.items():
+            kind = name.rsplit("_", 1)[-1]
+            dtype = (dt if kind in ("score", "ac", "lm") else
+                     torch.bool if kind == "valid" else torch.int32)
+            ys[name] = torch.empty((T, B) + ((width,) if width else ()), dtype=dtype, device=dev)
         for t in range(T):
             carry, rec = self._frame_step(carry, scores[:, t], t0 + t)
-            for name in REC_FIELDS:
-                ys[name][t] = rec[name]
-            if diag:
-                for f in BF_FIELDS:
-                    ys["bf_" + f][t] = carry["best_final"][f]
-                ys["n_active"][t] = rec["n_active"]
-                ys["n_cand"][t] = rec["n_cand"]
+            rec.update({"bf_" + f: v for f, v in carry["best_final"].items()})
+            for name, plane in ys.items():
+                plane[t] = rec[name]
         return carry, ys, rec0
 
     def _fused_single(self, sc: torch.Tensor):
@@ -594,24 +768,34 @@ class TorchDecoder:
         carry, ys = fs(sc[:, None, :].contiguous())
         return carry, ys, fs.rec0
 
-    def stream(self):
+    def stream(self, use_fused="auto"):
         """A streaming session over this decoder (`decoder/stream.py`):
-        feed score chunks, get converged partial words, then `finish`."""
+        feed score chunks, get converged partial words, then `finish`.
+        On the card each feed is one launch of the frame-step kernel
+        (raising where it does not cover the decoder) unless
+        `use_fused=False` asks for the plain frame loop."""
         from .stream import StreamingDecoder
 
-        return StreamingDecoder(self)
+        return StreamingDecoder(self, use_fused=use_fused)
+
+    def scores_tensor(self, gmm_scores) -> torch.Tensor:
+        """Scores (a numpy array or a tensor) on the decoder's device in its
+        dtype: numpy scores are read in that dtype, as the JAX engine reads
+        them, so float64 scores reach a float64 decoder whole."""
+        if not isinstance(gmm_scores, torch.Tensor):
+            np_dt = np.float64 if self.dtype == torch.float64 else np.float32
+            gmm_scores = torch.from_numpy(np.array(gmm_scores, np_dt))
+        return gmm_scores.to(self.device, self.dtype)
 
     def decode_scores(self, gmm_scores, use_fused="auto") -> DecodeResult:
-        """Decode from a precomputed (T, n_gmms) log-likelihood matrix. A
-        decoder on the card goes through the frame-step kernel (one launch)
-        or raises, unless `use_fused=False` asks for the plain frame loop
-        `run`; a CPU decoder always runs `run`, the kernel's plain version
+        """Decode from a precomputed (T, n_gmms) log-likelihood matrix
+        (float32 scores are cast to the decoder's dtype). A decoder on the
+        card goes through the frame-step kernel (one launch) or raises,
+        unless `use_fused=False` asks for the plain frame loop `run`; a CPU
+        decoder always runs `run`, the kernel's plain version
         (`BatchDecoder`'s rule at B=1)."""
-        if use_fused not in ("auto", True, False):
-            raise ValueError(f"use_fused must be 'auto', True or False, not {use_fused!r}")
-        if not isinstance(gmm_scores, torch.Tensor):
-            gmm_scores = torch.from_numpy(np.array(gmm_scores, np.float32))
-        sc = gmm_scores.to(self.device, _F32)
+        check_use_fused(use_fused)
+        sc = self.scores_tensor(gmm_scores)
         T = int(sc.shape[0])
         true_T = None
         if self.cfg.emit_diagnostics:
@@ -619,16 +803,46 @@ class TorchDecoder:
             if T_pad != T and T > 0:
                 sc = torch.cat([sc, sc[-1:].expand(T_pad - T, -1)])
                 true_T = T
-        if T == 0:
-            # no frame to step on either route: the result is read from the
-            # initial propagation, which `run` hands back as it built it
-            carry, ys, rec0 = self.run(sc[None])
-        elif self.device.type == "cuda" and use_fused is not False:
+        if T > 0 and self.device.type == "cuda" and use_fused is not False:
             carry, ys, rec0 = self._fused_single(sc)
         else:
+            # also at T == 0, with no frame to step on either route: the
+            # result is read from the initial propagation, which `run`
+            # hands back as it built it
             carry, ys, rec0 = self.run(sc[None])
         return self.traceback(host_batch(carry, ys, rec0), 0, int(sc.shape[0]),
                               true_T=true_T)
+
+    def decode_features(self, features, scorer, use_fused="auto") -> DecodeResult:
+        """Decode raw (T, D) features with a (T, D) -> (T, n_gmms) scorer
+        (`ops.gmm.make_gmm_scorer`, on the card the GMM kernel)."""
+        return self.decode_scores(scorer(features), use_fused=use_fused)
+
+    def decode_scores_lattice(self, gmm_scores, use_fused="auto"):
+        """Decode and assemble the word lattice (needs `gen_lattice=True`).
+        Returns (DecodeResult, lattice `Fst`). The kernel writes no lattice
+        records, so on the card only `use_fused=False` decodes (the plain
+        frame loop); "auto" and True raise with the reason. The utterance
+        is decoded unpadded, as the JAX engine does."""
+        from ..fst import algos
+        from .fused_scan import why_not_fused
+        from .lattice import build_lattice
+
+        check_use_fused(use_fused)
+        if not self.cfg.gen_lattice:
+            raise ValueError("decoder built without gen_lattice=True")
+        if self.device.type == "cuda" and use_fused is not False:
+            raise ValueError(
+                f"decode_scores_lattice: the fused scan does not cover this decoder "
+                f"({why_not_fused(self)}); pass use_fused=False for the plain frame loop "
+                f"TorchDecoder.run")
+        sc = self.scores_tensor(gmm_scores)
+        T = int(sc.shape[0])
+        host = host_batch(*self.run(sc[None]))
+        res = self.traceback(host, 0, T)
+        ys = {k: host[1][k][:, 0] for k in LAT_FIELDS + FLAT_FIELDS + EV_FIELDS}
+        rec0 = {k: host[2][k][0] for k in LAT_FIELDS + EV_FIELDS}
+        return res, algos.connect(build_lattice(self.art, ys, rec0, T))
 
     # ------------------------------------------------------------------
     # traceback (host)
@@ -669,7 +883,7 @@ class TorchDecoder:
             # this utterance's records, ascending in id
             lo, hi = ys["rec_offsets"][b], ys["rec_offsets"][b + 1]
             rows = ys["records"][lo:hi]
-            rows_f = rows.view(np.float32)
+            rows_f = float_view(rows)
             ids = rows[:, 0]
 
             def lookup(pid):
@@ -738,6 +952,12 @@ class TorchDecoder:
         )
 
 
+def check_use_fused(use_fused):
+    """The route switch of every entry point: "auto", True or False."""
+    if use_fused not in ("auto", True, False):
+        raise ValueError(f"use_fused must be 'auto', True or False, not {use_fused!r}")
+
+
 def written_records(records: torch.Tensor, n: torch.Tensor):
     """The written prefix of every utterance's record arena, end to end:
     records (B, cap, 8), n (B,) counts -> ((N, 8) rows in utterance order,
@@ -768,5 +988,29 @@ def host_batch(carry, ys, rec0):
         ys_h["rec_offsets"] = offsets.cpu().numpy()
     else:
         ys_h = {k: v.cpu().numpy() for k, v in ys.items()}
-    rec0_h = {k: rec0[k].cpu().numpy() for k in REC_FIELDS}
+    rec0_h = {k: v.cpu().numpy() for k, v in rec0.items()}
     return carry_h, ys_h, rec0_h
+
+
+def host_planes_diff(got, want, tol: float) -> float:
+    """Compare two `host_batch` copies of one decode (records, snapshots,
+    lattice records; then the initial propagation's), as the card is held
+    to the CPU: the same fields, dtypes and shapes, integers equal, floats
+    within `tol`. Raises ValueError naming the first field that differs;
+    returns the largest float difference."""
+    worst = 0.0
+    for part_got, part_want in zip(got[1:], want[1:]):
+        if set(part_got) != set(part_want):
+            raise ValueError(f"different fields: {sorted(set(part_got) ^ set(part_want))}")
+        for k, w in part_want.items():
+            g = part_got[k]
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise ValueError(f"{k} is {g.dtype} {g.shape}, expected {w.dtype} {w.shape}")
+            if g.dtype.kind == "f":
+                d = float(abs(g.astype(np.float64) - w).max()) if w.size else 0.0
+                worst = max(worst, d)
+                if not d <= tol:
+                    raise ValueError(f"{k} differs by {d} (tolerance {tol})")
+            elif not (g == w).all():
+                raise ValueError(f"{k} differs in {int((g != w).sum())} places")
+    return worst

@@ -20,7 +20,9 @@ that landed:
   - `records` (B, cap, 8) int32: per utterance its records in (frame,
     slot) order, which is ascending record id `t*K + slot`; the eight
     words are `REC_WORDS` (id, prev, seq, score, ac, lm, src, arc), the
-    three floats as their bit patterns. Only the first `rec_count[-1, b]`
+    three floats as their bit patterns (`compact_records` of a float64
+    decoder's planes gives int64 words with float64 bits; the kernel
+    decodes only float32). Only the first `rec_count[-1, b]`
     rows of utterance b are written; the kernel's arena has cap = T*K;
   - `rec_count` (T, B) int32: the records of this call up to the end of
     each frame;
@@ -40,8 +42,8 @@ import numpy as np
 import torch
 
 from .._cuda_build import load
-from .core import (BF_FIELDS, REC_FIELDS, REC_WORDS, TorchDecoder, host_batch,
-                   written_records)
+from .core import (BF_FIELDS, REC_FIELDS, REC_WORDS, RECORD_WORDS, TorchDecoder,
+                   float_view, host_batch, written_records)
 
 SNAP_NAMES = tuple("bf_" + f for f in BF_FIELDS) + ("n_active", "n_cand")
 # the dense form (`TorchDecoder.run`, the JAX class) and the compact form
@@ -180,6 +182,18 @@ def why_not_fused(dec: TorchDecoder) -> str | None:
     of `fused_eligible`); None when it does."""
     if not isinstance(dec, TorchDecoder):
         return f"a {type(dec).__name__} is not a TorchDecoder"
+    cfg = dec.cfg
+    if dec.dtype != torch.float32:
+        return f"dtype {cfg.dtype!r}: the kernel decodes in float32"
+    if cfg.histogram_mode != "binned":
+        return (f"histogram_mode {cfg.histogram_mode!r}: the kernel thresholds by the "
+                f"binned histogram")
+    if dec.merge_strategy != "dense":
+        return (f"merge_strategy {cfg.merge_strategy!r} takes the sort merge at E={dec.E}; "
+                f"the kernel numbers slots as the dense merge does, so its records "
+                f"would equal no configuration of the JAX engine")
+    if cfg.gen_lattice:
+        return "gen_lattice: the kernel writes no lattice records"
     if not 2 <= dec.S <= 8:
         return f"{dec.S} HMM states, the kernel is compiled for 2..8"
     need = smem_bytes(**_dims(dec))
@@ -212,13 +226,17 @@ def why_not_covered(dec: TorchDecoder, T: int) -> str | None:
 def fused_eligible(dec: TorchDecoder) -> bool:
     """Whether the fused kernel covers this decoder.
 
-    A `TorchDecoder` is already the static-network, float32, 1-best,
-    binned-histogram configuration (anything else raises when it is
-    built), with or without `max_emit_hyps`. The kernel adds: 2 <= S <= 8
-    HMM states; the block's state fits the 227 KB of shared memory an
-    H100 block may take (at S=5 and E=1408 that is K up to 1024: about
-    215 KB; `smem_bytes` is the count); fan-out sums fit int32; and K, E
-    and F stay below 65535.
+    The kernel decodes one configuration of `TorchDecoder`: float32,
+    the binned histogram (with or without `max_emit_hyps`), the dense
+    merge (`merge_strategy` "dense", or "auto" up to E = 32768; the sort
+    merge numbers slots, and so record ids, otherwise) and no lattice
+    records. float64, `histogram_mode="exact"`, the sort merge and
+    `gen_lattice` decode only in the plain frame loop `TorchDecoder.run`,
+    as they decode only in the JAX engine's `lax.scan` step. The kernel
+    adds: 2 <= S <= 8 HMM states; the block's state fits the 227 KB of
+    shared memory an H100 block may take (at S=5 and E=1408 that is K up
+    to 1024: about 215 KB; `smem_bytes` is the count); fan-out sums fit
+    int32; and K, E and F stay below 65535.
 
     Conditions of the TPU kernel's `pallas_eligible` that went, and why:
     `max_emit_hyps == 0` (the histogram threshold is in the kernel);
@@ -379,8 +397,14 @@ def compact_records(ys_dense: dict, t0: int = 0) -> dict:
     the (T, B) snapshots) in the compact form: the plain version of the
     kernel's output stage. A record landed where `rec_seq != 0`; `t0` is
     the number of the planes' first frame (record ids are `t*K + slot`).
-    Snapshots that `ys_dense` lacks (`emit_diagnostics=False`) stay out."""
+    Snapshots that `ys_dense` lacks (`emit_diagnostics=False`) stay out.
+    float32 planes give the kernel's int32 words; float64 planes (a
+    float64 decoder's) give int64 words that carry the float64 bits."""
     seq = ys_dense["rec_seq"]
+    fdt = ys_dense["rec_score"].dtype
+    if fdt not in RECORD_WORDS:
+        raise ValueError(f"compact_records: {fdt} records have no compact form")
+    wdt = RECORD_WORDS[fdt]
     T, B, K = seq.shape
     landed = seq != 0
     rec_count = torch.cumsum(landed.sum(dim=2), dim=0).to(torch.int32)
@@ -389,13 +413,12 @@ def compact_records(ys_dense: dict, t0: int = 0) -> dict:
     b_idx, flat = landed.permute(1, 0, 2).reshape(B, T * K).nonzero(as_tuple=True)
     start = torch.cumsum(n, 0) - n
     pos = torch.arange(b_idx.shape[0], device=seq.device) - start[b_idx]
-    words = [(flat + int(t0) * K).to(torch.int32)]
+    words = [(flat + int(t0) * K).to(wdt)]
     for name in REC_FIELDS:
         col = ys_dense[name].permute(1, 0, 2).reshape(B, T * K)[b_idx, flat]
-        words.append(col.view(torch.int32) if col.dtype == torch.float32
-                     else col.to(torch.int32))
+        words.append(col.view(wdt) if col.dtype == fdt else col.to(wdt))
     cap = max(int(n.max()), 1)
-    records = torch.zeros((B, cap, len(REC_WORDS)), dtype=torch.int32, device=seq.device)
+    records = torch.zeros((B, cap, len(REC_WORDS)), dtype=wdt, device=seq.device)
     records[b_idx, pos] = torch.stack(words, dim=1)
     out = {"records": records, "rec_count": rec_count}
     out.update({k: ys_dense[k] for k in SNAP_NAMES if k in ys_dense})
@@ -411,12 +434,13 @@ def expand_records(ys: dict, K: int, t0: int = 0) -> dict:
     b_idx = torch.repeat_interleave(torch.arange(B, device=rows.device),
                                     offsets[1:] - offsets[:-1])
     flat = rows[:, 0].to(torch.int64) - int(t0) * K
+    floats = float_view(rows)
     out = {}
     for w, name in enumerate(REC_WORDS[1:], start=1):
         is_float = _FLOAT_WORDS[w]
         plane = torch.full((B, T * K), _FILLER[name], device=rows.device,
-                           dtype=torch.float32 if is_float else torch.int32)
-        plane[b_idx, flat] = rows[:, w].view(torch.float32) if is_float else rows[:, w]
+                           dtype=floats.dtype if is_float else torch.int32)
+        plane[b_idx, flat] = floats[:, w] if is_float else rows[:, w].to(torch.int32)
         out[name] = plane.view(B, T, K).permute(1, 0, 2).contiguous()
     out.update({k: ys[k] for k in SNAP_NAMES})
     return out
@@ -431,7 +455,7 @@ def concat_records(pieces: list) -> dict:
     n = torch.stack([off[1:] - off[:-1] for _, off in parts])  # (pieces, B)
     before = torch.cumsum(n, 0) - n
     records = torch.zeros((B, max(int(n.sum(0).max()), 1), len(REC_WORDS)),
-                          dtype=torch.int32, device=dev)
+                          dtype=pieces[0]["records"].dtype, device=dev)
     counts = []
     for i, (y, (rows, off)) in enumerate(zip(pieces, parts)):
         b_idx = torch.repeat_interleave(torch.arange(B, device=dev), n[i])

@@ -7,13 +7,17 @@ prefix of all live paths is traced back and its words emitted once.
 
 Each `feed` on a CUDA decoder is one launch of the frame-step kernel
 (`FusedDecodeScan(dec, 1)` with `carry=` and `t0=`); a decoder outside the
-kernel's scope raises when the session starts. On a CPU decoder each
-`feed` is the plain frame loop `TorchDecoder.run(carry=, t0=)`, its dense
-records made compact by `compact_records`. Either way the session keeps
+kernel's scope raises when the session starts, unless `use_fused=False`
+asks for the plain frame loop. On a CPU decoder, or with
+`use_fused=False`, each `feed` is the plain frame loop
+`TorchDecoder.run(carry=, t0=)`, its dense records made compact by
+`compact_records` (int64 words for a float64 decoder, so its scores keep
+float64). Either way the session keeps
 only the records that landed, chunk by chunk on the host, and looks a
 record up by its id `t*K + slot`. The ids of the records whose words were
 emitted are kept here (the JAX class tags its hypotheses instead).
-On-the-fly composition is not ported, so there is no `otf` branch.
+On-the-fly composition is not ported, so there is no `otf` branch; a
+lattice decoder streams its 1-best words (lattices are `decode_scores_lattice`'s).
 """
 
 from __future__ import annotations
@@ -21,20 +25,27 @@ from __future__ import annotations
 import bisect
 
 import numpy as np
-import torch
 
-from .core import NEG, REC_FIELDS, TorchDecoder, written_records
-from .fused_scan import FusedDecodeScan, compact_records, max_scan_T
+from .core import (NEG, REC_FIELDS, TorchDecoder, check_use_fused, float_view,
+                   written_records)
+from .fused_scan import FusedDecodeScan, compact_records, max_scan_T, why_not_fused
 from .results import DecodeResult, WordHyp
 
 _CONV = (int, int, float, float, float, int, int)  # REC_FIELDS' types
 
 
 class StreamingDecoder:
-    def __init__(self, decoder: TorchDecoder):
+    def __init__(self, decoder: TorchDecoder, use_fused="auto"):
+        check_use_fused(use_fused)
         self.dec = decoder
-        # on the card: the kernel at B=1 (raises outside its scope)
-        self._fs = FusedDecodeScan(decoder, 1) if decoder.device.type == "cuda" else None
+        self._fs = None
+        if decoder.device.type == "cuda" and use_fused is not False:
+            # on the card: the kernel at B=1, or the reason it does not apply
+            why = why_not_fused(decoder)
+            if why is not None:
+                raise ValueError(f"stream: the fused scan does not cover this decoder "
+                                 f"({why}); pass use_fused=False for the plain frame loop")
+            self._fs = FusedDecodeScan(decoder, 1)
         self.carry = None
         self.t = 0
         self._starts: list[int] = []  # first frame of each chunk
@@ -49,9 +60,7 @@ class StreamingDecoder:
         """Process a chunk of (T_chunk, n_gmms) scores; returns the NEWLY
         converged word hypotheses (stable partial results)."""
         dec = self.dec
-        if not isinstance(gmm_scores, torch.Tensor):
-            gmm_scores = torch.from_numpy(np.array(gmm_scores, np.float32))
-        sc = gmm_scores.to(dec.device, torch.float32)
+        sc = dec.scores_tensor(gmm_scores)
         T = int(sc.shape[0])
         if T == 0:
             return []
@@ -88,7 +97,7 @@ class StreamingDecoder:
         i = int(np.searchsorted(rows[:, 0], pid))
         if i >= len(rows) or rows[i, 0] != pid:
             raise RuntimeError(f"stream: no record {pid}")
-        f = rows[i].view(np.float32)
+        f = float_view(rows[i])
         return (int(rows[i, 1]), int(rows[i, 2]), float(f[3]), float(f[4]),
                 float(f[5]), int(rows[i, 6]), int(rows[i, 7]))
 

@@ -1,0 +1,84 @@
+"""The mutable FST container, as in `juicer_tpu/fst/fst.py` (reduced).
+
+States are dense ints, arcs (src, dst, ilabel, olabel, weight) live in
+parallel Python lists, final states carry weights, label 0 is epsilon.
+Weights are costs (negative log probabilities).
+"""
+
+from __future__ import annotations
+
+from .semiring import INF, LOG, Semiring
+
+EPSILON = 0
+
+
+class Fst:
+    __slots__ = ("start", "num_states", "arc_src", "arc_dst", "arc_ilabel",
+                 "arc_olabel", "arc_weight", "finals", "semiring")
+
+    def __init__(self, semiring: Semiring = LOG):
+        self.start: int = -1
+        self.num_states: int = 0
+        self.arc_src: list[int] = []
+        self.arc_dst: list[int] = []
+        self.arc_ilabel: list[int] = []
+        self.arc_olabel: list[int] = []
+        self.arc_weight: list[float] = []
+        self.finals: dict[int, float] = {}
+        self.semiring = semiring
+
+    def add_state(self) -> int:
+        s = self.num_states
+        self.num_states += 1
+        return s
+
+    def _ensure_state(self, s: int) -> int:
+        if s >= self.num_states:
+            self.num_states = s + 1
+        return s
+
+    def set_start(self, s: int) -> None:
+        self.start = self._ensure_state(s)
+
+    def add_arc(self, src: int, dst: int, ilabel: int, olabel: int, weight: float = 0.0) -> None:
+        self._ensure_state(src)
+        self._ensure_state(dst)
+        self.arc_src.append(src)
+        self.arc_dst.append(dst)
+        self.arc_ilabel.append(ilabel)
+        self.arc_olabel.append(olabel)
+        self.arc_weight.append(weight)
+
+    def set_final(self, s: int, weight: float = 0.0) -> None:
+        self._ensure_state(s)
+        self.finals[s] = weight
+
+    def final_weight(self, s: int) -> float:
+        return self.finals.get(s, INF)
+
+    @property
+    def num_arcs(self) -> int:
+        return len(self.arc_src)
+
+    def out_arcs(self) -> list[list[int]]:
+        """Per-state list of arc indices (adjacency)."""
+        adj: list[list[int]] = [[] for _ in range(self.num_states)]
+        for i, s in enumerate(self.arc_src):
+            adj[s].append(i)
+        return adj
+
+    def copy(self) -> "Fst":
+        f = Fst(self.semiring)
+        f.start = self.start
+        f.num_states = self.num_states
+        f.arc_src = list(self.arc_src)
+        f.arc_dst = list(self.arc_dst)
+        f.arc_ilabel = list(self.arc_ilabel)
+        f.arc_olabel = list(self.arc_olabel)
+        f.arc_weight = list(self.arc_weight)
+        f.finals = dict(self.finals)
+        return f
+
+    def __repr__(self) -> str:
+        return (f"Fst(states={self.num_states}, arcs={self.num_arcs}, "
+                f"finals={len(self.finals)}, start={self.start}, {self.semiring.name})")

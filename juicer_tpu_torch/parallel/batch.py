@@ -17,9 +17,8 @@ frame loop `TorchDecoder.run`. The mesh is not ported.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from ..decoder.core import TorchDecoder, host_batch
+from ..decoder.core import TorchDecoder, check_use_fused, host_batch
 from ..decoder.fused_scan import (FusedDecodeScan, assemble_results,
                                   why_not_covered)
 from ..decoder.results import DecodeResult
@@ -34,8 +33,7 @@ class BatchDecoder:
     `TorchDecoder.run` for what the kernel would not cover."""
 
     def __init__(self, decoder: TorchDecoder, use_fused="auto"):
-        if use_fused not in ("auto", True, False):
-            raise ValueError(f"use_fused must be 'auto', True or False, not {use_fused!r}")
+        check_use_fused(use_fused)
         self.decoder = decoder
         self.use_fused = use_fused
         self._fs: dict[int, FusedDecodeScan] = {}  # batch size -> scan
@@ -57,9 +55,7 @@ class BatchDecoder:
         """gmm_scores: (B, T, n_gmms), optionally padded to a common T with
         per-utterance true `lengths`. Returns one DecodeResult each."""
         dec = self.decoder
-        if not isinstance(gmm_scores, torch.Tensor):
-            gmm_scores = torch.from_numpy(np.array(gmm_scores, np.float32))
-        B, T = gmm_scores.shape[:2]
+        B, T = np.shape(gmm_scores)[:2]  # an array, a tensor or nested lists
         fused = self._fused_ok(T)
         if lengths is not None:
             if len(lengths) != B or min(int(n) for n in lengths) <= 0 or max(
@@ -68,15 +64,15 @@ class BatchDecoder:
             # the fused scan always writes the per-frame snapshots
             if not fused and not dec.cfg.emit_diagnostics and min(int(n) for n in lengths) < T:
                 raise ValueError("padded lengths need emit_diagnostics=True")
-        scores = gmm_scores.to(dec.device, torch.float32)
+        gmm_scores = dec.scores_tensor(gmm_scores)
         if fused:
             fs = self._fs.get(B)
             if fs is None:
                 fs = self._fs[B] = FusedDecodeScan(dec, B)
-            carry, ys = fs(scores.transpose(0, 1).contiguous())
+            carry, ys = fs(gmm_scores.transpose(0, 1).contiguous())
             return assemble_results(dec, fs, carry, ys,
                                     lengths if lengths is not None else [T] * B)
-        carry, ys, rec0 = dec.run(scores)
+        carry, ys, rec0 = dec.run(gmm_scores)
         host = host_batch(carry, ys, rec0)
         return [
             dec.traceback(host, b, T,

@@ -243,13 +243,20 @@ def test_ties_break_like_jax(tmp_path):
 
 
 def test_unported_configs_raise(synth):
+    """Only on-the-fly composition (`g_network=`) is left unported: every
+    static-network configuration constructs, and unknown values raise."""
     part = synth[3]
     for kw in (dict(dtype="float64"), dict(gen_lattice=True),
-               dict(histogram_mode="exact"), dict(merge_strategy="sort")):
-        with pytest.raises(NotImplementedError):
-            TorchDecoder(part, TorchDecoderConfig(**kw), device="cpu")
+               dict(histogram_mode="exact", max_emit_hyps=5), dict(merge_strategy="sort"),
+               dict(dtype="float64", histogram_mode="exact", merge_strategy="sort",
+                    gen_lattice=True)):
+        dec = TorchDecoder(part, TorchDecoderConfig(**kw), device="cpu")
+        assert dec.cfg == TorchDecoderConfig(**kw)
     with pytest.raises(NotImplementedError):
         TorchDecoder(part, TorchDecoderConfig(), device="cpu", g_network=object())
+    for kw in (dict(dtype="float16"), dict(histogram_mode="top"), dict(merge_strategy="hash")):
+        with pytest.raises(ValueError):
+            TorchDecoder(part, TorchDecoderConfig(**kw), device="cpu")
 
 
 def test_decoder_needs_card_unless_cpu(synth):

@@ -20,7 +20,8 @@ from juicer_tpu_torch.convert import gmm_params_from_numpy
 from juicer_tpu_torch.decoder import autotune_budgets, fused_scan
 from juicer_tpu_torch.decoder.artifact import DecoderArtifact
 from juicer_tpu_torch.decoder.core import (REC_FIELDS, TorchDecoder,
-                                           TorchDecoderConfig, host_batch)
+                                           TorchDecoderConfig, host_batch,
+                                           host_planes_diff)
 from juicer_tpu_torch.decoder.fused_scan import (REC_NAMES, FusedDecodeScan,
                                                  assemble_results, compact_records,
                                                  concat_records, expand_records,
@@ -30,6 +31,7 @@ from juicer_tpu_torch.decoder.stream import StreamingDecoder
 from juicer_tpu_torch.harness import wsj_task
 from juicer_tpu_torch.ops import gmm_cuda
 from juicer_tpu_torch.ops.gmm import gmm_scores_dense, make_gmm_scorer
+from juicer_tpu_torch.parallel.batch import BatchDecoder
 
 NEG = -1e30
 
@@ -475,3 +477,87 @@ def test_autotune_on_the_card_keeps_to_the_kernel(card):
     plain = autotune_budgets(art, samples, cfg=big, device=card, use_fused=False)
     assert fused_scan.counter.launches - n0 == 2
     assert plain == autotune_budgets(art, on_cpu, cfg=big, device="cpu")
+
+
+# ---- the configurations outside the kernel: the plain loop on the card ------
+
+VARIANTS = {
+    "float64": dict(dtype="float64"),
+    "exact": dict(histogram_mode="exact", max_emit_hyps=12),
+    "sort": dict(merge_strategy="sort"),
+    "lattice": dict(gen_lattice=True),
+    "all": dict(dtype="float64", histogram_mode="exact", max_emit_hyps=12,
+                merge_strategy="sort", gen_lattice=True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_variant_on_the_card_equals_the_cpu(card, name):
+    """Each configuration the kernel does not cover, through
+    `use_fused=False` on the card: every plane of `run` (records,
+    snapshots, lattice records) equals the CPU's, integers exactly and
+    floats within 1e-9 (float64) or 1e-4 (float32); `decode_scores` and,
+    with lattices, `decode_scores_lattice` give the CPU's result; no
+    kernel launches."""
+    art, G = _fuzz_artifact(seed=8)
+    cfg = TorchDecoderConfig(max_insts=256, expand_budget=2048, final_budget=128,
+                             emit_prune_win=40.0, phone_end_prune_win=30.0, **VARIANTS[name])
+    dec, cpu = TorchDecoder(art, cfg, device=card), TorchDecoder(art, cfg, device="cpu")
+    sc = _fuzz_scores(21, 60, 2, G, "cpu").transpose(0, 1).contiguous()  # (B, T, G)
+    n0 = fused_scan.counter.launches
+    got, want = host_batch(*dec.run(sc.to(card))), host_batch(*cpu.run(sc))
+    tol = 1e-9 if cfg.dtype == "float64" else 1e-4
+    host_planes_diff(got, want, tol)
+    for b in range(2):
+        r, w = dec.traceback(got, b, 60), cpu.traceback(want, b, 60)
+        assert r.words == w.words and [h.end_frame for h in r.word_hyps] == [
+            h.end_frame for h in w.word_hyps] and abs(r.score - w.score) < tol
+    one = sc[0]
+    r, w = dec.decode_scores(one, use_fused=False), cpu.decode_scores(one)
+    assert r.words == w.words and r.words and abs(r.score - w.score) < tol
+    if cfg.gen_lattice:
+        (r, lat), (w, lat_w) = (dec.decode_scores_lattice(one, use_fused=False),
+                                cpu.decode_scores_lattice(one))
+        assert r.words == w.words
+        assert (lat.num_states, lat.arc_src, lat.arc_dst, lat.arc_olabel) == (
+            lat_w.num_states, lat_w.arc_src, lat_w.arc_dst, lat_w.arc_olabel)
+        np.testing.assert_allclose(lat.arc_weight, lat_w.arc_weight, rtol=0, atol=tol)
+    assert fused_scan.counter.launches == n0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_variant_under_auto_raises_on_the_card(card, name):
+    """Under "auto" (and True) every entry point refuses such a decoder on
+    the card with `why_not_fused`'s reason instead of giving way to the
+    plain loop: `decode_scores`, `decode_scores_lattice`, `BatchDecoder`,
+    `autotune_budgets` and the stream."""
+    art, G = _fuzz_artifact(seed=8)
+    cfg = TorchDecoderConfig(max_insts=256, expand_budget=2048, final_budget=128,
+                             **VARIANTS[name])
+    dec = TorchDecoder(art, cfg, device=card)
+    why = fused_scan.why_not_fused(dec)
+    assert why is not None
+    sc = _fuzz_scores(22, 40, 1, G, card)[:, 0]
+    n0 = fused_scan.counter.launches
+    for use_fused in ("auto", True):
+        with pytest.raises(ValueError) as e:
+            dec.decode_scores(sc, use_fused=use_fused)
+        assert why in str(e.value) and "use_fused=False" in str(e.value)
+        with pytest.raises(ValueError, match="use_fused"):
+            BatchDecoder(dec, use_fused=use_fused).decode_scores_batch(sc[None])
+        with pytest.raises(ValueError) as e:
+            dec.stream(use_fused=use_fused)
+        assert why in str(e.value)
+    if cfg.gen_lattice:
+        with pytest.raises(ValueError) as e:
+            dec.decode_scores_lattice(sc)
+        assert why in str(e.value)
+    with pytest.raises(ValueError) as e:
+        autotune_budgets(art, [sc], cfg=cfg, device=card)
+    assert why in str(e.value)
+    assert fused_scan.counter.launches == n0
+    stream = dec.stream(use_fused=False)
+    stream.feed(sc)
+    assert stream.finish().words == dec.decode_scores(sc, use_fused=False).words

@@ -8,7 +8,9 @@ plain frame loop `TorchDecoder.run(carry=, t0=)`. The same numpy score
 chunks go in. Per chunk the emitted words and word-end frames must be
 equal, their scores within 1e-4 (float32 on both sides; in practice equal);
 `finish()` must give the JAX stream's words, frames and scores, and equal
-the port's own `decode_scores` exactly.
+the port's own `decode_scores` exactly. The chain and the loop also
+stream in float64, configured as `tests/test_stream.py` configures them
+(JAX under `jax_enable_x64`), to within 1e-9.
 """
 
 import dataclasses
@@ -17,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from juicer_tpu.decoder import DecoderNetwork as JaxNetwork
@@ -157,3 +160,44 @@ def test_stream_refuses_beyond_int32_record_ids(cases):
     with pytest.raises(ValueError, match="before any frame"):
         pdec.stream().finish()
     assert stream.feed(torch.zeros((0, sc.shape[1]))) == []
+
+
+@pytest.fixture
+def x64():
+    jax.config.update("jax_enable_x64", True)
+    yield
+    jax.config.update("jax_enable_x64", False)
+
+
+@pytest.mark.parametrize("network,cuts", [("chain", (7, 13)), ("loop", (10, 20, 30, 40, 50))])
+def test_float64_stream_matches_jax(tmp_path, x64, network, cuts):
+    """`tests/test_stream.py`'s float64 decoders and chunks: every chunk's
+    emissions and `finish()` equal the JAX stream's, scores within 1e-9; the
+    session's records are int64 words that carry float64 scores."""
+    net, models, sc, kw = NETWORKS[network]()
+    jart = JaxArtifact(net, models)
+    _, _, part = carry_across(tmp_path, net, models, jart)
+    kw = dict(kw, dtype="float64")
+    jdec = TpuDecoder(jart, TpuDecoderConfig(**kw))
+    pdec = TorchDecoder(part, TorchDecoderConfig(**kw), device="cpu")
+    jstream, pstream = jdec.stream(), pdec.stream()
+    bounds = (0,) + cuts + (len(sc),)
+    emitted = []
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        want, got = jstream.feed(sc[a:b]), pstream.feed(sc[a:b])
+        assert _hyps(got) == _hyps(want), (network, a)
+        for g, w in zip(got, want):
+            for x, y in ((g.score, w.score), (g.acoustic, w.acoustic), (g.lm, w.lm)):
+                assert abs(x - y) < 1e-9
+        emitted += got
+    assert all(p.dtype == np.int64 for p in pstream._pieces)
+    jfin, pfin = jstream.finish(), pstream.finish()
+    assert pfin.words == jfin.words and _hyps(pfin.word_hyps) == _hyps(jfin.word_hyps)
+    for a, b in ((pfin.score, jfin.score), (pfin.acoustic_score, jfin.acoustic_score),
+                 (pfin.lm_score, jfin.lm_score)):
+        assert abs(a - b) < 1e-9
+    whole = pdec.decode_scores(sc)
+    assert pfin.words == whole.words and pfin.word_hyps == whole.word_hyps
+    assert (pfin.score, pfin.acoustic_score, pfin.lm_score) == (
+        whole.score, whole.acoustic_score, whole.lm_score)
+    assert pfin.words and _hyps(emitted) == _hyps(pfin.word_hyps[:len(emitted)])
