@@ -109,14 +109,49 @@ Phases (any failure raises and exits non-zero before the result line):
      and arcs before and after `connect`, the bytes of the E- and F-wide
      lattice records copied to the host; launch counts as in [variants].
      Also in [20k]: gmm_logsumexp at the B=16 shape read five more times;
-  8. result: a `kernels` JSON line (both kernels, with the 20k fields), the
-     seconds of each phase, the card line, and last
-     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
+  [otf] on-the-fly composition at the 20k task (`scripts/wsj_otf.py`'s
+     point `OTF_POINT`: beam 85 / end-beam 60 / maxHyps 800), run after
+     the static 20k state is released; no kernel covers a decoder with a
+     G, so the frame loop is the plain one (`use_fused=False`; "auto"
+     raises with `why_not_fused`'s reason):
+       - task: CL's artifact and G built in memory (`load_otf_task`; the
+         counts 37,443 / 35,098 / 310,115 and 20,004 / 151,567 / 2 are
+         checked), `anticipated_labels` seconds, the tables' bytes on the
+         card;
+       - gmm: the 8 seed-11 utterances (the static 20k point's) scored by
+         the GMM kernel, held to the plain scorer as in 3;
+       - autotune: `autotune_budgets(g_network=, margin=1.4,
+         use_fused=False)` from K=4096 / E=8192, F=1024; the steps below
+         decode at the tuned budgets;
+       - main path: `BatchDecoder(use_fused=False)` over B=8 twice, launch
+         counts zeroed before and read after (gmm_logsumexp one a wave,
+         frame_step 0), certified (overflow 0/8, dead 0/8, transcripts
+         exact); ms a frame step and frames/s at the entry point, and over
+         20 frames the wall ms, kernel launches, kernel ms and the device's
+         idle share a frame step (`profile_decode.plain_loop_profile`),
+         beside the static 20k plain loop's of this call;
+       - pushing: the same batch with `otf_pushing=True`, certified; its
+         words equal plain OTF's; its un-normalised acoustic and LM scores
+         within 8 float32 spacings at the utterance's |acoustic| (0.0625
+         at the |acoustic| ~6.6e4 of this batch; the rounding of the
+         cumulative normaliser, which pushing changes) and, decoded again
+         in float64 beside plain OTF in float64, within 1e-6;
+       - card = CPU: the seed-12 sentence in float32 and float64, every
+         plane of `run` equal (floats within 0.0; else field, frame,
+         utterance and slot are printed), words equal;
+       - lattice: that sentence with `gen_lattice=True` as in [lattice];
+       - stream: that sentence through `dec.stream(use_fused=False)` in
+         chunks of 100 frames, `finish()` equal to the whole decode;
+  8. result: a `kernels` JSON line (both kernels, with the 20k fields and
+     the OTF path's launches), the seconds of each phase, the card line,
+     and last {"ok": true, "device": {"platform": "gpu", "kind": ...,
+     "count": 1}}.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -637,6 +672,10 @@ def main() -> int:
     del task, art, dec, bd, fs, scores, scores_tbg, x, feats, sc_card, plain_results
     torch.cuda.empty_cache()
     k20 = phase_20k(card, dev, at_2k, phase_done)
+    # release the static 20k task's tables before the on-the-fly pair's
+    gc.collect()
+    torch.cuda.empty_cache()
+    otf = phase_otf(card, dev, k20.pop("static"), phase_done)
 
     # ---- 8. result ------------------------------------------------------
     print(json.dumps({"kernels": [{
@@ -649,7 +688,7 @@ def main() -> int:
         "max_abs_err_b132": gmm132["err"], "ms_b132": gmm132["ms"],
         "plain_ms_b132": gmm132["plain_ms"], "bound_ms_b132": gmm132["bound_ms"],
         "library_ms_b132": gmm132["library_ms"], "launches_b132": launches2[0],
-        **k20["gmm_logsumexp"],
+        **k20["gmm_logsumexp"], **otf["gmm_logsumexp"],
     }, {
         "name": "frame_step", "route": "cuda",
         "source": "juicer_tpu_torch/csrc/frame_step.cu",
@@ -659,7 +698,7 @@ def main() -> int:
         "bound_by": fs_bound_by, "library_ms": None,
         "bound_ms_dense": dense_bound, "ms_b132": fs_ms2,
         "launches_b132": launches2[1],
-        **k20["frame_step"],
+        **k20["frame_step"], **otf["frame_step"],
     }]}))
     print("[time] phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; total {sum(phase_s.values()):.1f}", flush=True)
@@ -764,42 +803,44 @@ def variants_phase(art, cfg, scorer, xs, words, labels, markers, card):
     return out
 
 
-def lattice_phase(what, art, cfg, scorer, xs, card, against_cpu):
+def lattice_phase(what, art, cfg, scorer, xs, card, against_cpu, g=None):
     """[lattice]: one utterance through `decode_scores_lattice` on the card
     (the plain loop: "auto" raises); its best path is the 1-best words at
     cost -(ac+lm) within 1e-3, and with `against_cpu` the lattice equals
     the CPU's (states, arcs, labels; weights within 1e-4). Prints the
     decode's ms a frame, `build_lattice`'s and `connect`'s seconds, the
     lattice before and after `connect` and the bytes of the lattice
-    records copied to the host. Launch counts are zeroed just before and read just after."""
+    records copied to the host. Launch counts are zeroed just before and
+    read just after. With `g` the decoder composes with that G on the fly
+    (the `[otf] lattice` line)."""
     import torch
 
     from juicer_tpu_torch.decoder import fused_scan
-    from juicer_tpu_torch.decoder.core import (EV_FIELDS, FLAT_FIELDS, LAT_FIELDS,
-                                               TorchDecoder, host_batch)
+    from juicer_tpu_torch.decoder.core import FLAT_FIELDS, TorchDecoder, host_batch
     from juicer_tpu_torch.decoder.lattice import build_lattice, shortest_path
     from juicer_tpu_torch.fst import algos
     from juicer_tpu_torch.ops import gmm_cuda
 
+    tag = "[otf] lattice" if g is not None else f"[lattice] {what}"
     gmm_cuda.counter.launches = 0
     fused_scan.counter.launches = 0
     sc = scorer(xs.to("cuda"))
     T = int(sc.shape[0])
     lcfg = dataclasses.replace(cfg, gen_lattice=True)
-    dec = TorchDecoder(art, lcfg, device="cuda")
+    dec = TorchDecoder(art, lcfg, device="cuda", g_network=g)
     try:
         dec.decode_scores_lattice(sc)
     except ValueError as e:
         if fused_scan.why_not_fused(dec) not in str(e):
-            raise RuntimeError(f"[lattice] {what}: 'auto' raised without the reason") from e
+            raise RuntimeError(f"{tag}: 'auto' raised without the reason") from e
     else:
-        raise RuntimeError(f"[lattice] {what}: use_fused='auto' decoded on the card")
+        raise RuntimeError(f"{tag}: use_fused='auto' decoded on the card")
     res, lat = dec.decode_scores_lattice(sc, use_fused=False)
     launches = (gmm_cuda.counter.launches, fused_scan.counter.launches)
     cost, words = shortest_path(lat)
     err = abs(cost + res.acoustic_score + res.lm_score)
     if words != res.words or not res.words or not err <= 1e-3:
-        raise RuntimeError(f"[lattice] {what}: best path {words} at {cost} vs 1-best "
+        raise RuntimeError(f"{tag}: best path {words} at {cost} vs 1-best "
                            f"{res.words} at {-(res.acoustic_score + res.lm_score)}")
     # the entry point's parts, timed apart
     torch.cuda.synchronize()
@@ -808,10 +849,10 @@ def lattice_phase(what, art, cfg, scorer, xs, card, against_cpu):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3 / T
     host = host_batch(*state)
-    ys = {k: host[1][k][:, 0] for k in LAT_FIELDS + FLAT_FIELDS + EV_FIELDS}
-    rec0 = {k: host[2][k][0] for k in LAT_FIELDS + EV_FIELDS}
-    ef_bytes = sum(ys[k].nbytes for k in LAT_FIELDS + FLAT_FIELDS)
-    k_bytes = sum(ys[k].nbytes for k in EV_FIELDS)
+    ys = {k: host[1][k][:, 0] for k in dec.lat_fields + FLAT_FIELDS + dec.ev_fields}
+    rec0 = {k: host[2][k][0] for k in dec.lat_fields + dec.ev_fields}
+    ef_bytes = sum(ys[k].nbytes for k in dec.lat_fields + FLAT_FIELDS)
+    k_bytes = sum(ys[k].nbytes for k in dec.ev_fields)
     t0 = time.perf_counter()
     raw = build_lattice(art, ys, rec0, T)
     t_build = time.perf_counter() - t0
@@ -820,11 +861,12 @@ def lattice_phase(what, art, cfg, scorer, xs, card, against_cpu):
     t_connect = time.perf_counter() - t0
     if (built.num_states, built.arc_src, built.arc_dst, built.arc_weight) != (
             lat.num_states, lat.arc_src, lat.arc_dst, lat.arc_weight):
-        raise RuntimeError(f"[lattice] {what}: a second build differs from the entry point's")
+        raise RuntimeError(f"{tag}: a second build differs from the entry point's")
     edges = int(ys["lat_valid"].sum())
     cpu_note = ""
     if against_cpu:
-        _, lat_cpu = TorchDecoder(art, lcfg, device="cpu").decode_scores_lattice(sc.cpu())
+        _, lat_cpu = TorchDecoder(art, lcfg, device="cpu",
+                                  g_network=g).decode_scores_lattice(sc.cpu())
         same = (lat.num_states, lat.start, lat.arc_src, lat.arc_dst, lat.arc_ilabel,
                 lat.arc_olabel, sorted(lat.finals)) == (
             lat_cpu.num_states, lat_cpu.start, lat_cpu.arc_src, lat_cpu.arc_dst,
@@ -833,14 +875,14 @@ def lattice_phase(what, art, cfg, scorer, xs, card, against_cpu):
                     + [abs(lat.finals[s] - lat_cpu.finals[s]) for s in lat_cpu.finals
                        if s in lat.finals] + [0.0])
         if not same or not w_err <= 1e-4:
-            raise RuntimeError(f"[lattice] {what}: the card's lattice differs from the CPU's "
+            raise RuntimeError(f"{tag}: the card's lattice differs from the CPU's "
                                f"(structure equal {same}, max |weight diff| {w_err})")
         cpu_note = (f"; equal to the CPU's lattice (states, arcs, labels; max |weight diff| "
                     f"{w_err})")
     if launches[0] == 0 or launches[1] != 0:
-        raise RuntimeError(f"[lattice] {what}: launched gmm_logsumexp, frame_step {launches} "
+        raise RuntimeError(f"{tag}: launched gmm_logsumexp, frame_step {launches} "
                            f"times; expected > 0 and 0")
-    print(f"[lattice] {what}: {T} frames, decode (plain loop on the card) {ms:.3f} ms a "
+    print(f"{tag}: {T} frames, decode (plain loop on the card) {ms:.3f} ms a "
           f"frame, build_lattice {t_build:.3f} s for {edges} edges ({edges / T:.1f} a frame), "
           f"connect {t_connect:.3f} s; "
           f"lattice {raw.num_states} states / {raw.num_arcs} arcs before connect, "
@@ -895,6 +937,7 @@ def phase_20k(card, dev, at_2k, phase_done):
     from juicer_tpu_torch.decoder.fused_scan import FusedDecodeScan
     from juicer_tpu_torch.decoder.stream import StreamingDecoder
     from juicer_tpu_torch.harness import wsj_task
+    from juicer_tpu_torch.harness.profile_decode import plain_loop_profile
     from juicer_tpu_torch.ops import gmm_cuda
     from juicer_tpu_torch.ops.gmm import make_gmm_scorer
     from juicer_tpu_torch.parallel.batch import BatchDecoder
@@ -990,6 +1033,13 @@ def phase_20k(card, dev, at_2k, phase_done):
     plain_results = [dec.traceback(host, b, Tmax, true_T=lengths[b]) for b in range(B)]
     del host
     certify(plain_results, "20k plain", utts, labels, markers)
+    static = dict(plain_ms_frame=t_plain * 1e3 / Tmax, B=B,
+                  **plain_loop_profile(dec, scores))
+    print(f"[20k] plain frame loop at B={B}: {static['plain_ms_frame']:.3f} ms a frame step "
+          f"over the wave; over 20 frames {static['wall_ms']:.3f} ms a frame step, "
+          f"{static['launches_per_frame']:.2f} kernel launches and {static['kernel_ms']:.4f} "
+          f"ms of kernels a frame step (torch.profiler), device idle share "
+          f"{static['idle']:.3f} | {card}", flush=True)
     fs = FusedDecodeScan(dec, B)
     scores_tbg = scores.transpose(0, 1).contiguous()
     fused_state, _ = hold_to_plain("20k fused", dec, fs, scores_tbg, plain_state,
@@ -1105,7 +1155,9 @@ def phase_20k(card, dev, at_2k, phase_done):
     lattice_phase("20k", art, cfg, scorer, torch.as_tensor(xs), card, against_cpu=False)
     phase_done("20k lattice")
 
+    static["entry_fps"] = entry[B][1]
     return {
+        "static": static,
         "gmm_logsumexp": {
             "ms_20k": gmm16["ms"], "ms_20k_b132": gmm132["ms"], "ms_20k_repeats": repeats,
             "bound_ms_20k": gmm16["bound_ms"], "bound_ms_20k_b132": gmm132["bound_ms"],
@@ -1115,6 +1167,237 @@ def phase_20k(card, dev, at_2k, phase_done):
             "ms_20k": fs_ms, "ms_20k_b132": fs_ms2, "bound_ms_20k": bound,
             "plain_ms_20k": t_plain * 1e3,
             "launches_20k": entry[B][0][1], "launches_20k_b132": entry[B2][0][1]},
+    }
+
+
+def phase_otf(card, dev, static, phase_done):
+    """[otf]: on-the-fly composition at the 20k task on the card (see the
+    module docstring). `static` holds the static 20k plain loop's numbers
+    of this call. Returns the kernels line's OTF fields."""
+    import numpy as np
+    import torch
+
+    from juicer_tpu_torch.decoder import autotune_budgets, fused_scan
+    from juicer_tpu_torch.decoder.core import TorchDecoder, host_batch, host_planes_diff
+    from juicer_tpu_torch.harness import wsj_task
+    from juicer_tpu_torch.harness.profile_decode import plain_loop_profile
+    from juicer_tpu_torch.ops import gmm_cuda
+    from juicer_tpu_torch.ops.gmm import make_gmm_scorer
+    from juicer_tpu_torch.parallel.batch import BatchDecoder
+
+    p = wsj_task.OTF_POINT
+    B = p["n_utts"]  # one wave of the distinct utterances
+    t0 = time.perf_counter()
+    task = wsj_task.load_otf_task("20k", verbose=False)
+    t_load = time.perf_counter() - t0
+    art, g, ex = task.artifact, task.g, task.artifact.expansion
+    counts = (task.net.n_arcs, art.n_hmm_arcs, len(ex.arc), g.n_states, len(g.arc_il),
+              g.max_backoff)
+    if counts != (37443, 35098, 310115, 20004, 151567, 2):
+        raise RuntimeError(f"[otf] task: CL arcs, HMM arcs, closure entries, G states, G word "
+                           f"arcs, max_backoff are {counts}")
+    t0 = time.perf_counter()
+    art.anticipated_labels()
+    t_ant = time.perf_counter() - t0
+    cfg = wsj_task.decoder_config(p, emit_diagnostics=True)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    probe = TorchDecoder(art, dataclasses.replace(cfg, otf_pushing=True), device="cuda",
+                         g_network=g)
+    torch.cuda.synchronize()
+    table_bytes = torch.cuda.memory_allocated() - m0
+    g_bytes = sum(t.numel() * t.element_size() for t in probe.gtab.values())
+    del probe
+    c = task.costs
+    print(f"[otf] task 20k: CL {counts[0]} arcs, {counts[1]} HMM arcs, {counts[2]} closure "
+          f"entries, {len(ex.f_score)} final entries, largest fan-out "
+          f"{int(np.diff(ex.row_ptr).max())}; G {counts[3]} states, {counts[4]} word arcs, "
+          f"max_backoff {counts[5]}, vocabulary width {g.W}; loaded and built in {t_load:.2f}s "
+          f"(network {c['network_s']:.2f}, CL artifact {c['artifact_s']:.2f}, ARPA grammar "
+          f"{c['grammar_s']:.2f}, GNetwork {c['gnetwork_s']:.2f}); anticipated_labels "
+          f"{t_ant:.3f}s; tables on the card {table_bytes} bytes (G and the label tables "
+          f"{g_bytes} of them; the static 20k task's: 5.73 GB) | {card}", flush=True)
+    phase_done("otf task")
+
+    models = task.models
+    params = models.flat_params()
+    G, D = params.n_gmms, params.vec_size
+    utts = wsj_task.sample_utterances(task.cache, models, n_utts=p["n_utts"],
+                                      target_frames=p["frames"], seed=p["seed"])
+    feats, lengths, Tmax = tile_features(utts, B, dev)
+    labels, markers = wsj_task.word_labels(task.cache)
+    scorer = make_gmm_scorer(params, device="cuda")
+    x = feats.reshape(B * Tmax, D).contiguous()
+    gmm8 = gmm_phase(scorer, x, f"otf B={B}", card)
+    print(f"[otf] gmm: {len(utts)} utterances T={[f.shape[0] for _, f in utts]} (seed "
+          f"{p['seed']}, the static 20k point's), batch {B} x {Tmax}; gmm_logsumexp within "
+          f"{gmm8['err']:.3e} of the plain scorer (atol {GMM_ATOL}), {gmm8['ms']:.4f} ms | "
+          f"{card}", flush=True)
+    phase_done("otf gmm")
+
+    samples = [scorer(torch.as_tensor(f, device=dev)) for _, f in utts]
+    t0 = time.perf_counter()
+    tuned = autotune_budgets(art, samples, cfg=cfg, margin=p["margin"], device="cuda",
+                             use_fused=False, verbose=True, g_network=g)
+    t_tune = time.perf_counter() - t0
+    print(f"[otf] autotune_budgets (g_network, margin {p['margin']}, start K={p['K']} "
+          f"E={p['E']} F={cfg.final_budget}, plain loop on the card, {len(samples)} "
+          f"utterances, {t_tune:.1f}s): tuned K={tuned.max_insts} E={tuned.expand_budget} "
+          f"F={tuned.final_budget} (the JAX package's CPU run of scripts/wsj_otf.py tuned "
+          f"K=2176 E=3840 over 4 utterances) | {card}", flush=True)
+    phase_done("otf autotune")
+
+    # ---- the main path: BatchDecoder over B=8, the plain loop ------------
+    dec = TorchDecoder(art, dataclasses.replace(tuned, emit_diagnostics=True), device="cuda",
+                       g_network=g)
+    why = fused_scan.why_not_fused(dec)
+    try:
+        BatchDecoder(dec).decode_scores_batch(scorer(x).view(B, Tmax, G), lengths)
+    except ValueError as e:
+        if why is None or why not in str(e):
+            raise RuntimeError("[otf] 'auto' raised without why_not_fused's reason") from e
+    else:
+        raise RuntimeError("[otf] BatchDecoder(use_fused='auto') decoded on the card")
+    bd = BatchDecoder(dec, use_fused=False)
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    t0 = time.perf_counter()
+    results = bd.decode_scores_batch(scorer(x).view(B, Tmax, G), lengths)
+    t_cert = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = bd.decode_scores_batch(scorer(x).view(B, Tmax, G), lengths)
+    t_entry = time.perf_counter() - t0
+    launches = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    if launches != (2, 0):
+        raise RuntimeError(f"[otf] two waves launched gmm_logsumexp, frame_step {launches} "
+                           f"times; expected 2 and 0")
+    certify(results, "otf main path", utts, labels, markers)
+    for i, (a, r) in enumerate(zip(again, results)):
+        if not same_result(a, r):
+            raise RuntimeError(f"[otf] the timed wave differs for utterance {i}")
+    scores = scorer(x).view(B, Tmax, G)
+    prof = plain_loop_profile(dec, scores)
+    ms_frame, fps = t_entry * 1e3 / Tmax, B * Tmax / t_entry
+    print(f"[otf] main path: BatchDecoder(use_fused=False), B={B} x {Tmax} frames at K="
+          f"{dec.K} E={dec.E} F={dec.F}, two waves; launches: gmm_logsumexp {launches[0]}, "
+          f"frame_step {launches[1]}; first wave {t_cert:.3f}s; 'auto' raises ({why})",
+          flush=True)
+    print(f"[otf] main path: timed wave {t_entry:.3f}s = {ms_frame:.3f} ms a frame step, "
+          f"{fps:.1f} frames/s at the entry point (GMM kernel + plain frame loop + copy + "
+          f"traceback); over 20 frames {prof['wall_ms']:.3f} ms a frame step, "
+          f"{prof['launches_per_frame']:.2f} kernel launches and {prof['kernel_ms']:.4f} ms of "
+          f"kernels a frame step, device idle share {prof['idle']:.3f}; the static 20k plain "
+          f"loop of this call at B={static['B']}: {static['plain_ms_frame']:.3f} ms a frame "
+          f"step over its wave, {static['wall_ms']:.3f} over 20 frames, "
+          f"{static['launches_per_frame']:.2f} launches and {static['kernel_ms']:.4f} ms of "
+          f"kernels a frame step, idle share {static['idle']:.3f}; its fused entry point "
+          f"{static['entry_fps']:.1f} frames/s | {card}", flush=True)
+    phase_done("otf main path")
+
+    # ---- pushing: the same batch -------------------------------------------
+    pdec = TorchDecoder(art, dataclasses.replace(tuned, emit_diagnostics=True,
+                                                 otf_pushing=True), device="cuda", g_network=g)
+    t0 = time.perf_counter()
+    pushed = BatchDecoder(pdec, use_fused=False).decode_scores_batch(scores, lengths)
+    t_push = time.perf_counter() - t0
+    certify(pushed, "otf pushing", utts, labels, markers)
+    # pushing moves LM weight earlier, which changes the per-frame
+    # normalisers, and an utterance's LM is read back as score - ac + norm:
+    # in float32 the cumulative normaliser (|norm| ~ |ac| ~ 6.6e4 here)
+    # rounds at each frame, so two decodes whose normalisers differ part
+    # by a few float32 spacings at |ac| (2 measured on this batch). The
+    # float32 check allows 8; float64 holds the same batch to 1e-6 below
+    PUSH_SPACINGS = 8
+    worst, d32 = 0.0, 0.0
+    for i, (a, r) in enumerate(zip(pushed, results)):
+        if a.words != r.words:
+            raise RuntimeError(f"[otf] pushing: utterance {i}'s words differ from plain OTF's")
+        d = max(abs(a.acoustic_score - r.acoustic_score), abs(a.lm_score - r.lm_score))
+        d32 = max(d32, d)
+        worst = max(worst, d / float(np.spacing(np.float32(abs(r.acoustic_score)))))
+    if not worst <= PUSH_SPACINGS:
+        raise RuntimeError(f"[otf] pushing: float32 scores differ by {worst} spacings at "
+                           f"|acoustic| (limit {PUSH_SPACINGS})")
+    res64 = [BatchDecoder(TorchDecoder(art, dataclasses.replace(
+        tuned, dtype="float64", emit_diagnostics=True, otf_pushing=push), device="cuda",
+        g_network=g), use_fused=False).decode_scores_batch(scores, lengths)
+             for push in (False, True)]
+    certify(res64[1], "otf pushing float64", utts, labels, markers)
+    d64 = 0.0
+    for i, (a, r) in enumerate(zip(res64[1], res64[0])):
+        if a.words != r.words:
+            raise RuntimeError(f"[otf] pushing float64: utterance {i}'s words differ")
+        d64 = max(d64, abs(a.acoustic_score - r.acoustic_score), abs(a.lm_score - r.lm_score))
+    if not d64 <= 1e-6:
+        raise RuntimeError(f"[otf] pushing float64: scores differ by {d64}")
+    print(f"[otf] pushing: words equal plain OTF's; float32: acoustic and LM scores within "
+          f"{d32} ({worst:.4f} float32 spacings at |acoustic|, limit {PUSH_SPACINGS}; |acoustic| up to "
+          f"{max(abs(r.acoustic_score) for r in results):.1f}); float64, the same batch: "
+          f"certified, words equal, scores within {d64:.3e} (limit 1e-6); float32 wave "
+          f"{t_push:.3f}s = {t_push * 1e3 / Tmax:.3f} ms a frame step | {card}", flush=True)
+    del pdec, pushed, res64, scores
+    phase_done("otf pushing")
+
+    # ---- card = CPU on a whole sentence, float32 and float64 ---------------
+    words_s, xs = wsj_task.sample_utterances(
+        task.cache, models, n_utts=2, target_frames=250, seed=12)[1]
+    sc_card = scorer(torch.as_tensor(xs, device=dev))
+    Ts = int(sc_card.shape[0])
+    transcript = [labels[w] for w in words_s]
+    for dtype in ("float32", "float64"):
+        vcfg = dataclasses.replace(tuned, dtype=dtype)
+        on_card = TorchDecoder(art, vcfg, device="cuda", g_network=g)
+        on_cpu = TorchDecoder(art, vcfg, device="cpu", g_network=g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = host_batch(*on_card.run(on_card.scores_tensor(sc_card)[None]))
+        t_card = time.perf_counter() - t0
+        want = host_batch(*on_cpu.run(on_cpu.scores_tensor(sc_card.cpu())[None]))
+        try:
+            host_planes_diff(got, want, 0.0)
+        except ValueError as e:
+            print(f"[otf] card = CPU {dtype}: DIFFERS {e}", flush=True)
+            raise RuntimeError(f"[otf] card = CPU {dtype}: the card differs from the CPU") from e
+        r_card, r_cpu = on_card.traceback(got, 0, Ts), on_cpu.traceback(want, 0, Ts)
+        ok_words = [w for w in r_card.words if w not in markers] == transcript
+        if r_card.words != r_cpu.words or frames_of(r_card) != frames_of(r_cpu) or not ok_words:
+            raise RuntimeError(f"[otf] card = CPU {dtype}: words differ or miss the transcript")
+        print(f"[otf] card = CPU {dtype}: seed-12 sentence, {Ts} frames, every plane of run "
+              f"equal (floats within 0.0), {len(r_card.words)} words equal and the transcript; card "
+              f"{t_card * 1e3 / Ts:.3f} ms a frame | {card}", flush=True)
+        del on_card, on_cpu, got, want
+    phase_done("otf card=cpu")
+
+    lat = lattice_phase("20k", art, tuned, scorer, torch.as_tensor(xs), card,
+                        against_cpu=False, g=g)
+    phase_done("otf lattice")
+
+    # ---- the stream, plain loop --------------------------------------------
+    whole = dec.decode_scores(sc_card, use_fused=False)
+    stream = dec.stream(use_fused=False)
+    emitted, per_chunk = [], []
+    for i in range(0, Ts, STREAM_CHUNK):
+        new = stream.feed(sc_card[i:i + STREAM_CHUNK])
+        emitted += new
+        per_chunk.append(len(new))
+    fin = stream.finish()
+    hyps = [(h.word, h.end_frame) for h in fin.word_hyps]
+    if [(h.word, h.end_frame) for h in emitted] != hyps[:len(emitted)]:
+        raise RuntimeError("[otf] stream: a partial emission is not a prefix of the final words")
+    if not same_result(fin, whole) or fin.empty:
+        raise RuntimeError("[otf] stream: finish() differs from the whole decode")
+    print(f"[otf] stream: {Ts} frames in {len(per_chunk)} chunks of {STREAM_CHUNK} "
+          f"(use_fused=False); words emitted per chunk {per_chunk} ({len(emitted)} of "
+          f"{len(fin.words)} before finish), each a prefix of the final words; finish() "
+          f"equal to the whole decode (words, word-end frames, score)", flush=True)
+    phase_done("otf stream")
+    return {
+        "gmm_logsumexp": {"launches_otf": launches[0], "ms_otf": gmm8["ms"],
+                          "max_abs_err_otf": gmm8["err"]},
+        "frame_step": {"launches_otf": launches[1], "otf_plain_ms_frame": ms_frame,
+                       "otf_launches_per_frame": prof["launches_per_frame"],
+                       "otf_plain_kernel_ms_frame": prof["kernel_ms"],
+                       "otf_plain_idle": prof["idle"], "otf_lattice_ms_frame": lat["ms"]},
     }
 
 

@@ -6,10 +6,14 @@ against; nothing here imports it, or JAX. The port's slices so far:
   - `ops.gmm`: all-GMM acoustic scoring; on the card a hand-written CUDA
     kernel (`csrc/gmm_logsumexp.cu`, the counterpart of the Pallas kernel
     in `juicer_tpu/ops/gmm_pallas.py`), on the CPU its plain PyTorch form;
-  - `decoder.core`: the static-network frame-synchronous beam search
+  - `decoder.core`: the frame-synchronous beam search
     (`juicer_tpu/decoder/tpu_core.py`) with a leading batch axis, in
     float32 or float64, with the binned or the exact histogram, the dense
-    or the sort merge, with or without lattice records;
+    or the sort merge, with or without lattice records, over a static
+    network or by on-the-fly composition with a grammar
+    (`decoder.otf.GNetwork`, built from an ARPA LM by
+    `compile.arpa_grammar` over `lexicon.Vocabulary`, its parser in
+    `lm.arpa`), with or without label-and-weight pushing;
   - `decoder.lattice` and `fst`: word lattices from those records
     (`decode_scores_lattice`), with the FST utilities they need;
   - `decoder.fused_scan`: the fused frame-step scan; on the card a
@@ -22,8 +26,9 @@ against; nothing here imports it, or JAX. The port's slices so far:
     the fused scan on the card;
   - `decoder.stream`: the streaming decoder with partial results, one
     launch of the fused scan a chunk on the card;
-  - `harness.wsj_task`: the cached WSJ-order tasks (2k and 20k words) and
-    the reference bench's operating point.
+  - `harness.wsj_task`: the cached WSJ-order tasks (2k and 20k words),
+    their on-the-fly composition pairs (`load_otf_task`), the reference
+    bench's operating point and the on-the-fly script's (`OTF_POINT`).
 
 Precision: the expanded GMM quadratic form cancels strongly when x is
 close to a mean, and TF32 (or bf16) products perturb scores by ~1e-3,

@@ -7,7 +7,9 @@ numpy arrays (the port never imports the JAX package).
     `FlatGmmParams` (V, M, b, mask);
   - `fused_state_from_jax`: the carry and `ys` of the JAX package's
     `PallasDecodeScan` (as numpy arrays) in the layout and dtypes of the
-    port's `FusedDecodeScan`.
+    port's `FusedDecodeScan`;
+  - `g_network_from_numpy`: the arrays of the JAX package's `GNetwork`
+    as the port's `decoder.otf.GNetwork`.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 from .am.models import AcousticModelSet, FlatGmmParams
 from .decoder.artifact import DecoderArtifact
 from .decoder.network import DecoderNetwork
+from .decoder.otf import GNetwork
 
 
 def artifact_from_npz(path: str, net: DecoderNetwork,
@@ -74,3 +77,11 @@ def fused_state_from_jax(carry: dict, ys: dict):
     ys_out = {k: np.asarray(v).astype(np.int32 if k in _JAX_INT_YS else np.float32)
               for k, v in ys.items()}
     return out, ys_out
+
+
+# the JAX `GNetwork`'s word arcs sorted by (state, label) in CSR form
+# (`arc_il`, `arc_dst`, `arc_w`, `row_ptr`), backoff arcs (`bo_dst`,
+# `bo_w`), final weights, final reach and `max_backoff`, as keywords, give
+# the port's `GNetwork`; its padded rows and dense tables are the TPU's
+# layout and are not read: the port searches the sorted arcs
+g_network_from_numpy = GNetwork.from_arrays

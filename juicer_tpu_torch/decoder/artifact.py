@@ -380,6 +380,58 @@ class DecoderArtifact:
         self._fremainder_cache[key] = out
         return out
 
+    def anticipated_labels(self) -> np.ndarray:
+        """Per HMM arc, the word that every path through it crosses next,
+        for label-and-weight pushing in on-the-fly composition
+        (`WFSTLabelPushingNetwork::assignOutlabsToTrans`): its own output
+        label, else the one label its closure entries anticipate (each
+        entry's first label, or its target arc's anticipation when it
+        crosses none; final entries count their first label); 0 where
+        there is none or more than one.
+
+        The JAX package sweeps the arcs in place until nothing changes;
+        here all arcs are updated at once until nothing changes. Both climb
+        from "none" by a monotone update (none, then one label, then more
+        than one), so both stop at its least fixpoint: the same array."""
+        MULTI = -1
+        ex = self.expansion
+        n = self.n_hmm_arcs
+        own = self.arc_olabel != 0
+        lab = np.where(own, self.arc_olabel, 0).astype(np.int64)
+        first = np.array([s[0] if s else 0 for s in self.seqs] or [0], np.int64)
+
+        def entries(row_ptr, seq):
+            # (source arc, first label) of the entries of arcs without a label
+            src = np.repeat(np.arange(len(row_ptr) - 1), np.diff(row_ptr))
+            keep = (src < n)
+            keep[keep] = ~own[src[keep]]
+            return src[keep], first[np.asarray(seq, np.int64)[keep]], keep
+
+        e_src, e_first, e_keep = entries(ex.row_ptr, ex.seq)
+        f_src, f_first, _ = entries(ex.frow_ptr, ex.f_seq)
+        dyn = e_first == 0  # crosses no label: its target arc's anticipation
+        e_tgt = np.asarray(ex.arc, np.int64)[e_keep][dyn]
+        fixed = e_first > 0
+        fixed_src = np.concatenate([e_src[fixed], f_src[f_first > 0]])
+        fixed_lab = np.concatenate([e_first[fixed], f_first[f_first > 0]])
+        dyn_src = e_src[dyn]
+        for _ in range(2 * n + 2):  # each arc rises at most twice
+            got = lab[e_tgt]
+            srcs = np.concatenate([fixed_src, dyn_src[got > 0]])
+            labs = np.concatenate([fixed_lab, got[got > 0]])
+            lo = np.full(n, np.iinfo(np.int64).max)
+            hi = np.zeros(n, np.int64)
+            np.minimum.at(lo, srcs, labs)
+            np.maximum.at(hi, srcs, labs)
+            multi = np.zeros(n, bool)
+            multi[dyn_src[got == MULTI]] = True
+            new = np.where(multi | ((hi > 0) & (lo < hi)), MULTI, np.where(hi > 0, lo, 0))
+            new = np.where(own, lab, new)
+            if np.array_equal(new, lab):
+                break
+            lab = new
+        return np.where(lab > 0, lab, 0).astype(np.int32)
+
     def __repr__(self) -> str:
         return (
             f"DecoderArtifact(hmm_arcs={self.n_hmm_arcs}, S={self.S}, "

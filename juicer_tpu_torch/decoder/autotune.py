@@ -9,7 +9,12 @@ exactness: the decoder raises its `overflow` flag whenever any budget
 binds, so a decode without overflow is the decode with unbounded budgets.
 
 The same doubling probe, margin, 128-rounding and verification as the
-JAX tuner. What decodes the samples follows `BatchDecoder`'s rule
+JAX tuner, which decodes one sample at a time. Here the samples of a
+probe are one padded wave of `BatchDecoder` (the last frame repeated),
+each result read at the sample's length; a sample whose wave result
+overflows is decoded again alone, since the overflow flag also covers
+the padding. Each result is thus the sample's own decode. What decodes
+the samples follows `BatchDecoder`'s rule
 (`use_fused`): on a CUDA decoder "auto" and True decode through the
 frame-step kernel and raise `ValueError` with the reason when a probe
 lies outside its scope (a doubled probe soon needs more shared memory
@@ -23,6 +28,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
+import torch
+
+from ..parallel.batch import BatchDecoder
 from .core import TorchDecoder, TorchDecoderConfig, check_use_fused
 from .fused_scan import why_not_covered
 
@@ -41,6 +49,7 @@ def autotune_budgets(
     device="cuda",
     use_fused="auto",
     verbose: bool = False,
+    g_network=None,
 ) -> TorchDecoderConfig:
     """Pick minimal safe (max_insts, expand_budget) for this workload.
 
@@ -50,14 +59,18 @@ def autotune_budgets(
     until no sample overflows, then shrinks K and E to the measured peak
     * margin (multiples of 128). With verify=True the tuned config is run
     again; where a sample overflows there, the probe's budgets are
-    returned, and where its words or score differ it raises."""
+    returned, and where its words or score differ it raises. With
+    `g_network` (on-the-fly composition) the budgets are (arc, G state)
+    slots and their candidates; the kernel does not cover such a decoder,
+    so on the card only `use_fused=False` tunes it."""
     check_use_fused(use_fused)
     base = cfg or TorchDecoderConfig()
     probe = dataclasses.replace(base, emit_diagnostics=True)
-    n_frames = max(int(s.shape[0]) for s in score_samples)
+    lengths = [int(s.shape[0]) for s in score_samples]
+    n_frames = max(lengths)
 
     def decode_all(c):
-        dec = TorchDecoder(artifact, c, device=device)
+        dec = TorchDecoder(artifact, c, device=device, g_network=g_network)
         if dec.device.type == "cuda" and use_fused is not False:
             # refuse before any decode when the kernel would not cover it
             why = why_not_covered(dec, n_frames)
@@ -66,7 +79,13 @@ def autotune_budgets(
                     f"autotune: the probe K={c.max_insts}, E={c.expand_budget}, "
                     f"F={c.final_budget} lies outside the fused scan's scope ({why}); "
                     f"pass use_fused=False for the plain frame loop")
-        return dec, [dec.decode_scores(s, use_fused=use_fused) for s in score_samples]
+        sc = [dec.scores_tensor(s) for s in score_samples]
+        wave = torch.stack([torch.cat([s, s[-1:].expand(n_frames - len(s), -1)]) for s in sc])
+        route = use_fused if dec.device.type == "cuda" else False
+        results = BatchDecoder(dec, use_fused=route).decode_scores_batch(wave, lengths)
+        return dec, [dec.decode_scores(s, use_fused=use_fused)
+                     if r.overflow and len(s) < n_frames else r
+                     for s, r in zip(sc, results)]
 
     ref_results = None
     for _round in range(max_rounds):

@@ -1,12 +1,16 @@
 """Decoder core: dense-frontier Viterbi beam search in PyTorch.
 
-Counterpart of `juicer_tpu/decoder/tpu_core.py` (`TpuDecoder`) for the
-static network, in every configuration the JAX engine decodes it:
-float32 or float64 (`dtype`), the binned or the exact histogram
-(`histogram_mode`), the dense or the sort merge (`merge_strategy`;
-"auto" takes the sort merge above E = 32768, as the JAX engine does),
-each with or without lattice records (`gen_lattice`). On-the-fly
-composition (`g_network=`) raises NotImplementedError.
+Counterpart of `juicer_tpu/decoder/tpu_core.py` (`TpuDecoder`), in every
+configuration the JAX engine decodes: float32 or float64 (`dtype`), the
+binned or the exact histogram (`histogram_mode`), the dense or the sort
+merge (`merge_strategy`; "auto" takes the sort merge above E = 32768, as
+the JAX engine does), each with or without lattice records
+(`gen_lattice`), over a static network or by on-the-fly composition
+(`g_network=`, a `decoder.otf.GNetwork`: the network is CL, frontier
+slots are keyed by (CL arc, G state) pairs, each crossed word is
+intersected with G by match-or-backoff, finals reach a G final through
+backoff, and `otf_pushing` adds the G weight of an arc's anticipated
+word at entry and takes it off at exit).
 
 The frame step carries a leading batch axis: the frontier is (B, K, S)
 (K active-arc slots of S padded HMM states per utterance), so one
@@ -21,9 +25,12 @@ engine's:
     row, or the exact k-th best emitting score (`torch.topk`);
   - HMM exit, the phone-end and word-end beams;
   - closure expansion through the artifact's per-arc tables
-    (`_expand`, `_expand_finals`);
-  - recombination: per target arc the best candidate wins, ties to the
-    lowest candidate index. The dense merge lands a winner in that arc's
+    (`_expand`, `_final_rows`, `_best_final`);
+  - with a G, the G advance of each candidate's words and of each final
+    candidate's, in one call (`_intersect`), then the G state's final
+    reach;
+  - recombination: per target arc (per (arc, G state) pair with a G)
+    the best candidate wins, ties to the lowest candidate index. The dense merge lands a winner in that arc's
     live slot or in the next free slot by candidate order
     (`_merge_and_insert_dense`); the sort merge first compacts the live
     slots to [0, n_live) in arc order and gives new winners the slots
@@ -39,7 +46,10 @@ one-hot payload selects are real gathers (`torch.gather`), which select
 the same values exactly. The dense (E, E) winner compare is two stable
 sorts and the (E, K) slot routing is a binary search over the sorted
 live arcs: the same winners and slots, found in O(E log E). The
-`associative_scan` forward fill is a `cummax` over source positions.
+`associative_scan` forward fill is a `cummax` over source positions. The
+(arc, G state) pair is one int64 key `arc * nG + g` in both merges' sorts
+and searches. The G advance is a `searchsorted` a backoff level over G's
+sorted arc keys, where the JAX engine gathers padded rows of G arcs.
 `mode="drop"` scatters go to an extra dump column that is sliced off,
 and the one winner scatter writes unique indices, so no result depends
 on write order. Record ids (`t*K + slot`), lattice event ids and
@@ -81,6 +91,9 @@ REC_WORDS = ("rec_id",) + REC_FIELDS
 LAT_FIELDS = ("lat_from_ev", "lat_to_arc", "lat_ac", "lat_lm", "lat_seq", "lat_valid")
 FLAT_FIELDS = ("flat_from_ev", "flat_ac", "flat_lm", "flat_seq", "flat_valid")
 EV_FIELDS = ("ev_arc", "ev_ac", "ev_lm")
+# with a G, edges and events carry the G state of their (arc, G state) key
+G_LAT_FIELDS = ("lat_to_g",)
+G_EV_FIELDS = ("ev_g",)
 
 
 # the integer words of a float dtype's compact records
@@ -112,6 +125,9 @@ class TorchDecoderConfig:
     merge_strategy: str = "auto"
     dtype: str = "float32"  # or "float64"
     gen_lattice: bool = False  # lattice records (`decode_scores_lattice`)
+    # with a G: label-and-weight pushing (the G weight of an arc's
+    # anticipated word added at entry, taken off at exit)
+    otf_pushing: bool = False
     # per-frame best-final snapshots (exact padded decoding) + active-inst
     # counters; off for benchmarks
     emit_diagnostics: bool = True
@@ -179,6 +195,50 @@ def _device_tables(art: DecoderArtifact, device: torch.device, dtype=torch.float
     return tabs
 
 
+def _g_device_tables(art: DecoderArtifact, g, device: torch.device, dtype,
+                     pushing: bool) -> dict:
+    """The tables of on-the-fly composition, cached like `_device_tables`:
+    G's on the `GNetwork` per device and float dtype (the sorted arc keys
+    `state * W + label`, their targets and weights, the backoff arc of
+    each state and the final reach, weights rounded once from float64 to
+    the decoder's dtype), the artifact's on the artifact per device (each
+    label sequence's words, zero-padded, and with `pushing` each arc's
+    anticipated word, rows n_arcs and n_arcs+1 zero)."""
+    def col(a, dt):
+        return torch.from_numpy(np.asarray(a)).to(device).to(dt)
+
+    g_cache = g.__dict__.setdefault("_torch_tables", {})
+    tabs = g_cache.get((str(device), dtype))
+    if tabs is None:
+        # the arcs end in a sentinel key above every key a search asks for,
+        # so the position a search returns always indexes the tables
+        tabs = g_cache[(str(device), dtype)] = {
+            "g_key": col(np.append(g.arc_key, g.n_states * g.W), _I64),
+            "g_dst": col(np.append(g.arc_dst, 0), _I64),
+            "g_w": col(np.append(g.arc_w, 0.0), dtype),
+            "g_bo_dst": col(g.bo_dst, _I64),
+            "g_bo_w": col(g.bo_w, dtype),
+            "g_freach": col(g.final_reach, dtype),
+        }
+    tabs = dict(tabs)
+    a_cache = art.__dict__.setdefault("_torch_tables", {})
+    seq_words = a_cache.get(("seq_words", str(device)))
+    if seq_words is None:
+        L = max(max((len(s) for s in art.seqs), default=1), 1)
+        words = np.zeros((len(art.seqs), L), np.int64)
+        for i, s in enumerate(art.seqs):
+            words[i, :len(s)] = s
+        seq_words = a_cache[("seq_words", str(device))] = torch.from_numpy(words).to(device)
+    tabs["seq_words"] = seq_words
+    if pushing:
+        push = a_cache.get(("push_label", str(device)))
+        if push is None:
+            push = a_cache[("push_label", str(device))] = col(
+                np.concatenate([art.anticipated_labels(), [0, 0]]), _I64)
+        tabs["push_label"] = push
+    return tabs
+
+
 def _segment_sources(offs: torch.Tensor, fan: torch.Tensor, out_len: int):
     """For each of `out_len` output positions, the source k whose range
     [offs[k], offs[k] + fan[k]) starts last at or before it, and whether
@@ -211,7 +271,9 @@ def _closure_rows(fan, live, base, out_len):
 
 
 class TorchDecoder:
-    """Static-network 1-best decoder on one device (default: the card)."""
+    """1-best decoder on one device (default: the card): of a static
+    network, or with `g_network` (a `decoder.otf.GNetwork`) of the
+    artifact's CL network composed on the fly with that G."""
 
     # utterances are padded up to multiples of this many frames, as in the
     # JAX engine (whose scan compiles once per bucket); results stay exact
@@ -222,8 +284,6 @@ class TorchDecoder:
                  config: Optional[TorchDecoderConfig] = None,
                  device="cuda", g_network=None):
         cfg = config or TorchDecoderConfig()
-        if g_network is not None:
-            raise NotImplementedError("on-the-fly composition is not ported")
         if cfg.dtype not in DTYPES:
             raise ValueError(f"unknown dtype {cfg.dtype!r}")
         if cfg.histogram_mode not in ("binned", "exact"):
@@ -236,11 +296,27 @@ class TorchDecoder:
         self.dtype = DTYPES[cfg.dtype]
 
         # budgets never exceed the network: at most n_hmm_arcs insts are
-        # live, and one frame expands each closure entry at most once
+        # live, and one frame expands each closure entry at most once. With
+        # a G slots are (arc, G state) pairs, and one arc may exit from
+        # several G states in a frame: K x the largest fan-out bounds E
         ex = artifact.expansion
-        self.K = min(cfg.max_insts, _rup(artifact.n_hmm_arcs + 1))
-        self.E = min(cfg.expand_budget, _rup(len(ex.arc) + 1))
-        self.F = min(cfg.final_budget, _rup(len(ex.f_score) + 1))
+        self.g = g_network
+        self.otf = g_network is not None
+        self.pushing = self.otf and cfg.otf_pushing
+        # the G state count: (arc, g) pairs are keyed arc * nG + g
+        self.nG = max(g_network.n_states, 1) if self.otf else 1
+        if self.otf:
+            self.K = min(cfg.max_insts, _rup(artifact.n_hmm_arcs * self.nG + 1))
+            fan = max(int(np.diff(ex.row_ptr).max(initial=0)), 1)
+            ffan = max(int(np.diff(ex.frow_ptr).max(initial=0)), 1)
+            self.E = min(cfg.expand_budget, _rup(self.K * fan + 1))
+            self.F = min(cfg.final_budget, _rup(self.K * ffan + 1))
+        else:
+            self.K = min(cfg.max_insts, _rup(artifact.n_hmm_arcs + 1))
+            self.E = min(cfg.expand_budget, _rup(len(ex.arc) + 1))
+            self.F = min(cfg.final_budget, _rup(len(ex.f_score) + 1))
+        self.lat_fields = LAT_FIELDS + (G_LAT_FIELDS if self.otf else ())
+        self.ev_fields = EV_FIELDS + (G_EV_FIELDS if self.otf else ())
         self.merge_strategy = cfg.merge_strategy
         if self.merge_strategy == "auto":
             self.merge_strategy = "sort" if self.E > SORT_ABOVE_E else "dense"
@@ -248,6 +324,9 @@ class TorchDecoder:
         self.n_arcs = artifact.n_hmm_arcs
         self.H = artifact.trP.shape[0]
         self.tab = _device_tables(artifact, self.device, self.dtype)
+        if self.otf:
+            self.gtab = _g_device_tables(artifact, g_network, self.device, self.dtype,
+                                         self.pushing)
 
         if cfg.max_emit_hyps > 0:
             # reference histogram bounds (`WFSTDecoderLite.cpp:78-80`,
@@ -264,7 +343,9 @@ class TorchDecoder:
     def _expand(self, score, ac, path, base, fan, live, src_arc, lat=None):
         """Fixed-budget expansion of exiting tokens (B, K) through the
         closure tables into E candidates per utterance. `lat`, the exiting
-        tokens' entry-event ids, rides along as the candidates' `lat_from`."""
+        tokens' entry-event ids, rides along as the candidates' `lat_from`;
+        `k` is each candidate's source token (with a G, `_intersect` reads
+        its G state)."""
         tab = self.tab
         k, row, valid, total = _closure_rows(fan, live, base, self.E)
         ent = row.clamp(0, tab["ent_arc"].shape[0] - 1)
@@ -280,39 +361,145 @@ class TorchDecoder:
             "valid": valid & (cand_score > NEG / 2),
             "overflow": total > self.E,
             "n_cand": total,
+            "k": k,
         }
         if lat is not None:
             cand["lat_from"] = lat.gather(1, k)
         return cand
 
-    def _expand_finals(self, score, ac, path, base, fan, live, src_arc, norm, lat=None):
-        """This frame's best final-state reach per utterance (the
-        bestFinalToken update) and the final-budget overflow flag; with
-        `lat`, also every final candidate as a lattice final edge
-        (`FLAT_FIELDS`, else None)."""
+    def _g_advance(self, g, words_valid, word):
+        """Consume `word` from G state `g` by match-or-backoff, elementwise
+        (counterpart of `TpuDecoder._g_advance`). Returns (G state, weight,
+        ok); where `words_valid` is False nothing is consumed and ok holds.
+
+        Each level searches the state's arc for the word among G's sorted
+        keys `state * W + word` (a left search: the first of duplicate
+        arcs), takes it if there, else follows the state's backoff arc. The
+        weight adds the backoff weights in order, then the matched arc's.
+        A word G cannot take leaves ok False and the state where the walk
+        stopped."""
+        gt = self.gtab
+        W = self.g.W
+        gw = torch.zeros(g.shape, dtype=self.dtype, device=g.device)
+        cur = g.clamp(min=0)
+        # a word outside the vocabulary gets a negative key, which no arc has
+        word_key = torch.where(word < W, word, -(2 ** 40))
+        pending = words_valid  # lanes still walking
+        failed = torch.zeros_like(words_valid)
+        for _ in range(self.g.max_backoff + 1):
+            key = cur * W + word_key
+            # `g_key` ends in a sentinel above every key: pos is in range
+            pos = torch.searchsorted(gt["g_key"], key)
+            hit = pending & (gt["g_key"][pos] == key)
+            bo, bo_w = gt["g_bo_dst"][cur], gt["g_bo_w"][cur]
+            cur = torch.where(hit, gt["g_dst"][pos], cur)
+            gw = torch.where(hit, gw + gt["g_w"][pos], gw)
+            pending = pending & ~hit
+            # the backoff read before the move is that of the state that
+            # did not match; a lane with neither fails where it stands
+            can_bo = pending & (bo >= 0)
+            gw = torch.where(can_bo, gw + bo_w, gw)
+            failed = failed | (pending ^ can_bo)
+            pending = can_bo
+            cur = torch.where(can_bo, bo, cur)
+        return cur, gw, ~(failed | pending)
+
+    def _g_advance_seq(self, g, seq_ids):
+        """Consume each label sequence's words from G in turn. Returns (G
+        state, summed weight, ok)."""
+        words = self.gtab["seq_words"][seq_ids]
+        total = torch.zeros(g.shape, dtype=self.dtype, device=g.device)
+        ok = torch.ones(g.shape, dtype=torch.bool, device=g.device)
+        for li in range(words.shape[-1]):
+            w = words[..., li]
+            used = w != 0
+            g, gw, step_ok = self._g_advance(g, used, w)
+            total = torch.where(used, total + gw, total)
+            ok = ok & step_ok
+        return g, total, ok
+
+    def _intersect(self, cand, g, fin=None):
+        """G on the candidates, whose source tokens sit in G states `g`: the
+        crossed words advance G (`cand["g"]`), their weight joins the
+        score, and a candidate whose words G cannot take gets score NEG and
+        is no longer valid (its other fields stay). With pushing, the G
+        weight of the target arc's anticipated word is added (`cand["la"]`)
+        and a candidate whose anticipated word G cannot take dies. The
+        final candidates `fin` (`_final_rows`) advance in the same call;
+        their (G state, weight, ok) is returned for `_best_final`."""
+        k, seq = cand["k"], cand["seq"]
+        if fin is not None:
+            k = torch.cat([k, fin["k"]], dim=1)
+            seq = torch.cat([seq, self.tab["f_seq"][fin["ent"]]], dim=1)
+        g_all, gw, okg = self._g_advance_seq(g.gather(1, k), seq)
+        E = cand["k"].shape[1]
+        cand["g"] = g_all[:, :E]
+        cand["score"] = torch.where(okg[:, :E], cand["score"] + gw[:, :E], NEG)
+        cand["valid"] = cand["valid"] & okg[:, :E]
+        if self.pushing:
+            pl = self.gtab["push_label"][cand["arc"].clamp(max=self.n_arcs + 1)]
+            _, push_w, ok_push = self._g_advance(cand["g"], pl != 0, pl)
+            la = torch.where((pl != 0) & ok_push, push_w, 0.0)
+            cand["valid"] = cand["valid"] & ((pl == 0) | ok_push)
+            cand["score"] = torch.where(cand["valid"], cand["score"] + la, cand["score"])
+            cand["la"] = la
+        if fin is not None:
+            return g_all[:, E:], gw[:, E:], okg[:, E:]
+        return None
+
+    def _final_rows(self, score, ac, base, fan, live):
+        """The final-state candidates of exiting tokens (B, K), laid out in
+        a budget of F per utterance: source token `k`, closure-table row
+        `ent`, `valid`, the total wanted, and the score and acoustic score
+        with the final entry applied."""
         tab = self.tab
         k, row, valid, total = _closure_rows(fan, live, base, self.F)
         ent = row.clamp(0, tab["f_score"].shape[0] - 1)
-        sc = torch.where(valid, score.gather(1, k) + tab["f_score"][ent], NEG)
-        fac = ac.gather(1, k) + tab["f_ac"][ent]
+        return {"k": k, "ent": ent, "valid": valid, "total": total,
+                "sc": torch.where(valid, score.gather(1, k) + tab["f_score"][ent], NEG),
+                "fac": ac.gather(1, k) + tab["f_ac"][ent]}
+
+    def _best_final(self, fin, path, src_arc, norm, lat=None, g_step=None):
+        """This frame's best final-state reach per utterance (the
+        bestFinalToken update) and the final-budget overflow flag; with
+        `lat`, also every final candidate as a lattice final edge
+        (`FLAT_FIELDS`, else None). With a G, `g_step` is the final
+        candidates' G advance (`_intersect`): the G state's final reach
+        and the weight of the words join score and LM before the best is
+        taken, and a candidate G cannot take or that reaches no G final is
+        not valid."""
+        tab = self.tab
+        k, ent, valid, sc, fac = fin["k"], fin["ent"], fin["valid"], fin["sc"], fin["fac"]
+        floor = NEG
+        flm = None
+        if g_step is not None or lat is not None:
+            flm = sc - fac + norm[:, None]
+        if g_step is not None:
+            fg, fgw, fok = g_step
+            freach = self.gtab["g_freach"][fg]
+            valid = valid & fok & (freach > NEG / 2)
+            sc = torch.where(valid, sc + fgw + freach, NEG)
+            flm = flm + fgw + freach
+            floor = NEG / 2
         i = sc.argmax(dim=1, keepdim=True)
         s_i = sc.gather(1, i)[:, 0]
         a_i = fac.gather(1, i)[:, 0]
-        better = s_i > NEG
+        better = s_i > floor
+        ki = k.gather(1, i)
         best = {
             "score": torch.where(better, s_i, NEG),
             "ac": torch.where(better, a_i, NEG),
-            "lm": torch.where(better, s_i - a_i + norm, NEG),
-            "path": torch.where(better, path.gather(1, k.gather(1, i))[:, 0], -1),
+            "lm": torch.where(better, s_i - a_i + norm if flm is None else flm.gather(1, i)[:, 0],
+                              NEG),
+            "path": torch.where(better, path.gather(1, ki)[:, 0], -1),
             "seq": torch.where(better, tab["f_seq"][ent.gather(1, i)[:, 0]], 0),
-            "src": torch.where(better, src_arc.gather(1, k.gather(1, i))[:, 0], -1),
+            "src": torch.where(better, src_arc.gather(1, ki)[:, 0], -1),
         }
         flat = None
         if lat is not None:
-            flat = {"flat_from_ev": lat.gather(1, k), "flat_ac": fac,
-                    "flat_lm": sc - fac + norm[:, None], "flat_seq": tab["f_seq"][ent],
-                    "flat_valid": valid}
-        return best, total > self.F, flat
+            flat = {"flat_from_ev": lat.gather(1, k), "flat_ac": fac, "flat_lm": flm,
+                    "flat_seq": tab["f_seq"][ent], "flat_valid": valid}
+        return best, fin["total"] > self.F, flat
 
     # ------------------------------------------------------------------
     # recombination + insertion
@@ -327,36 +514,36 @@ class TorchDecoder:
         """Recombine candidates per target arc and land the winners in the
         frontier (counterpart of `_merge_and_insert_dense`).
 
-        The winner of an arc is its best-scoring candidate, ties to the
-        lowest candidate index (the reference's first-come merge). The
-        frontier holds at most one live slot per arc, so a winner either
-        hits that slot or takes a free one: new winners in candidate order
-        take the free slots in slot order."""
+        The winner of an arc (of an (arc, G state) pair with a G) is its
+        best-scoring candidate, ties to the lowest candidate index (the
+        reference's first-come merge). The frontier holds at most one live
+        slot per key, so a winner either hits that slot or takes a free
+        one: new winners in candidate order take the free slots in slot
+        order."""
         K = self.K
-        dead = self.n_arcs + 1
         live = self._live(fr)
-        arc_cur = torch.where(live, fr["arc"], dead)
+        arc_cur, key_cur = self._keys(fr["arc"], fr.get("g"), live)
         n_live = live.sum(dim=1)
 
         valid = cand["valid"]
-        ck = torch.where(valid, cand["arc"], dead)
+        ck, key = self._keys(cand["arc"], cand.get("g"), valid)
         g_score = torch.where(valid, cand["score"], NEG)
 
-        # winners: order by (arc, score descending, index) with two stable
-        # sorts; the first candidate of each arc group wins
+        # winners: order by (key, score descending, index) with two stable
+        # sorts; the first candidate of each key group wins
         by_score = torch.argsort(g_score, dim=1, descending=True, stable=True)
         order = by_score.gather(
-            1, torch.argsort(ck.gather(1, by_score), dim=1, stable=True))
-        ck_sorted = ck.gather(1, order)
+            1, torch.argsort(key.gather(1, by_score), dim=1, stable=True))
+        key_sorted = key.gather(1, order)
         first = torch.ones_like(valid)
-        first[:, 1:] = ck_sorted[:, 1:] != ck_sorted[:, :-1]
+        first[:, 1:] = key_sorted[:, 1:] != key_sorted[:, :-1]
         winner = torch.zeros_like(valid).scatter_(1, order, first) & valid
 
-        # slot routing: a binary search of each winner's arc among the live
-        # arcs (unique; dead slots sort last under the sentinel)
-        arc_sorted, slot_of = torch.sort(arc_cur, dim=1)
-        pos = torch.searchsorted(arc_sorted, ck).clamp(max=K - 1)
-        hit = winner & (arc_sorted.gather(1, pos) == ck)
+        # slot routing: a binary search of each winner's key among the live
+        # keys (unique; dead slots sort last under the sentinel)
+        key_sorted, slot_of = torch.sort(key_cur, dim=1)
+        pos = torch.searchsorted(key_sorted, key).clamp(max=K - 1)
+        hit = winner & (key_sorted.gather(1, pos) == key)
         slot_hit = slot_of.gather(1, pos)
         need_new = winner & ~hit
         nn = need_new.to(_I64)
@@ -371,6 +558,7 @@ class TorchDecoder:
         w_ok = winner & (slot >= 0) & (slot < K)
         landed = {"arc": ck, "score": g_score, "ac": cand["ac"], "prev": cand["prev"],
                   "seq": cand["seq"], "src": cand["src"]}
+        landed.update({name: cand[name] for name in ("g", "la") if name in cand})
         fr_new, rec = self._land(fr, arc_cur, landed, slot, w_ok, t, norm)
         # surviving + newly allocated insts this frame
         rec["n_active"] = (live | rec.pop("got")).sum(dim=1)
@@ -382,10 +570,11 @@ class TorchDecoder:
         the JAX engine takes under "auto" above E=32768, where its dense
         merge's quadratic compare matrices cost more:
 
-          1. a restore sort compacts the live slots to [0, n_live) in arc
-             order, their token planes (and lattice ids) with them;
+          1. a restore sort compacts the live slots to [0, n_live) in key
+             order (arc, or (arc, G state) with a G), their token planes
+             (and lattice ids, G states and lookaheads) with them;
           2. frontier heads (kind 0) and candidates (kind 1) are co-sorted
-             stably by (arc, kind, -score): an arc group's first candidate
+             stably by (key, kind, -score): a key group's first candidate
              wins, and merges into the slot of the head just before it;
           3. winners without a head take slots n_live + rank.
 
@@ -401,17 +590,25 @@ class TorchDecoder:
 
         # ---- 1. restore sort ------------------------------------------------
         live = self._live(fr)
-        arc_r, perm = torch.sort(torch.where(live, fr["arc"], dead), dim=1, stable=True)
+        _, key_fr = self._keys(fr["arc"], fr.get("g"), live)
+        key_r, perm = torch.sort(key_fr, dim=1, stable=True)
+        arc_r = key_r // self.nG if self.otf else key_r
         is_dead = (arc_r >= dead)[:, :, None]
         perm_s = perm[:, :, None].expand(B, K, S)
-        fr = {name: torch.where(is_dead, fill, fr[name].gather(1, perm_s))
-              for name, fill in (("score", NEG), ("ac", NEG), ("path", -1), ("lat", -1))
-              if name in fr}
+        fr_r = {name: torch.where(is_dead, fill, fr[name].gather(1, perm_s))
+                for name, fill in (("score", NEG), ("ac", NEG), ("path", -1), ("lat", -1))
+                if name in fr}
+        fr_r["arc"] = arc_r
+        if self.otf:
+            fr_r["g"] = key_r % self.nG  # 0 in dead slots
+        if self.pushing:
+            fr_r["push_la"] = torch.where(is_dead[:, :, 0], 0.0, fr["push_la"].gather(1, perm))
         n_live = live.sum(dim=1)
 
         # ---- 2. co-sort of frontier heads and candidates ------------------
         valid = cand["valid"]
-        key = torch.cat([arc_r * 2, torch.where(valid, cand["arc"], dead) * 2 + 1], dim=1)
+        _, key_c = self._keys(cand["arc"], cand.get("g"), valid)
+        key = torch.cat([key_r * 2, key_c * 2 + 1], dim=1)
         neg_score = torch.cat([torch.zeros((B, K), dtype=self.dtype, device=dev),
                                torch.where(valid, -cand["score"], -NEG)], dim=1)
         by_score = torch.argsort(neg_score, dim=1, stable=True)
@@ -422,7 +619,7 @@ class TorchDecoder:
         no = torch.zeros((B, 1), dtype=torch.bool, device=dev)
         after_head = torch.cat([no, same & (kind[:, :-1] == 0)], dim=1)
         after_same = torch.cat([no, same], dim=1)
-        winner = (kind == 1) & (~after_same | after_head) & (ck < dead)
+        winner = (kind == 1) & (~after_same | after_head) & (ck < dead * self.nG)
         heads_before = torch.arange(K + E, device=dev) - (torch.cumsum(kind, dim=1) - kind)
         hit = winner & after_head
         need_new = winner & ~after_head
@@ -434,14 +631,28 @@ class TorchDecoder:
         # ---- 3. the winners land ------------------------------------------
         ci = (order - K).clamp(min=0)  # the candidate of a sorted row
         landed = {"arc": ck, "score": -neg_score.gather(1, order)}
-        for name in ("ac", "prev", "seq", "src"):
-            landed[name] = cand[name].gather(1, ci)
-        fr_new, rec = self._land(dict(fr, arc=arc_r), arc_r, landed, slot, w_ok, t, norm)
+        if self.otf:
+            landed.update(arc=ck // self.nG, g=ck % self.nG)
+        for name in ("ac", "prev", "seq", "src", "la"):
+            if name in cand:
+                landed[name] = cand[name].gather(1, ci)
+        fr_new, rec = self._land(fr_r, arc_r, landed, slot, w_ok, t, norm)
         # hits land inside the live prefix and must not count twice
         fresh = rec.pop("got") & (torch.arange(K, device=dev) >= n_live[:, None])
         rec["n_active"] = n_live + fresh.sum(dim=1)
         best_new = torch.where(w_ok, landed["score"], NEG).amax(dim=1)
         return fr_new, rec, best_new, overflow
+
+    def _keys(self, arc, g, ok):
+        """(arc, key) where `ok`, else (the dead sentinel n_arcs+1, its
+        key): the key is the arc itself, or with a G the pair (arc, G
+        state) as the int64 `arc * nG + g` (g 0 where not `ok`), which
+        orders as the pair does."""
+        dead = self.n_arcs + 1
+        arc = torch.where(ok, arc, dead)
+        if not self.otf:
+            return arc, arc
+        return arc, arc * self.nG + torch.where(ok, g, 0)
 
     def _live(self, fr):
         """Slots holding a token in states 0..S-2 (entry and exit columns
@@ -453,8 +664,11 @@ class TorchDecoder:
         """The one winner scatter of both merges: the rows `win_rows` whose
         `w_ok` holds land in their `slot` (unique), as entry tokens and,
         where they crossed labels, as records; with lattices each landed
-        slot is an event (`EV_FIELDS`) and its entry token carries the
-        event id. Returns (frontier, records with `got`)."""
+        slot is an event (`EV_FIELDS`, with a G also `ev_g`) and its entry
+        token carries the event id. With a G the landed slot takes the
+        winner's G state, and with pushing its lookahead, which the record
+        LM leaves out (it is in the score, not yet in the LM). Returns
+        (frontier, records with `got`)."""
         K = self.K
         dev = norm.device
         B, n_rows = slot.shape
@@ -466,6 +680,8 @@ class TorchDecoder:
         wi = win.clamp(min=0)
         l = {name: v.gather(1, wi) for name, v in win_rows.items()}
         l_lm = l["score"] - l["ac"] + norm[:, None]
+        if self.pushing:
+            l_lm = l_lm - l["la"]
         has_seq = l["seq"] != 0
         slot_id = t * K + torch.arange(K, device=dev)
         entry_path = torch.where(has_seq, slot_id, l["prev"])
@@ -476,6 +692,10 @@ class TorchDecoder:
         path[:, :, 0] = torch.where(got, entry_path, -1)
         arc_new = torch.where(got, l["arc"], arc_cur)
         fr_new = {"arc": arc_new, "score": score, "ac": ac, "path": path}
+        if self.otf:
+            fr_new["g"] = torch.where(got, l["g"], fr["g"])
+        if self.pushing:
+            fr_new["push_la"] = torch.where(got, l["la"], fr["push_la"])
 
         rec_valid = got & has_seq
         rec = {
@@ -498,6 +718,8 @@ class TorchDecoder:
             rec["ev_arc"] = torch.where(got, arc_new, -1)
             rec["ev_ac"] = torch.where(got, l["ac"], 0.0)
             rec["ev_lm"] = torch.where(got, l_lm, 0.0)
+            if self.otf:
+                rec["ev_g"] = torch.where(got, fr_new["g"], 0)
         return fr_new, rec
 
     # ------------------------------------------------------------------
@@ -607,7 +829,7 @@ class TorchDecoder:
         exit_path = torch.where(exit_ok, path2.gather(2, j_best)[:, :, 0], -1)
         best_end = exit_score.amax(dim=1)
 
-        fr = {"arc": fr["arc"], "score": score2, "ac": ac2, "path": path2}
+        fr = dict(fr, score=score2, ac=ac2, path=path2)  # with G state and lookahead
         exit_lat = None
         if lat:
             fr["lat"] = lat2
@@ -620,17 +842,22 @@ class TorchDecoder:
                        if cfg.word_prune_win > 0.0 else torch.full_like(best_end, NEG))
         thresh_k = torch.where(arc_ol == 0, end_thresh[:, None], word_thresh[:, None])
         live_exit = exit_ok & (exit_score > thresh_k) & (fr["arc"] <= self.n_arcs)
+        if self.pushing:
+            # the slot's lookahead comes off before the word crossing, where
+            # G's own weight is added
+            exit_score = torch.where(exit_ok, exit_score - fr["push_la"], exit_score)
 
         cand = self._expand(exit_score, exit_ac, exit_path, meta[:, :, 2],
                             meta[:, :, 3], live_exit, fr["arc"], exit_lat)
-        best_final, f_overflow, flat = self._expand_finals(
-            exit_score, exit_ac, exit_path, meta[:, :, 4], meta[:, :, 5],
-            live_exit, fr["arc"], norm, exit_lat)
+        fin = self._final_rows(exit_score, exit_ac, meta[:, :, 4], meta[:, :, 5], live_exit)
+        g_fin = self._intersect(cand, fr["g"], fin) if self.otf else None
+        best_final, f_overflow, flat = self._best_final(fin, exit_path, fr["arc"], norm,
+                                                        exit_lat, g_fin)
         fr, rec, best_entry, m_overflow = self._merge_and_insert(fr, cand, t, norm)
         if lat:
             # every valid candidate, winner or not, is a lattice edge from
             # its source token's entry event to this frame's event of its
-            # target arc; scores are cumulative
+            # target arc (and G state); scores are cumulative
             rec.update(self._lattice_edges(cand, norm))
             rec.update(flat)
 
@@ -646,11 +873,18 @@ class TorchDecoder:
         rec["n_cand"] = cand["n_cand"]
         return carry_new, rec
 
-    @staticmethod
-    def _lattice_edges(cand, norm):
-        return {"lat_from_ev": cand["lat_from"], "lat_to_arc": cand["arc"],
-                "lat_ac": cand["ac"], "lat_lm": cand["score"] - cand["ac"] + norm[:, None],
-                "lat_seq": cand["seq"], "lat_valid": cand["valid"]}
+    def _lattice_edges(self, cand, norm):
+        """The candidates as lattice edges (`LAT_FIELDS`, with a G also
+        `lat_to_g`); with pushing the LM leaves the lookahead out."""
+        lm = cand["score"] - cand["ac"] + norm[:, None]
+        if self.pushing:
+            lm = lm - cand["la"]
+        edges = {"lat_from_ev": cand["lat_from"], "lat_to_arc": cand["arc"],
+                 "lat_ac": cand["ac"], "lat_lm": lm, "lat_seq": cand["seq"],
+                 "lat_valid": cand["valid"]}
+        if self.otf:
+            edges["lat_to_g"] = cand["g"]
+        return edges
 
     # ------------------------------------------------------------------
     # full decode
@@ -658,7 +892,9 @@ class TorchDecoder:
 
     def _init_carry(self, B: int):
         """Initial propagation from the virtual start source (row n_arcs of
-        the metadata table), records encoded at t = -1."""
+        the metadata table), records encoded at t = -1. With a G the source
+        sits in G's initial state, and no final is reached before the first
+        frame."""
         K, S = self.K, self.S
         dev, dt = self.device, self.dtype
         lat = self.cfg.gen_lattice
@@ -676,6 +912,12 @@ class TorchDecoder:
         src_lat = src_path if lat else None
         if lat:
             fr["lat"] = torch.full((B, K, S), -1, dtype=_I64, device=dev)
+        src_g = None
+        if self.otf:
+            fr["g"] = torch.zeros((B, K), dtype=_I64, device=dev)
+            src_g = torch.full((B, K), self.g.init_state, dtype=_I64, device=dev)
+        if self.pushing:
+            fr["push_la"] = torch.zeros((B, K), dtype=dt, device=dev)
         live = torch.zeros((B, K), dtype=torch.bool, device=dev)
         live[:, 0] = True
         meta0 = self.tab["arc_meta"][self.n_arcs].expand(B, K, 6)
@@ -683,9 +925,14 @@ class TorchDecoder:
         norm0 = torch.zeros((B,), dtype=dt, device=dev)
         cand = self._expand(src_score, src_zero, src_path, meta0[:, :, 2],
                             meta0[:, :, 3], live, src, src_lat)
-        best_final, f_ov, _ = self._expand_finals(
-            src_score, src_zero, src_path, meta0[:, :, 4], meta0[:, :, 5],
-            live, src, norm0)
+        fin = self._final_rows(src_score, src_zero, meta0[:, :, 4], meta0[:, :, 5], live)
+        best_final, f_ov, _ = self._best_final(fin, src_path, src, norm0)
+        if self.otf:
+            self._intersect(cand, src_g)
+            # the empty utterance's final is not read through G
+            best_final = {k: torch.full_like(v, NEG if k in ("score", "ac", "lm") else
+                                             0 if k == "seq" else -1)
+                          for k, v in best_final.items()}
         fr, rec0, best_entry, m_ov = self._merge_and_insert(fr, cand, -1, norm0)
         if lat:
             rec0.update(self._lattice_edges(cand, norm0))
@@ -713,7 +960,7 @@ class TorchDecoder:
         `cfg.emit_diagnostics` the (T, B) per-frame best-final snapshots
         and counters, and with `cfg.gen_lattice` the lattice records
         (`LAT_FIELDS` (T, B, E), `FLAT_FIELDS` (T, B, F), `EV_FIELDS`
-        (T, B, K)).
+        (T, B, K); with a G also `lat_to_g` and `ev_g`).
 
         With `carry` (an earlier call's, left unchanged) the decode resumes
         from it at frame `t0`, which offsets the record ids `t*K + slot`:
@@ -736,8 +983,8 @@ class TorchDecoder:
         if self.cfg.emit_diagnostics:
             widths.update({"bf_" + f: None for f in BF_FIELDS}, n_active=None, n_cand=None)
         if self.cfg.gen_lattice:
-            widths.update({f: self.E for f in LAT_FIELDS}, **{f: self.F for f in FLAT_FIELDS},
-                          **{f: self.K for f in EV_FIELDS})
+            widths.update({f: self.E for f in self.lat_fields},
+                          **{f: self.F for f in FLAT_FIELDS}, **{f: self.K for f in self.ev_fields})
         ys = {}
         for name, width in widths.items():
             kind = name.rsplit("_", 1)[-1]
@@ -840,8 +1087,8 @@ class TorchDecoder:
         T = int(sc.shape[0])
         host = host_batch(*self.run(sc[None]))
         res = self.traceback(host, 0, T)
-        ys = {k: host[1][k][:, 0] for k in LAT_FIELDS + FLAT_FIELDS + EV_FIELDS}
-        rec0 = {k: host[2][k][0] for k in LAT_FIELDS + EV_FIELDS}
+        ys = {k: host[1][k][:, 0] for k in self.lat_fields + FLAT_FIELDS + self.ev_fields}
+        rec0 = {k: host[2][k][0] for k in self.lat_fields + self.ev_fields}
         return res, algos.connect(build_lattice(self.art, ys, rec0, T))
 
     # ------------------------------------------------------------------
@@ -913,7 +1160,8 @@ class TorchDecoder:
 
         # a record stores its LANDING values; each label's crossing-time
         # values differ by a per-closure-edge constant (artifact.remainders);
-        # the overall-last label carries the best-final values
+        # the overall-last label carries the best-final values. With a G the
+        # G weights interleave with the closure: landing values throughout
         def seg_hyps(labels, frame, s, a, l, rem):
             out = []
             for j, lab in enumerate(labels):
@@ -929,7 +1177,7 @@ class TorchDecoder:
         fseq = seqs[int(bf["seq"])]
         if fseq:
             rem = (self.art.final_remainders(int(bf["src"]), int(bf["seq"]))
-                   if int(bf["src"]) >= 0 else None)
+                   if int(bf["src"]) >= 0 and not self.otf else None)
             seg = seg_hyps(fseq, T - 1, score, bf_ac, bf_lm, rem)
             seg[-1] = WordHyp(seg[-1].word, T - 1, score, bf_ac, bf_lm)
             segs.append(seg)
@@ -938,7 +1186,7 @@ class TorchDecoder:
         while pid != -1:
             prev, seq_id, s, a, l, frame, src, arc_b = rec_fields(pid)
             rem = (self.art.remainders(src, arc_b, seq_id)
-                   if src >= 0 and arc_b >= 0 else None)
+                   if src >= 0 and arc_b >= 0 and not self.otf else None)
             seg = seg_hyps(seqs[seq_id], frame, s, a, l, rem)
             if first and seg:
                 seg[-1] = WordHyp(seg[-1].word, frame, score, bf_ac, bf_lm)
@@ -996,7 +1244,9 @@ def host_planes_diff(got, want, tol: float) -> float:
     """Compare two `host_batch` copies of one decode (records, snapshots,
     lattice records; then the initial propagation's), as the card is held
     to the CPU: the same fields, dtypes and shapes, integers equal, floats
-    within `tol`. Raises ValueError naming the first field that differs;
+    within `tol`. Raises ValueError naming the first field that differs,
+    where it first differs ((frame, utterance, slot) of a plane,
+    (utterance, slot) of the initial propagation's) and the two values;
     returns the largest float difference."""
     worst = 0.0
     for part_got, part_want in zip(got[1:], want[1:]):
@@ -1007,10 +1257,13 @@ def host_planes_diff(got, want, tol: float) -> float:
             if g.dtype != w.dtype or g.shape != w.shape:
                 raise ValueError(f"{k} is {g.dtype} {g.shape}, expected {w.dtype} {w.shape}")
             if g.dtype.kind == "f":
-                d = float(abs(g.astype(np.float64) - w).max()) if w.size else 0.0
-                worst = max(worst, d)
-                if not d <= tol:
-                    raise ValueError(f"{k} differs by {d} (tolerance {tol})")
-            elif not (g == w).all():
-                raise ValueError(f"{k} differs in {int((g != w).sum())} places")
+                diff = abs(g.astype(np.float64) - w)
+                worst = max(worst, float(diff.max()) if w.size else 0.0)
+                bad = ~(diff <= tol)
+            else:
+                bad = g != w
+            if bad.any():
+                at = tuple(int(i) for i in np.argwhere(bad)[0])
+                raise ValueError(f"{k} differs in {int(bad.sum())} places (tolerance {tol}), "
+                                 f"first at {at}: {g[at]!r} against {w[at]!r}")
     return worst

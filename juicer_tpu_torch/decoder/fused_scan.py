@@ -182,6 +182,8 @@ def why_not_fused(dec: TorchDecoder) -> str | None:
     of `fused_eligible`); None when it does."""
     if not isinstance(dec, TorchDecoder):
         return f"a {type(dec).__name__} is not a TorchDecoder"
+    if dec.otf:
+        return "on-the-fly composition: the kernel searches a static network"
     cfg = dec.cfg
     if dec.dtype != torch.float32:
         return f"dtype {cfg.dtype!r}: the kernel decodes in float32"
@@ -230,9 +232,10 @@ def fused_eligible(dec: TorchDecoder) -> bool:
     the binned histogram (with or without `max_emit_hyps`), the dense
     merge (`merge_strategy` "dense", or "auto" up to E = 32768; the sort
     merge numbers slots, and so record ids, otherwise) and no lattice
-    records. float64, `histogram_mode="exact"`, the sort merge and
-    `gen_lattice` decode only in the plain frame loop `TorchDecoder.run`,
-    as they decode only in the JAX engine's `lax.scan` step. The kernel
+    records, over a static network. float64, `histogram_mode="exact"`,
+    the sort merge, `gen_lattice` and on-the-fly composition (a decoder
+    with a G) decode only in the plain frame loop `TorchDecoder.run`, as
+    they decode only in the JAX engine's `lax.scan` step. The kernel
     adds: 2 <= S <= 8 HMM states; the block's state fits the 227 KB of
     shared memory an H100 block may take (at S=5 and E=1408 that is K up
     to 1024: about 215 KB; `smem_bytes` is the count); fan-out sums fit

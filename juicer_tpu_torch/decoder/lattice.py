@@ -18,8 +18,9 @@ cumulative minus source-event cumulative (negated on write); input label
 into epsilon chains; the caller removes the dead ends in one trim
 (`fst.algos.connect`).
 Records are read for one utterance (the B=1 slice of `run`'s planes).
-Events are keyed by (frame, arc): the (arc, G state) keys of on-the-fly
-composition come with that mode.
+Events are keyed by (frame, arc, G state): with on-the-fly composition an
+edge reaches the event of its target arc in its G state (`lat_to_g`,
+`ev_g`); without a G every G state is 0.
 """
 
 from __future__ import annotations
@@ -32,11 +33,16 @@ from .artifact import DecoderArtifact
 def build_lattice(art: DecoderArtifact, ys: dict, rec0: dict, T: int) -> Fst:
     """Assemble a lattice Fst from one utterance's lattice records: `ys`
     holds `LAT_FIELDS` (T, E), `FLAT_FIELDS` (T, F) and `EV_FIELDS` (T, K)
-    of `decoder.core`, `rec0` the initial propagation's (E) edges and (K)
-    events. The dead ends stay: `algos.connect` removes them, as
-    `TorchDecoder.decode_scores_lattice` does."""
+    of `decoder.core` (with a G also `lat_to_g` and `ev_g`), `rec0` the
+    initial propagation's (E) edges and (K) events. The dead ends stay:
+    `algos.connect` removes them, as `TorchDecoder.decode_scores_lattice`
+    does."""
     seqs = art.seqs
     K = len(np.asarray(rec0["ev_arc"]))
+    otf = "ev_g" in rec0
+
+    def g_of(part, name, like):
+        return np.asarray(part[name]) if otf else np.zeros(np.shape(like), np.int64)
 
     # ---- event table: ev_id -> (arc, cum_ac, cum_lm, fst state) ----------
     ev_arc0 = np.asarray(rec0["ev_arc"])
@@ -45,6 +51,8 @@ def build_lattice(art: DecoderArtifact, ys: dict, rec0: dict, T: int) -> Fst:
     ev_arc = np.asarray(ys["ev_arc"]) if T > 0 else np.zeros((0, K), np.int32)
     ev_ac = np.asarray(ys["ev_ac"]) if T > 0 else np.zeros((0, K))
     ev_lm = np.asarray(ys["ev_lm"]) if T > 0 else np.zeros((0, K))
+    ev_g0 = g_of(rec0, "ev_g", ev_arc0)
+    ev_g = g_of(ys, "ev_g", ev_arc) if T > 0 else np.zeros((0, K), np.int64)
 
     f = Fst(LOG)
     start = f.add_state()
@@ -52,18 +60,18 @@ def build_lattice(art: DecoderArtifact, ys: dict, rec0: dict, T: int) -> Fst:
 
     ev_state: dict[int, int] = {}
     ev_cum: dict[int, float] = {}
-    by_frame_arc: dict[tuple, int] = {}
+    by_key: dict[tuple, int] = {}  # (frame, arc, G state) -> event
 
-    def register_events(t: int, arcs, acs, lms):
+    def register_events(t: int, arcs, acs, lms, gs):
         for slot in np.nonzero(arcs >= 0)[0]:
             ev = t * K + int(slot)
             ev_state[ev] = f.add_state()
             ev_cum[ev] = float(acs[slot]) + float(lms[slot])
-            by_frame_arc[(t, int(arcs[slot]))] = ev
+            by_key[(t, int(arcs[slot]), int(gs[slot]))] = ev
 
-    register_events(-1, ev_arc0, ev_ac0, ev_lm0)
+    register_events(-1, ev_arc0, ev_ac0, ev_lm0, ev_g0)
     for t in range(T):
-        register_events(t, ev_arc[t], ev_ac[t], ev_lm[t])
+        register_events(t, ev_arc[t], ev_ac[t], ev_lm[t], ev_g[t])
 
     def src_of(ev: int):
         # -1 is the utterance start (as in the JAX engine, where the
@@ -86,12 +94,12 @@ def build_lattice(art: DecoderArtifact, ys: dict, rec0: dict, T: int) -> Fst:
             cur = nxt
 
     # ---- edges -----------------------------------------------------------
-    def emit_edges(t, from_ev, to_arc, ac, lm, seq, valid):
+    def emit_edges(t, from_ev, to_arc, ac, lm, seq, valid, to_g):
         for e in np.nonzero(valid)[0]:
             src, src_cum = src_of(int(from_ev[e]))
             if src is None:
                 continue
-            ev = by_frame_arc.get((t, int(to_arc[e])))
+            ev = by_key.get((t, int(to_arc[e]), int(to_g[e])))
             if ev is None:
                 continue  # target arc's winner overflowed the frontier
             dst = ev_state[ev]
@@ -105,6 +113,7 @@ def build_lattice(art: DecoderArtifact, ys: dict, rec0: dict, T: int) -> Fst:
             np.asarray(rec0["lat_from_ev"]), np.asarray(rec0["lat_to_arc"]),
             np.asarray(rec0["lat_ac"]), np.asarray(rec0["lat_lm"]),
             np.asarray(rec0["lat_seq"]), np.asarray(rec0["lat_valid"]),
+            g_of(rec0, "lat_to_g", rec0["lat_valid"]),
         )
     if T > 0:
         lf = np.asarray(ys["lat_from_ev"])
@@ -113,8 +122,9 @@ def build_lattice(art: DecoderArtifact, ys: dict, rec0: dict, T: int) -> Fst:
         ll = np.asarray(ys["lat_lm"])
         ls = np.asarray(ys["lat_seq"])
         lv = np.asarray(ys["lat_valid"])
+        lg = g_of(ys, "lat_to_g", lv)
         for t in range(T):
-            emit_edges(t, lf[t], lt[t], la[t], ll[t], ls[t], lv[t])
+            emit_edges(t, lf[t], lt[t], la[t], ll[t], ls[t], lv[t], lg[t])
 
         # ---- final states from the LAST frame's final candidates ---------
         fv = np.asarray(ys["flat_valid"])[T - 1]

@@ -16,8 +16,11 @@ float64). Either way the session keeps
 only the records that landed, chunk by chunk on the host, and looks a
 record up by its id `t*K + slot`. The ids of the records whose words were
 emitted are kept here (the JAX class tags its hypotheses instead).
-On-the-fly composition is not ported, so there is no `otf` branch; a
-lattice decoder streams its 1-best words (lattices are `decode_scores_lattice`'s).
+With on-the-fly composition (a decoder with a G, which the kernel does
+not cover: `use_fused=False` on the card) words carry their records'
+landing values, with no remainders, as in the JAX class's `otf` branch;
+a lattice decoder streams its 1-best words (lattices are
+`decode_scores_lattice`'s).
 """
 
 from __future__ import annotations
@@ -143,7 +146,7 @@ class StreamingDecoder:
             _, seq_id, s, a, l, src, arc = self._record(pid)
             frame = pid // K if pid >= 0 else 0  # init words report frame 0
             rem = (self.dec.art.remainders(src, arc, seq_id)
-                   if src >= 0 and arc >= 0 else None)
+                   if src >= 0 and arc >= 0 and not self.dec.otf else None)
             for j, lab in enumerate(self.dec.art.seqs[seq_id]):
                 if rem is not None and j < len(rem):
                     rs, rl, ra = rem[j]

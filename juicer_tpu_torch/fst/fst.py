@@ -7,6 +7,8 @@ Weights are costs (negative log probabilities).
 
 from __future__ import annotations
 
+import numpy as np
+
 from .semiring import INF, LOG, Semiring
 
 EPSILON = 0
@@ -59,6 +61,14 @@ class Fst:
     @property
     def num_arcs(self) -> int:
         return len(self.arc_src)
+
+    def arcs_numpy(self):
+        """(src, dst, ilabel, olabel, weight) as numpy arrays."""
+        return (np.asarray(self.arc_src, dtype=np.int32),
+                np.asarray(self.arc_dst, dtype=np.int32),
+                np.asarray(self.arc_ilabel, dtype=np.int32),
+                np.asarray(self.arc_olabel, dtype=np.int32),
+                np.asarray(self.arc_weight, dtype=np.float64))
 
     def out_arcs(self) -> list[list[int]]:
         """Per-state list of arc indices (adjacency)."""

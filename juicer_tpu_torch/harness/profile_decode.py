@@ -1,7 +1,8 @@
 """Where a decode wave's time goes on the card.
 
     python -m juicer_tpu_torch.harness.profile_decode [--frames N] [--batch B]
-        [--task 2k|20k] [--distinct] [--fused [--clocks] | --entry] [--trace]
+        [--task 2k|20k] [--distinct] [--otf [--budgets K E]]
+        [--fused [--clocks] | --entry] [--trace]
 
 Scores the 2k-word WSJ-order task's bench batch (8 sampled utterances
 tiled to 16, `WSJ_POINT`, diagnostics off) with the GMM kernel, runs the
@@ -29,7 +30,16 @@ samples B different utterances instead (seed 11), so that no two blocks
 read the same closure-table rows; `--task 20k` decodes the 20k-word task
 (its artifact read from, or built into, the package's `_cache/`). The
 fused route also prints the candidates and active slots a frame and
-utterance of the wave.
+utterance of the wave. `--otf` decodes the task by on-the-fly
+composition instead (`wsj_task.load_otf_task`, `OTF_POINT`'s beams, K
+and E from `--budgets`, by default the point's tuner start): the plain
+loop, or with `--entry` a `BatchDecoder(use_fused=False)` call; the
+kernel does not search a G, so `--fused` is refused.
+
+`profile_run` (warm-up, one run under the profiler, one on the host
+clock alone, over the same frames) and `plain_loop_profile` (frames of
+the plain loop resumed from a carry) are the measurement; `chip_smoke.py`
+calls the latter for its static and on-the-fly plain-loop lines.
 """
 
 from __future__ import annotations
@@ -57,6 +67,47 @@ PHASES = ("top", "A", "B_scan", "B_rest", "C", "D_scan", "D_rest", "E", "F",
           "G_records", "G_rest")
 
 
+def profile_run(run, n_frames: int):
+    """Profile `run()`, a call that decodes `n_frames` frames on the card:
+    once to warm up, once under `torch.profiler` (CPU and CUDA
+    activities), then once on the host clock alone, since the profiler
+    slows the host. Both timed runs decode the same frames. Returns the
+    numbers a frame step (`wall_ms` without the profiler, `profiled_wall_ms`,
+    `kernel_ms` of device kernel time, `launches_per_frame`, and `idle`,
+    the device's idle share 1 - kernel time / wall time) and the profile."""
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    profiled_wall = time.perf_counter() - t0
+    # device-side events only (an aten op and its kernel both carry the
+    # kernel's time in key_averages)
+    kernel_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    launches = sum(e.count for e in prof.key_averages() if e.key in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    return dict(wall_ms=wall / n_frames * 1e3,
+                profiled_wall_ms=profiled_wall / n_frames * 1e3,
+                kernel_ms=kernel_us / n_frames / 1e3,
+                launches_per_frame=launches / n_frames,
+                idle=1.0 - kernel_us / 1e6 / wall), prof
+
+
+def plain_loop_profile(dec, scores, n: int = 20) -> dict:
+    """`profile_run` of frames n..2n of the plain frame loop `run` on
+    (B, T, G) scores, resumed from the carry of the first n frames (so no
+    initial propagation is counted)."""
+    carry, _, _ = dec.run(scores[:, :n])
+    return profile_run(lambda: dec.run(scores[:, n:2 * n], carry=carry, t0=n), n)[0]
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=100)
@@ -66,19 +117,34 @@ def main() -> None:
                     help="with --fused: the profiling build, cycles of each phase")
     ap.add_argument("--entry", action="store_true",
                     help="profile one whole BatchDecoder.decode_scores_batch call")
-    ap.add_argument("--batch", type=int, default=0, help="utterances a wave (default 16)")
+    ap.add_argument("--batch", type=int, default=0, help="utterances a wave (default: 16, or 8 with --otf)")
     ap.add_argument("--task", default="2k", choices=("2k", "20k"))
     ap.add_argument("--distinct", action="store_true",
                     help="B different sampled utterances instead of 8 tiled to B")
+    ap.add_argument("--otf", action="store_true",
+                    help="on-the-fly composition (CL searched, G intersected) at OTF_POINT")
+    ap.add_argument("--budgets", type=int, nargs=2, metavar=("K", "E"),
+                    help="with --otf: frontier and expansion budgets")
     ap.add_argument("--trace", action="store_true",
                     help="write the Chrome trace to chiprun_out/")
     args = ap.parse_args()
+    if args.otf and args.fused:
+        ap.error("--fused: the frame-step kernel searches a static network, not a G")
+    if args.budgets and not args.otf:
+        ap.error("--budgets needs --otf")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    task = wsj_task.load_task(args.task)
-    p = wsj_task.WSJ_POINT
-    B = args.batch or p["batch"]
+    if args.otf:
+        task = wsj_task.load_otf_task(args.task)
+        p = wsj_task.OTF_POINT
+        if args.budgets:
+            p = dict(p, K=args.budgets[0], E=args.budgets[1])
+        B = args.batch or p["n_utts"]
+    else:
+        task = wsj_task.load_task(args.task)
+        p = wsj_task.WSJ_POINT
+        B = args.batch or p["batch"]
     utts = wsj_task.sample_utterances(task.cache, task.models,
                                       B if args.distinct else p["n_utts"],
                                       p["frames"], seed=11)
@@ -89,10 +155,11 @@ def main() -> None:
         torch.as_tensor(f).index_select(0, torch.arange(T).clamp(max=f.shape[0] - 1))
         for f in (utts[i % len(utts)][1] for i in range(B))])
     scores = scorer(feats.cuda().reshape(B * T, -1)).view(B, T, -1)
-    dec = TorchDecoder(task.artifact, wsj_task.decoder_config(p, emit_diagnostics=False))
+    dec = TorchDecoder(task.artifact, wsj_task.decoder_config(p, emit_diagnostics=False),
+                       g_network=task.g if args.otf else None)
     stages = {}
     if args.entry:
-        bd = BatchDecoder(dec)
+        bd = BatchDecoder(dec, use_fused=not args.otf)
 
         def run():
             return bd.decode_scores_batch(scores)
@@ -111,45 +178,34 @@ def main() -> None:
     else:
         def run():
             return dec.run(scores)
-    run()  # warm-up: the kernel build, allocator, cuBLAS/cub workspaces
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    # device-side events only (an aten op and its kernel both carry the
-    # kernel's time in key_averages)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    kernel_us = sum(e.time_range.elapsed_us() for e in kernels)
-    launches = sum(e.count for e in prof.key_averages() if e.key in (
-        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-    # the profiler slows the host; time the same run without it too
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    plain_wall = time.perf_counter() - t1
+    # the warm-up run also covers the kernel build, allocator and
+    # cuBLAS/cub workspaces
+    numbers, prof = profile_run(run, T)
     if args.entry:
         # the same call stage by stage, a synchronise after each
-        fs = bd._fs[B]
         clock = time.perf_counter
         t = [clock()]
-        carry, ys = fs(scores.transpose(0, 1).contiguous())
+        if args.otf:
+            carry, ys, rec0 = dec.run(scores)
+        else:
+            fs = bd._fs[B]
+            carry, ys = fs(scores.transpose(0, 1).contiguous())
+            rec0 = fs.rec0
         torch.cuda.synchronize()
         t.append(clock())
-        host = host_batch(carry, ys, fs.rec0)
+        host = host_batch(carry, ys, rec0)
         t.append(clock())
         results = [dec.traceback(host, b, T) for b in range(B)]
         t.append(clock())
-        n_rec = ys["rec_count"][-1].sum().item()
         stages = {
             "scan_ms": (t[1] - t[0]) * 1e3, "copy_to_host_ms": (t[2] - t[1]) * 1e3,
             "traceback_ms": (t[3] - t[2]) * 1e3,
             "bytes_to_host": sum(v.nbytes for v in host[1].values()),
-            "records": n_rec, "records_per_frame_utt": n_rec / (T * B),
             "words": sum(len(r.words) for r in results),
         }
+        if "rec_count" in ys:
+            n_rec = ys["rec_count"][-1].sum().item()
+            stages.update(records=n_rec, records_per_frame_utt=n_rec / (T * B))
     if args.fused and args.clocks:
         # of the last launch: the run timed without the profiler
         n = min(B, 1024)
@@ -164,18 +220,19 @@ def main() -> None:
                       share=dict(zip(PHASES, (clocks / clocks.sum()).tolist())))
     route = "entry" if args.entry else "fused" if args.fused else "plain"
     out = {
-        "card": card, "task": args.task, "route": route, "clocks": args.clocks,
-        "batch": B, "distinct": args.distinct, "frames": T,
-        "wall_ms_per_frame": plain_wall / T * 1e3,
-        "profiled_wall_ms_per_frame": wall / T * 1e3,
-        "kernel_ms_per_frame": kernel_us / T / 1e3,
-        "device_idle_share": 1.0 - kernel_us / 1e6 / plain_wall,
-        "launches_per_frame": launches / T,
+        "card": card, "task": args.task, "otf": args.otf, "route": route,
+        "clocks": args.clocks, "batch": B, "distinct": args.distinct, "frames": T,
+        "K": dec.K, "E": dec.E,
+        "wall_ms_per_frame": numbers["wall_ms"],
+        "profiled_wall_ms_per_frame": numbers["profiled_wall_ms"],
+        "kernel_ms_per_frame": numbers["kernel_ms"],
+        "device_idle_share": numbers["idle"],
+        "launches_per_frame": numbers["launches_per_frame"],
         **stages,
     }
     print(json.dumps(out))
     by_name: dict[str, list] = {}
-    for e in kernels:
+    for e in (e for e in prof.events() if e.device_type == DeviceType.CUDA):
         acc = by_name.setdefault(e.name, [0.0, 0])
         acc[0] += e.time_range.elapsed_us()
         acc[1] += 1

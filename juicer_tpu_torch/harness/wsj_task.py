@@ -1,17 +1,20 @@
 """The cached WSJ-order tasks of `scripts/_wsj_cache_*`, for the port.
 
 Reads the task files the JAX package's offline pipeline wrote (`clg.npz`,
-`models.npz`, `bigram.npz`, `phones.lst`, `lex.dict`; data only, no code
-of `scripts/` is imported) and holds copies of what the reference bench
-drives them with: the operating point `WSJ_POINT` (`bench.py`) and the
-utterance sampler `sample_utterances` (`scripts/wsj_bench.py`), which
-random-walks the task's bigram and synthesises features from the models,
-so every utterance has a known transcript.
+`cl.npz`, `models.npz`, `bigram.npz`, `lm.arpa`, `phones.lst`,
+`lex.dict`; data only, no code of `scripts/` is imported) and holds
+copies of what the reference bench drives them with: the operating point
+`WSJ_POINT` (`bench.py`), the on-the-fly composition script's point
+`OTF_POINT` (`scripts/wsj_otf.py`) and the utterance sampler
+`sample_utterances` (`scripts/wsj_bench.py`), which random-walks the
+task's bigram and synthesises features from the models, so every
+utterance has a known transcript.
 
 The decode artifact is derived from the network and models. By default
 it is read from this package's `_cache/<task>_artifact.npz`, or built and
 written there uncompressed; `cache=False` builds it in memory and reads
-and writes no file.
+and writes no file. `load_otf_task` builds the on-the-fly composition
+pair in memory: the artifact of CL (`cl.npz`) and G from `lm.arpa`.
 """
 
 from __future__ import annotations
@@ -27,7 +30,10 @@ import numpy as np
 from ..am.models import AcousticModelSet
 from ..decoder.artifact import DecoderArtifact
 from ..decoder.core import TorchDecoderConfig
+from ..compile import arpa_grammar
 from ..decoder.network import DecoderNetwork
+from ..decoder.otf import GNetwork
+from ..lexicon import Vocabulary, load_vocabulary
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(_PKG)
@@ -39,6 +45,14 @@ ARTIFACT_CACHE = os.path.join(_PKG, "_cache")
 # scan's unroll factor; the port's frame loop has none.)
 WSJ_POINT = dict(beam=70.0, end_beam=50.0, maxhyps=500, K=1024, E=1408,
                  unroll=8, batch=16, n_utts=8, frames=1000)
+
+
+# The on-the-fly composition script's point (scripts/wsj_otf.py defaults):
+# beam 85 / end-beam 60 / maxHyps 800, the tuner started at K=4096 /
+# E=8192 (F=1024) with margin 1.4, 8 utterances of ~1000 frames sampled
+# with seed 11 (the static 20k point's 8) decoded as one batch.
+OTF_POINT = dict(beam=85.0, end_beam=60.0, maxhyps=800, K=4096, E=8192, margin=1.4,
+                 n_utts=8, frames=1000, seed=11)
 
 
 def task_dir(name: str = "2k") -> str:
@@ -92,6 +106,52 @@ def load_task(name: str = "2k", verbose: bool = True, cache: bool = True) -> Wsj
         print(f"[task] {name}: {net.n_arcs} arcs; {art}; {steps}; peak host RSS "
               f"{costs['peak_rss_bytes'] / 2**30:.1f} GiB", flush=True)
     return WsjTask(name, cache_dir, net, models, art, costs)
+
+
+@dataclass
+class OtfTask:
+    name: str
+    cache: str
+    net: DecoderNetwork  # CL
+    models: AcousticModelSet
+    artifact: DecoderArtifact  # of CL
+    vocab: Vocabulary
+    g: GNetwork
+    # seconds of each step of `load_otf_task`
+    costs: dict = field(default_factory=dict)
+
+
+def load_otf_task(name: str = "20k", verbose: bool = True) -> OtfTask:
+    """The on-the-fly composition pair of `scripts/_wsj_cache_<name>`, built
+    in memory: the artifact of CL (`cl.npz`, C o closure(det(L))) and G,
+    the ARPA grammar of `lm.arpa` over the vocabulary of `lex.dict` (with
+    `<s>` and `</s>`, as `scripts/wsj_otf.py` loads its lexicon)."""
+    cache_dir = task_dir(name)
+    costs = {}
+    t0 = time.perf_counter()
+    net = DecoderNetwork.load_npz(os.path.join(cache_dir, "cl.npz"))
+    models = AcousticModelSet.load_npz(os.path.join(cache_dir, "models.npz"))
+    costs["network_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = DecoderArtifact(net, models)
+    costs["artifact_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    vocab = load_vocabulary(os.path.join(cache_dir, "phones.lst"),
+                            os.path.join(cache_dir, "lex.dict"), "<s>", "</s>")
+    G = arpa_grammar(vocab, os.path.join(cache_dir, "lm.arpa"))
+    costs["grammar_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = GNetwork(G)
+    costs["gnetwork_s"] = time.perf_counter() - t0
+    if verbose:
+        ex = art.expansion
+        steps = ", ".join(f"{k[:-2]} {v:.2f}s" for k, v in costs.items())
+        print(f"[otf task] {name}: CL {net.n_arcs} arcs, {art.n_hmm_arcs} HMM arcs, "
+              f"{len(ex.arc)} closure entries, {len(ex.f_score)} final entries, largest "
+              f"fan-out {int(np.diff(ex.row_ptr).max(initial=0))}; G {g.n_states} states, "
+              f"{len(g.arc_il)} word arcs ({G.num_arcs} arcs), max_backoff {g.max_backoff}, "
+              f"W {g.W}; {steps}", flush=True)
+    return OtfTask(name, cache_dir, net, models, art, vocab, g, costs)
 
 
 def decoder_config(point=WSJ_POINT, emit_diagnostics=True) -> TorchDecoderConfig:

@@ -31,6 +31,9 @@ from juicer_tpu_torch.convert import artifact_from_npz
 from juicer_tpu_torch.decoder.artifact import _row_keys
 from juicer_tpu_torch.decoder import (DecoderArtifact, DecoderNetwork,
                                       TorchDecoder, TorchDecoderConfig)
+from juicer_tpu_torch.decoder.otf import GNetwork
+from juicer_tpu_torch.fst import LOG as PORT_LOG
+from juicer_tpu_torch.fst import Fst as PortFst
 from juicer_tpu_torch.parallel.batch import BatchDecoder
 
 from test_decoder import make_models, scores_matrix
@@ -242,9 +245,10 @@ def test_ties_break_like_jax(tmp_path):
     assert r.words
 
 
-def test_unported_configs_raise(synth):
-    """Only on-the-fly composition (`g_network=`) is left unported: every
-    static-network configuration constructs, and unknown values raise."""
+def test_configs_construct(synth):
+    """Every configuration of `TpuDecoder` constructs, on-the-fly
+    composition (`g_network=`) with its (arc, G state) budgets too, and
+    unknown values raise."""
     part = synth[3]
     for kw in (dict(dtype="float64"), dict(gen_lattice=True),
                dict(histogram_mode="exact", max_emit_hyps=5), dict(merge_strategy="sort"),
@@ -252,8 +256,17 @@ def test_unported_configs_raise(synth):
                     gen_lattice=True)):
         dec = TorchDecoder(part, TorchDecoderConfig(**kw), device="cpu")
         assert dec.cfg == TorchDecoderConfig(**kw)
-    with pytest.raises(NotImplementedError):
-        TorchDecoder(part, TorchDecoderConfig(), device="cpu", g_network=object())
+    f = PortFst(PORT_LOG)
+    f.add_arc(0, 1, 1, 1, 0.5)
+    f.add_arc(1, 0, 0, 0, 0.1)
+    f.set_start(0)
+    f.set_final(1, 0.0)
+    g = GNetwork(f)
+    for pushing in (False, True):
+        dec = TorchDecoder(part, TorchDecoderConfig(otf_pushing=pushing), device="cpu",
+                           g_network=g)
+        assert dec.otf and dec.pushing == pushing and dec.nG == 2
+        assert dec.K == min(2048, -(-(part.n_hmm_arcs * 2 + 1) // 128) * 128)
     for kw in (dict(dtype="float16"), dict(histogram_mode="top"), dict(merge_strategy="hash")):
         with pytest.raises(ValueError):
             TorchDecoder(part, TorchDecoderConfig(**kw), device="cpu")

@@ -9,6 +9,7 @@ conftest (which configures JAX):
 Without a card every test skips.
 """
 
+import dataclasses
 import itertools
 
 import numpy as np
@@ -27,7 +28,9 @@ from juicer_tpu_torch.decoder.fused_scan import (REC_NAMES, FusedDecodeScan,
                                                  concat_records, expand_records,
                                                  state_differences)
 from juicer_tpu_torch.decoder.network import DecoderNetwork
+from juicer_tpu_torch.decoder.otf import GNetwork
 from juicer_tpu_torch.decoder.stream import StreamingDecoder
+from juicer_tpu_torch.fst import LOG, Fst
 from juicer_tpu_torch.harness import wsj_task
 from juicer_tpu_torch.ops import gmm_cuda
 from juicer_tpu_torch.ops.gmm import gmm_scores_dense, make_gmm_scorer
@@ -460,7 +463,7 @@ def test_autotune_on_the_card_keeps_to_the_kernel(card):
     inside = TorchDecoderConfig(max_insts=1024, expand_budget=1408, final_budget=128, **prune)
     n0 = fused_scan.counter.launches
     tuned = autotune_budgets(art, samples, cfg=inside, device=card)
-    assert fused_scan.counter.launches - n0 == 4  # the probe and the verification
+    assert fused_scan.counter.launches - n0 == 2  # the probe's wave and the verification's
     assert tuned == autotune_budgets(art, on_cpu, cfg=inside, device="cpu")
     assert tuned.max_insts < inside.max_insts
 
@@ -471,11 +474,11 @@ def test_autotune_on_the_card_keeps_to_the_kernel(card):
         autotune_budgets(art, samples, cfg=big, device=card)
     with pytest.raises(ValueError, match="probe K=2048, E=2816.*shared memory"):
         autotune_budgets(art, samples, cfg=overflowing, device=card)
-    assert fused_scan.counter.launches - n0 == 2  # the overflowing first probe
+    assert fused_scan.counter.launches - n0 == 1  # the overflowing first probe's wave
     with pytest.raises(ValueError, match="use_fused=False"):
         TorchDecoder(art, big, device=card).decode_scores(samples[0])
     plain = autotune_budgets(art, samples, cfg=big, device=card, use_fused=False)
-    assert fused_scan.counter.launches - n0 == 2
+    assert fused_scan.counter.launches - n0 == 1
     assert plain == autotune_budgets(art, on_cpu, cfg=big, device="cpu")
 
 
@@ -561,3 +564,98 @@ def test_variant_under_auto_raises_on_the_card(card, name):
     stream = dec.stream(use_fused=False)
     stream.feed(sc)
     assert stream.finish().words == dec.decode_scores(sc, use_fused=False).words
+
+
+# ---- on-the-fly composition: the plain loop on the card ---------------------
+
+def _fuzz_grammar(seed, n_words=5):
+    """A random backoff G over the fuzz networks' word labels 1..5 (the
+    shape of `test_fuzz_parity.random_g`: every word from the root, some
+    from each other state, one acyclic backoff arc a state), built with
+    the port's own `Fst`."""
+    rng = np.random.default_rng(seed)
+    f = Fst(LOG)
+    n = int(rng.integers(2, 6))
+    f.set_start(0)
+    for w in range(1, n_words + 1):
+        f.add_arc(0, int(rng.integers(0, n)), w, w, float(np.round(abs(rng.normal(0, 0.7)), 3)))
+    for s_ in range(1, n):
+        for w in range(1, n_words + 1):
+            if rng.random() < 0.4:
+                f.add_arc(s_, int(rng.integers(0, n)), w, w,
+                          float(np.round(abs(rng.normal(0, 0.7)), 3)))
+        f.add_arc(s_, int(rng.integers(0, s_)), 0, 0,
+                  float(np.round(abs(rng.normal(0, 0.3)) + 0.05, 3)))
+    f.set_final(0, 0.1)
+    f.set_final(n - 1, 0.3)
+    return GNetwork(f)
+
+
+def _otf_cases(card):
+    """(name, artifact, G, (B, T, G) CPU scores, config) of the fuzz network
+    with a random G, and of the 2k task's CL and ARPA G on a whole 2k
+    sentence (seed 12) scored by the GMM kernel, at `OTF_POINT`'s beams."""
+    art, G = _fuzz_artifact(seed=8)
+    g = _fuzz_grammar(8)
+    yield ("fuzz", art, g, _fuzz_scores(23, 60, 2, G, "cpu").transpose(0, 1).contiguous(),
+           TorchDecoderConfig(max_insts=512, expand_budget=4096, final_budget=512,
+                              emit_prune_win=40.0, phone_end_prune_win=30.0))
+    task = wsj_task.load_otf_task("2k", verbose=False)
+    _, feats = wsj_task.sample_utterances(task.cache, task.models, 2, 250, seed=12)[1]
+    sc = make_gmm_scorer(task.models.flat_params(), device=card)(
+        torch.as_tensor(feats, device=card))
+    p = wsj_task.OTF_POINT
+    yield ("2k", task.artifact, task.g, sc.cpu()[None],
+           wsj_task.decoder_config(dict(p, K=1024, E=4096)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pushing", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_otf_on_the_card_equals_the_cpu(card, dtype, pushing):
+    """On-the-fly composition through `use_fused=False` on the card: every
+    plane of `run` equals the CPU's bit for bit, in float32 and float64,
+    with and without pushing; `decode_scores` gives the CPU's words; no
+    frame-step launch."""
+    for name, art, g, sc, cfg in _otf_cases(card):
+        cfg = dataclasses.replace(cfg, dtype=dtype, otf_pushing=pushing)
+        dec = TorchDecoder(art, cfg, device=card, g_network=g)
+        cpu = TorchDecoder(art, cfg, device="cpu", g_network=g)
+        n0 = fused_scan.counter.launches
+        got, want = host_batch(*dec.run(sc.to(card))), host_batch(*cpu.run(sc))
+        assert host_planes_diff(got, want, 0.0) == 0.0
+        B, T = sc.shape[:2]
+        for b in range(B):
+            r, w = dec.traceback(got, b, T), cpu.traceback(want, b, T)
+            assert r.words == w.words and r.score == w.score, (name, b)
+        r = dec.decode_scores(sc[0], use_fused=False)
+        assert r.words and r.words == cpu.decode_scores(sc[0]).words, name
+        assert fused_scan.counter.launches == n0
+
+
+@pytest.mark.gpu
+def test_otf_under_auto_raises_on_the_card(card):
+    """Under "auto" every entry point refuses a decoder with a G on the card
+    with `why_not_fused`'s reason; `use_fused=False` decodes."""
+    art, G = _fuzz_artifact(seed=8)
+    g = _fuzz_grammar(8)
+    cfg = TorchDecoderConfig(max_insts=512, expand_budget=4096, final_budget=512)
+    dec = TorchDecoder(art, cfg, device=card, g_network=g)
+    why = fused_scan.why_not_fused(dec)
+    assert why == "on-the-fly composition: the kernel searches a static network"
+    sc = _fuzz_scores(24, 40, 1, G, card)[:, 0]
+    n0 = fused_scan.counter.launches
+    with pytest.raises(ValueError) as e:
+        dec.decode_scores(sc)
+    assert why in str(e.value)
+    with pytest.raises(ValueError, match="use_fused"):
+        BatchDecoder(dec).decode_scores_batch(sc[None])
+    with pytest.raises(ValueError) as e:
+        dec.stream()
+    assert why in str(e.value)
+    with pytest.raises(ValueError) as e:
+        autotune_budgets(art, [sc], cfg=cfg, device=card, g_network=g)
+    assert why in str(e.value)
+    got = BatchDecoder(dec, use_fused=False).decode_scores_batch(sc[None])[0]
+    assert got.words == dec.decode_scores(sc, use_fused=False).words
+    assert fused_scan.counter.launches == n0
