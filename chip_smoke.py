@@ -142,10 +142,63 @@ Phases (any failure raises and exits non-zero before the result line):
        - lattice: that sentence with `gen_lattice=True` as in [lattice];
        - stream: that sentence through `dec.stream(use_fused=False)` in
          chunks of 100 frames, `finish()` equal to the whole decode;
-  8. result: a `kernels` JSON line (both kernels, with the 20k fields and
-     the OTF path's launches), the seconds of each phase, the card line,
-     and last {"ok": true, "device": {"platform": "gpu", "kind": ...,
-     "count": 1}}.
+  [cli 2k] the decoder CLI (`juicer_tpu_torch.cli.juicer`, run in this
+     process through `run`, which `main` is with an exit code) on the 2k
+     task, after the 2k tables are released. The smoke writes the CLI's
+     files into a temporary directory with its own writers (floats at
+     round-trip precision): the CLG as AT&T text (the initial state's arcs
+     first), symbol files (model names in, `Vocabulary` words out), the
+     models as a text MMF (~t, ~s and ~h macros), the lexicon, HTK
+     features, an input list and plain references. Three calls at
+     `WSJ_POINT`:
+       (a) `-batchSize 1 -outputFormat xmlf -writeBinaryFiles` on the
+           first four seed-11 utterances and the seed-12 sentence: route
+           line `frame_step kernel`, one launch of each kernel an
+           utterance, words, word-end frames and scores equal to the
+           library's (the main path's B=16 wave, [parity]'s sentence);
+       (b) `-latticeDir -modelLevelOutput` on the sentence, reading (a)'s
+           npz caches: route line `plain frame loop (gen_lattice: ...)`,
+           no frame_step launch; the lattice file's best path equals
+           (a)'s words;
+       (c) `-loop -loopChunk 100` as a subprocess (`python -m
+           juicer_tpu_torch.cli.juicer`), the sentence's float32 frames on
+           stdin: its `final:` line equals (a)'s words and the `partial:`
+           words are a prefix of them; the route line names the kernel;
+  [cli 20k] the slice's full-width path, after the [20k] task is released
+     (its host artifact and tables: two in-memory builds may not fit):
+       - files: the 20k CLG (7,870,751 arcs) as text, symbol files, the
+         MMF, the lexicon, the 8 seed-11 utterances tiled to 16 as HTK
+         files, the input list and references; the network read back from
+         the text (`DecoderNetwork.from_files`) equals clg.npz in every
+         array (a marker that differs is printed with the reason), and
+         `AcousticModelSet.from_mmf` gives models.npz's `flat_params` and
+         topology bit for bit;
+       - the run: `-batchSize 16` at `WSJ_POINT` (`-mainBeam 70
+         -phoneEndBeam 50 -wordEmitBeam 50 -maxHyps 500 -maxInsts 1024
+         -expandBudget 1408`), `-outputFormat verbose -refFName
+         -removeSentMarks -logFName`; certified: `Word accuracy =
+         100.00%`, no budget-overflow warning, route line `frame_step
+         kernel` (also in the log); launch counts zeroed before and read
+         after the run: gmm_logsumexp 16 (one an utterance), frame_step 1;
+       - equality: every utterance's words, word-end frames and score
+         equal the [20k] B=16 results bit for bit; gmm_logsumexp gives
+         each utterance scored alone the bits of its rows in the whole
+         wave;
+       - printed: the seconds of each stage (text write, FSM parse,
+         network, models, artifact, tables, features, decode, output),
+         the CLI's frames/s beside the library entry point's of this
+         call, the verbose output's RT factor;
+  [cli otf] after [otf]: CL (`cl.npz`) and G (`arpa_grammar` of
+     `lm.arpa`) written as text and read back equal (the network's arrays
+     and `GNetwork`'s); the CLI with `-gramFsmFName`, `-batchSize 8` at
+     `OTF_POINT`'s beams and [otf]'s tuned budgets: route line `plain
+     frame loop (on-the-fly composition: ...)`, certified, launches
+     gmm_logsumexp 8 and frame_step 0, every utterance equal to [otf]'s
+     main path;
+  8. result: a `kernels` JSON line (both kernels, with the 20k fields, the
+     OTF path's launches and the CLI phases' launches), the seconds of
+     each phase, the card line, and last {"ok": true, "device":
+     {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
 from __future__ import annotations
@@ -668,14 +721,30 @@ def main() -> int:
 
     at_2k = dict(fs_ms=fs_ms, fs_ms2=fs_ms2, fps=fps, fps2=fps2, fps_device=fps_device,
                  fps_device2=fps_device2, gmm16=gmm16, gmm132=gmm132)
-    # release the 2k task's tables and waves before the 20k task's
+    # release the 2k task's tables and waves before the CLI's and the 20k
+    # task's; keep the results the CLI is held to
+    cli_lib = dict(utts=utts[:4], results=results[:4], sent=(words_s, xs.numpy()),
+                   sent_result=r_card)
     del task, art, dec, bd, fs, scores, scores_tbg, x, feats, sc_card, plain_results
+    gc.collect()
     torch.cuda.empty_cache()
+    cli2k = phase_cli_2k(card, dev, cli_lib, phase_done)
     k20 = phase_20k(card, dev, at_2k, phase_done)
-    # release the static 20k task's tables before the on-the-fly pair's
+    # release the static 20k task (its host artifact and 5.73 GB of tables)
+    # before the CLI builds its own from the text files
+    cli_lib = k20.pop("cli")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli20 = phase_cli_20k(card, dev, cli_lib, phase_done)
+    # release the CLI's decoder before the on-the-fly pair's
+    del cli_lib
     gc.collect()
     torch.cuda.empty_cache()
     otf = phase_otf(card, dev, k20.pop("static"), phase_done)
+    cli_lib = otf.pop("cli")
+    gc.collect()
+    cliotf = phase_cli_otf(card, dev, cli_lib, phase_done)
+    cli = {k: {**cli2k[k], **cli20[k], **cliotf[k]} for k in ("gmm_logsumexp", "frame_step")}
 
     # ---- 8. result ------------------------------------------------------
     print(json.dumps({"kernels": [{
@@ -688,7 +757,7 @@ def main() -> int:
         "max_abs_err_b132": gmm132["err"], "ms_b132": gmm132["ms"],
         "plain_ms_b132": gmm132["plain_ms"], "bound_ms_b132": gmm132["bound_ms"],
         "library_ms_b132": gmm132["library_ms"], "launches_b132": launches2[0],
-        **k20["gmm_logsumexp"], **otf["gmm_logsumexp"],
+        **k20["gmm_logsumexp"], **otf["gmm_logsumexp"], **cli["gmm_logsumexp"],
     }, {
         "name": "frame_step", "route": "cuda",
         "source": "juicer_tpu_torch/csrc/frame_step.cu",
@@ -698,7 +767,7 @@ def main() -> int:
         "bound_by": fs_bound_by, "library_ms": None,
         "bound_ms_dense": dense_bound, "ms_b132": fs_ms2,
         "launches_b132": launches2[1],
-        **k20["frame_step"], **otf["frame_step"],
+        **k20["frame_step"], **otf["frame_step"], **cli["frame_step"],
     }]}))
     print("[time] phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; total {sum(phase_s.values()):.1f}", flush=True)
@@ -1158,6 +1227,7 @@ def phase_20k(card, dev, at_2k, phase_done):
     static["entry_fps"] = entry[B][1]
     return {
         "static": static,
+        "cli": dict(utts=utts, results=plain_results, markers=markers, entry_fps=entry[B][1]),
         "gmm_logsumexp": {
             "ms_20k": gmm16["ms"], "ms_20k_b132": gmm132["ms"], "ms_20k_repeats": repeats,
             "bound_ms_20k": gmm16["bound_ms"], "bound_ms_20k_b132": gmm132["bound_ms"],
@@ -1392,6 +1462,7 @@ def phase_otf(card, dev, static, phase_done):
           f"equal to the whole decode (words, word-end frames, score)", flush=True)
     phase_done("otf stream")
     return {
+        "cli": dict(utts=utts, results=results, markers=markers, tuned=tuned),
         "gmm_logsumexp": {"launches_otf": launches[0], "ms_otf": gmm8["ms"],
                           "max_abs_err_otf": gmm8["err"]},
         "frame_step": {"launches_otf": launches[1], "otf_plain_ms_frame": ms_frame,
@@ -1399,6 +1470,504 @@ def phase_otf(card, dev, static, phase_done):
                        "otf_plain_kernel_ms_frame": prof["kernel_ms"],
                        "otf_plain_idle": prof["idle"], "otf_lattice_ms_frame": lat["ms"]},
     }
+
+
+# ---- the decoder CLI: its input files, written by the smoke -------------------
+# The CLI reads text (AT&T FSM and symbol files, a text MMF, HTK features);
+# the tasks are tracked as npz. These writers are the smoke's own: floats at
+# float64 round-trip precision (`repr`), so what the CLI reads back equals
+# the npz arrays bit for bit.
+
+def _fmt_arcs(src, dst, il, ol, cost) -> str:
+    return "".join(f"{a} {b} {c} {d} {w!r}\n" if w != 0.0 else f"{a} {b} {c} {d}\n"
+                   for a, b, c, d, w in zip(src, dst, il, ol, cost))
+
+
+def write_network_text(net, path):
+    """A `DecoderNetwork` (LM scale 1, no insertion penalty: its weights are
+    the negated costs) as AT&T text: the initial state's arcs first (the
+    reader takes the first line's source as the initial state), the rest in
+    CSR order, so the reader's stable sort by source gives the CSR back."""
+    import numpy as np
+
+    if net.lm_scale != 1.0 or net.ins_pen != 0.0:
+        raise ValueError("the writer takes a network read at LM scale 1, no penalty")
+    s0 = int(net.init_state)
+    lo, hi = int(net.row_ptr[s0]), int(net.row_ptr[s0 + 1])
+    order = np.concatenate([np.arange(lo, hi), np.arange(0, lo), np.arange(hi, net.n_arcs)])
+    cols = [net.arc_src, net.arc_dst, net.arc_ilabel, net.arc_olabel]
+    with open(path, "w") as fd:
+        for i in range(0, len(order), 1 << 20):
+            part = order[i:i + (1 << 20)]
+            fd.write(_fmt_arcs(*(c[part].tolist() for c in cols),
+                               (-net.arc_weight[part]).tolist()))
+        for s in np.flatnonzero(net.final_weight > -1e30).tolist():
+            cost = -float(net.final_weight[s])
+            fd.write(f"{s} {cost!r}\n" if cost != 0.0 else f"{s}\n")
+
+
+def write_fst_text(f, path):
+    """An `Fst` (costs) as AT&T text at round-trip precision, in insertion
+    order with the start state's arcs stable-sorted to the front."""
+    import numpy as np
+
+    src = np.asarray(f.arc_src)
+    order = np.concatenate([np.flatnonzero(src == f.start), np.flatnonzero(src != f.start)])
+    cols = [np.asarray(c)[order].tolist()
+            for c in (f.arc_src, f.arc_dst, f.arc_ilabel, f.arc_olabel, f.arc_weight)]
+    with open(path, "w") as fd:
+        fd.write(_fmt_arcs(*cols))
+        for s in sorted(f.finals):
+            fd.write(f"{s} {f.finals[s]!r}\n" if f.finals[s] != 0.0 else f"{s}\n")
+
+
+def write_models_text(models, path):
+    """An `AcousticModelSet` as a text MMF: one ~t macro a transition
+    matrix, one ~s macro a GMM (weights, means and variances at round-trip
+    precision; probabilities are exp of the stored logs, which give the
+    logs back bit for bit at these tasks), one ~h an HMM."""
+    import numpy as np
+
+    def vec(v):
+        return " ".join(repr(float(x)) for x in v)
+
+    def prob(logs):
+        return np.where(np.asarray(logs) <= -1e30, 0.0, np.exp(logs))
+
+    D = models.vec_size
+    with open(path, "w") as fd:
+        fd.write(f"~o <STREAMINFO> 1 {D} <VECSIZE> {D} <NULLD><DIAGC>\n")
+        for t, tm in enumerate(models.trans_mats):
+            fd.write(f'~t "T{t}"\n<TRANSP> {tm.shape[0]}\n')
+            fd.write("".join(f" {vec(row)}\n" for row in prob(tm)))
+        for g in range(models.n_gmms):
+            w = prob(models.gmm_log_weights[g])
+            fd.write(f'~s "S{g}"\n<NUMMIXES> {len(w)}\n')
+            for c in range(len(w)):
+                fd.write(f"<MIXTURE> {c + 1} {float(w[c])!r}\n<MEAN> {D}\n "
+                         f"{vec(models.gmm_means[g][c])}\n<VARIANCE> {D}\n "
+                         f"{vec(models.gmm_vars[g][c])}\n")
+        for h, name in enumerate(models.hmm_names):
+            n = models.get_num_states(h)
+            fd.write(f'~h "{name}"\n<BEGINHMM>\n<NUMSTATES> {n}\n')
+            for j, g in enumerate(models.hmm_gmm_inds[h]):
+                fd.write(f'<STATE> {j + 2}\n~s "S{int(g)}"\n')
+            fd.write(f'~t "T{models.hmm_trans_ind[h]}"\n<ENDHMM>\n')
+
+
+def write_cli_task(td, cache, net, models, utts, names):
+    """The CLI's files in directory td for task directory `cache`: the
+    network (`net.fsm`), symbol files (model names in, vocabulary words
+    out), the models (`models.mmf`), the lexicon, the utterances as HTK
+    features under `names`, an input list and plain references (the
+    transcript without sentence marks). Returns the common arguments and
+    the seconds of the network's text."""
+    import shutil
+
+    from juicer_tpu_torch.fst import SymbolTable, write_symbols
+    from juicer_tpu_torch.harness.features import write_htk
+    from juicer_tpu_torch.lexicon import Vocabulary
+
+    def j(name):
+        return os.path.join(td, name)
+
+    t0 = time.perf_counter()
+    write_network_text(net, j("net.fsm"))
+    t_net = time.perf_counter() - t0
+    vocab = Vocabulary(os.path.join(cache, "lex.dict"), "!", "<s>", "</s>")
+    write_symbols(SymbolTable(["<eps>", *models.hmm_names]), j("in.syms"))
+    write_symbols(SymbolTable(["<eps>", *vocab.words]), j("out.syms"))
+    write_models_text(models, j("models.mmf"))
+    shutil.copy(os.path.join(cache, "lex.dict"), j("lex.dict"))
+    for name, (_, feats) in zip(names, utts):
+        write_htk(j(f"{name}.htk"), feats)
+    with open(j("in.lst"), "w") as fd:
+        fd.write("".join(f"{name}={j(name + '.htk')}\n" for name in names))
+    with open(j("refs.txt"), "w") as fd:
+        fd.write("".join(" ".join(f"w{w}" for w in words) + "\n" for words, _ in utts))
+    argv = ["-lexFName", j("lex.dict"), "-sentStartWord", "<s>", "-sentEndWord", "</s>",
+            "-fsmFName", j("net.fsm"), "-inSymsFName", j("in.syms"),
+            "-outSymsFName", j("out.syms"), "-htkModelsFName", j("models.mmf"),
+            "-inputFName", j("in.lst")]
+    return argv, t_net
+
+
+def check_network_read_back(what, got, want):
+    """The CLI's network from text against the npz: every array equal;
+    a marker that differs is printed with the reason (the symbol tables
+    that built the npz are not tracked; the smoke's are rebuilt from the
+    models and the vocabulary)."""
+    import numpy as np
+
+    for k in ("arc_src", "arc_dst", "arc_ilabel", "arc_olabel", "arc_weight", "row_ptr",
+              "final_weight"):
+        a, b = getattr(got, k), getattr(want, k)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            raise RuntimeError(f"[{what}] the network read from text differs from the npz "
+                               f"in {k}")
+    same, differ = [], []
+    for k in ("n_states", "init_state", "word_end_marker", "sil_marker", "sp_marker"):
+        (same if getattr(got, k) == getattr(want, k) else differ).append(k)
+    for k in differ:
+        print(f"[{what}] {k}: {getattr(got, k)} from the text and its symbol files, "
+              f"{getattr(want, k)} in the npz (built from symbol tables that are not "
+              f"tracked)", flush=True)
+    return same, differ
+
+
+def check_models_read_back(what, got, want):
+    """The CLI's models from the text MMF against the npz: `flat_params`
+    bit for bit (the GMM kernel's inputs) and the packed topology."""
+    import numpy as np
+
+    fg, fw = got.flat_params(), want.flat_params()
+    for k in ("V", "M", "b"):
+        a, b = getattr(fg, k), getattr(fw, k)
+        if a.shape != b.shape or not np.array_equal(a.view(np.uint32), b.view(np.uint32)):
+            raise RuntimeError(f"[{what}] flat_params().{k} from the MMF differs from the npz")
+    if not np.array_equal(fg.mask, fw.mask):
+        raise RuntimeError(f"[{what}] the component mask differs")
+    for a, b in zip(got.packed_topology(), want.packed_topology()):
+        if not np.array_equal(a, b):
+            raise RuntimeError(f"[{what}] the HMM topology from the MMF differs from the npz")
+
+
+def run_cli(argv):
+    """`juicer_tpu_torch.cli.juicer` in this process (`main` is `run` with an
+    exit code): the report, the launches of both kernels in the run, and
+    the budget-overflow warnings the traceback gave."""
+    import warnings
+
+    from juicer_tpu_torch.cli import juicer
+    from juicer_tpu_torch.decoder import fused_scan
+    from juicer_tpu_torch.ops import gmm_cuda
+    from juicer_tpu_torch.utils.log import LogFile
+
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        report = juicer.run(argv)
+    launches = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    LogFile.close()
+    overflow = [w for w in caught if "overflow" in str(w.message)]
+    return report, launches, len(overflow)
+
+
+def same_as_library(what, results, lib, markers):
+    """The CLI's per-utterance results (sentence marks removed) against the
+    library's `DecodeResult`s: words and word-end frames equal, total
+    score bit for bit. Returns the number of utterances held."""
+    for i, (ur, r) in enumerate(zip(results, lib)):
+        want = [(h.word - 1, h.end_frame) for h in r.word_hyps if h.word not in markers]
+        got = [(w.index, w.end_time) for w in ur.words]
+        if got != want:
+            raise RuntimeError(f"[{what}] utterance {i}: words or word-end frames differ "
+                               f"from the library's")
+        if ur.total_score != r.score:
+            raise RuntimeError(f"[{what}] utterance {i}: score {ur.total_score!r} against the "
+                               f"library's {r.score!r}")
+    if len(results) != len(lib):
+        raise RuntimeError(f"[{what}] {len(results)} results for {len(lib)} utterances")
+    return len(results)
+
+
+def verbose_summary(path):
+    """(word accuracy line, RT factor line) of a verbose output file."""
+    acc = rt = ""
+    with open(path) as fd:
+        for line in fd:
+            if line.startswith("Word accuracy"):
+                acc = line.strip()
+            elif line.startswith("Real-time (RT) factor"):
+                rt = line.strip()
+    return acc, rt
+
+
+def phase_cli_2k(card, dev, lib, phase_done):
+    """[cli 2k]: three CLI calls on the 2k task (see the module docstring).
+    `lib` holds the library's results: the first four seed-11 utterances
+    of the main path and the seed-12 sentence. Returns the kernels line's
+    CLI fields."""
+    import subprocess
+    import tempfile
+
+    import numpy as np
+
+    from juicer_tpu_torch.am.models import AcousticModelSet
+    from juicer_tpu_torch.decoder.network import DecoderNetwork
+    from juicer_tpu_torch.fst import algos, read_fsm, read_symbols
+    from juicer_tpu_torch.harness import wsj_task
+
+    cache = wsj_task.task_dir("2k")
+    p = wsj_task.WSJ_POINT
+    net = DecoderNetwork.load_npz(os.path.join(cache, "clg.npz"))
+    models = AcousticModelSet.load_npz(os.path.join(cache, "models.npz"))
+    utts = lib["utts"] + [lib["sent"]]
+    names = [f"u{i}" for i in range(len(lib["utts"]))] + ["sent"]
+    point = ["-mainBeam", str(p["beam"]), "-phoneEndBeam", str(p["end_beam"]),
+             "-wordEmitBeam", str(p["end_beam"]), "-maxHyps", str(p["maxhyps"]),
+             "-maxInsts", str(p["K"]), "-expandBudget", str(p["E"])]
+    with tempfile.TemporaryDirectory() as td:
+        base, _ = write_cli_task(td, cache, net, models, utts, names)
+        del net
+
+        # (a) one utterance a launch, xmlf, the binary caches written
+        report, launches, n_ov = run_cli(
+            base + point + ["-batchSize", "1", "-outputFormat", "xmlf", "-writeBinaryFiles",
+                            "-outputFName", os.path.join(td, "a.mlf")])
+        n = len(utts)
+        if report.route != "route: frame_step kernel" or launches != (n, n) or n_ov:
+            raise RuntimeError(f"[cli 2k] (a): route {report.route!r}, launches {launches}, "
+                               f"overflow warnings {n_ov}")
+        same_as_library("cli 2k (a)", report.results, lib["results"] + [lib["sent_result"]],
+                        set())
+        sent_words = [w.index + 1 for w in report.results[-1].words]
+        print(f"[cli 2k] (a) -batchSize 1 -outputFormat xmlf -writeBinaryFiles: {n} "
+              f"utterances, {report.route}; launches gmm_logsumexp {launches[0]}, frame_step "
+              f"{launches[1]} (one each an utterance); words, word-end frames and scores "
+              f"equal the library's; seconds: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in report.stages.items()), flush=True)
+        launches_a = launches
+
+        # (b) lattice and model-level output of the sentence, from the caches
+        with open(os.path.join(td, "sent.lst"), "w") as fd:
+            fd.write(f"sent={os.path.join(td, 'sent.htk')}\n")
+        argv_b = [a if a != os.path.join(td, "in.lst") else os.path.join(td, "sent.lst")
+                  for a in base]
+        lat_dir = os.path.join(td, "lat")
+        report, launches_b, _ = run_cli(
+            argv_b + point + ["-latticeDir", lat_dir, "-modelLevelOutput", "-outputFormat",
+                              "trans", "-outputFName", os.path.join(td, "b.trn")])
+        why = "gen_lattice: the kernel writes no lattice records"
+        if report.route != f"route: plain frame loop ({why})" or launches_b != (1, 0):
+            raise RuntimeError(f"[cli 2k] (b): route {report.route!r}, launches {launches_b}")
+        if "fsm parse" in report.stages or not os.path.exists(
+                os.path.join(td, "net.fsm.npz")):
+            raise RuntimeError("[cli 2k] (b) did not read the network's binary cache")
+        lattice = read_fsm(os.path.join(lat_dir, "sent.lat.fsm"))
+        _, _, best = algos.shortest_path(lattice)
+        if best != sent_words:
+            raise RuntimeError("[cli 2k] (b): the lattice's best path differs from (a)'s words")
+        n_models = len(report.results[0].words)
+        print(f"[cli 2k] (b) -latticeDir -modelLevelOutput, the sentence from (a)'s binary "
+              f"caches ({', '.join(f'{k} {v:.3f}s' for k, v in report.stages.items())}): "
+              f"{report.route}; launches gmm_logsumexp {launches_b[0]}, frame_step "
+              f"{launches_b[1]}; lattice {lattice.num_states} states / {lattice.num_arcs} arcs, "
+              f"best path = (a)'s {len(sent_words)} words; {n_models} models output",
+              flush=True)
+
+        # (c) -loop in a process of its own, the sentence's frames on stdin
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "juicer_tpu_torch.cli.juicer", *base, *point, "-loop",
+             "-loopChunk", "100"],
+            input=np.ascontiguousarray(utts[-1][1], dtype="<f4").tobytes(),
+            capture_output=True, cwd=ROOT, timeout=600)
+        t_loop = time.perf_counter() - t0
+        if out.returncode != 0:
+            raise RuntimeError(f"[cli 2k] (c) exited {out.returncode}: "
+                               f"{out.stderr.decode()[-2000:]}")
+        lines = out.stdout.decode().splitlines()
+        words = [ln.split(": ", 1)[1].split(" (frame")[0] for ln in lines
+                 if ln.startswith("partial: ")]
+        final = lines[-1].split(": ", 1)[1].split() if lines and lines[-1].startswith(
+            "final:") else None
+        out_syms = read_symbols(os.path.join(td, "out.syms"))
+        want = [out_syms[w] for w in sent_words]
+        if final != want or words != want[:len(words)]:
+            raise RuntimeError(f"[cli 2k] (c): final {final} and partials {words} against "
+                               f"(a)'s {want}")
+        if "route: frame_step kernel" not in out.stderr.decode():
+            raise RuntimeError("[cli 2k] (c) did not stream through the frame-step kernel")
+        print(f"[cli 2k] (c) -loop -loopChunk 100 as a subprocess ({t_loop:.1f}s, process "
+              f"start and set-up included): {len(words)} partial words, each a prefix of "
+              f"(a)'s {len(want)}, final equal to (a)'s words; route: frame_step kernel",
+              flush=True)
+    phase_done("cli 2k")
+    return {"gmm_logsumexp": {"launches_cli_2k": launches_a[0],
+                              "launches_cli_2k_lattice": launches_b[0]},
+            "frame_step": {"launches_cli_2k": launches_a[1],
+                           "launches_cli_2k_lattice": launches_b[1]}}
+
+
+def phase_cli_20k(card, dev, lib, phase_done):
+    """[cli 20k]: the slice's full-width path, the CLI at the reference
+    bench's 20k task (see the module docstring). `lib` holds the [20k]
+    phase's utterances and B=16 results and its entry point's frames/s.
+    Returns the kernels line's CLI fields."""
+    import tempfile
+
+    import torch
+
+    from juicer_tpu_torch.am.models import AcousticModelSet
+    from juicer_tpu_torch.decoder.network import DecoderNetwork
+    from juicer_tpu_torch.harness import wsj_task
+    from juicer_tpu_torch.ops.gmm import make_gmm_scorer
+
+    cache = wsj_task.task_dir("20k")
+    p = wsj_task.WSJ_POINT
+    B = p["batch"]
+    utts, results = lib["utts"], lib["results"]
+    net = DecoderNetwork.load_npz(os.path.join(cache, "clg.npz"))
+    models = AcousticModelSet.load_npz(os.path.join(cache, "models.npz"))
+    tiled = [utts[i % len(utts)] for i in range(B)]
+    names = [f"u{i:02d}" for i in range(B)]
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        base, t_net = write_cli_task(td, cache, net, models, tiled, names)
+        t_write = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(td, "net.fsm"))
+        t0 = time.perf_counter()
+        back = DecoderNetwork.from_files(*(os.path.join(td, n)
+                                           for n in ("net.fsm", "in.syms", "out.syms")))
+        t_back = time.perf_counter() - t0
+        same, differ = check_network_read_back("cli 20k", back, net)
+        check_models_read_back("cli 20k", AcousticModelSet.from_mmf(
+            os.path.join(td, "models.mmf")), models)
+        print(f"[cli 20k] files written in {t_write:.1f}s (the network's {net.n_arcs} arcs "
+              f"as {size} bytes of text in {t_net:.1f}s); read back in {t_back:.1f}s: every "
+              f"array of clg.npz equal, {', '.join(same)} equal"
+              + (f", {', '.join(differ)} differ" if differ else "")
+              + "; the MMF's flat_params and topology equal models.npz's bit for bit",
+              flush=True)
+        del back, net
+        gc.collect()
+        phase_done("cli 20k files")
+
+        out = os.path.join(td, "out.txt")
+        argv = base + ["-refFName", os.path.join(td, "refs.txt"), "-removeSentMarks",
+                       "-batchSize", str(B), "-mainBeam", str(p["beam"]),
+                       "-phoneEndBeam", str(p["end_beam"]), "-wordEmitBeam",
+                       str(p["end_beam"]), "-maxHyps", str(p["maxhyps"]),
+                       "-maxInsts", str(p["K"]), "-expandBudget", str(p["E"]),
+                       "-outputFormat", "verbose", "-outputFName", out,
+                       "-logFName", os.path.join(td, "juicer.log")]
+        report, launches, n_ov = run_cli(argv)
+        acc, rt = verbose_summary(out)
+        with open(os.path.join(td, "juicer.log")) as fd:
+            logged_route = report.route in fd.read()
+    phase_done("cli 20k run")
+    if report.route != "route: frame_step kernel" or not logged_route:
+        raise RuntimeError(f"[cli 20k] route {report.route!r} (in the log: {logged_route})")
+    if not acc.startswith("Word accuracy = 100.00%") or n_ov:
+        raise RuntimeError(f"[cli 20k] not certified: {acc!r}, {n_ov} overflow warnings")
+    if launches != (B, 1):
+        raise RuntimeError(f"[cli 20k] launches gmm_logsumexp, frame_step {launches}; "
+                           f"expected {B} and 1")
+    n_held = same_as_library("cli 20k", report.results, results, lib["markers"])
+    # the GMM kernel's bits do not depend on the call: each utterance alone
+    # against its rows of the whole wave
+    scorer = make_gmm_scorer(models.flat_params(), device="cuda")
+    feats, lengths, Tmax = tile_features(utts, B, dev)
+    wave = scorer(feats.reshape(B * Tmax, -1)).view(B, Tmax, -1)
+    bits = all(torch.equal(scorer(torch.as_tensor(f, device=dev)), wave[i, :len(f)])
+               for i, (_, f) in enumerate(utts))
+    if not bits:
+        raise RuntimeError("[cli 20k] gmm_logsumexp gives other bits for a frame scored "
+                           "alone than in the wave")
+    st = report.stages
+    frames = sum(len(f) for _, f in tiled)
+    fps_pad = B * Tmax / st["decode"]
+    print(f"[cli 20k] {report.route}; certified: {acc}; overflow 0/{B}; launches "
+          f"gmm_logsumexp {launches[0]} (one an utterance), frame_step {launches[1]} (one "
+          f"a batch); words, word-end frames and scores of all {n_held} utterances equal the "
+          f"[20k] BatchDecoder's bit for bit; gmm_logsumexp scores each utterance alone "
+          f"with the bits of its rows in the whole wave", flush=True)
+    print(f"[cli 20k] seconds: text write {t_write:.3f}, "
+          + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+          + f"; verbose output {rt!r} (decode {st['decode']:.4f}s over "
+          f"{report.speech_time:.2f}s of speech: RT factor {st['decode'] / report.speech_time:.5f}) "
+          f"| {card}", flush=True)
+    print(f"[cli 20k] decode: {B} x {Tmax} padded frames ({frames} true) in "
+          f"{st['decode']:.4f}s = {fps_pad:.1f} frames/s ({frames / st['decode']:.1f} true "
+          f"frames/s; one batch, its first call: the fused scan's set-up and 16 GMM launches "
+          f"included) beside the library entry point's {lib['entry_fps']:.1f} frames/s "
+          f"(a warm BatchDecoder wave of this call) | {card}", flush=True)
+    return {"gmm_logsumexp": {"launches_cli_20k": launches[0]},
+            "frame_step": {"launches_cli_20k": launches[1], "cli_20k_fps": fps_pad,
+                           "cli_20k_stages": {"text write": t_write, **st}}}
+
+
+def phase_cli_otf(card, dev, lib, phase_done):
+    """[cli otf]: the 20k on-the-fly pair through -gramFsmFName (see the
+    module docstring). `lib` holds [otf]'s utterances, main-path results
+    and tuned budgets. Returns the kernels line's CLI fields."""
+    import tempfile
+
+    import numpy as np
+
+    from juicer_tpu_torch.am.models import AcousticModelSet
+    from juicer_tpu_torch.compile import arpa_grammar
+    from juicer_tpu_torch.decoder.network import DecoderNetwork
+    from juicer_tpu_torch.decoder.otf import GNetwork
+    from juicer_tpu_torch.fst import read_fsm
+    from juicer_tpu_torch.harness import wsj_task
+    from juicer_tpu_torch.lexicon import load_vocabulary
+
+    cache = wsj_task.task_dir("20k")
+    p = wsj_task.OTF_POINT
+    tuned = lib["tuned"]
+    if tuned.final_budget != 1024:
+        raise RuntimeError(f"[cli otf] the tuner moved F to {tuned.final_budget}; the CLI "
+                           f"has no flag for it (its F is 1024)")
+    B = len(lib["utts"])
+    cl = DecoderNetwork.load_npz(os.path.join(cache, "cl.npz"))
+    models = AcousticModelSet.load_npz(os.path.join(cache, "models.npz"))
+    vocab = load_vocabulary(os.path.join(cache, "phones.lst"), os.path.join(cache, "lex.dict"),
+                            "<s>", "</s>")
+    G = arpa_grammar(vocab, os.path.join(cache, "lm.arpa"))
+    g_want = GNetwork(G)
+    names = [f"u{i}" for i in range(B)]
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        base, _ = write_cli_task(td, cache, cl, models, lib["utts"], names)
+        write_fst_text(G, os.path.join(td, "g.fsm"))
+        t_write = time.perf_counter() - t0
+        back = DecoderNetwork.from_files(*(os.path.join(td, n)
+                                           for n in ("net.fsm", "in.syms", "out.syms")),
+                                         remove_aux="input")
+        same, differ = check_network_read_back("cli otf", back, cl)
+        g_got = GNetwork(read_fsm(os.path.join(td, "g.fsm")))
+        for k in ("arc_il", "arc_dst", "arc_w", "row_ptr", "bo_dst", "bo_w", "final_w",
+                  "final_reach", "arc_key"):
+            if not np.array_equal(getattr(g_got, k), getattr(g_want, k)):
+                raise RuntimeError(f"[cli otf] G read from text differs in {k}")
+        if (g_got.n_states, g_got.init_state, g_got.max_backoff) != (
+                g_want.n_states, g_want.init_state, g_want.max_backoff):
+            raise RuntimeError("[cli otf] G read from text differs in its scalars")
+        out = os.path.join(td, "out.txt")
+        argv = base + ["-gramFsmFName", os.path.join(td, "g.fsm"), "-refFName",
+                       os.path.join(td, "refs.txt"), "-removeSentMarks", "-batchSize", str(B),
+                       "-mainBeam", str(p["beam"]), "-phoneEndBeam", str(p["end_beam"]),
+                       "-wordEmitBeam", str(p["end_beam"]), "-maxHyps", str(p["maxhyps"]),
+                       "-maxInsts", str(tuned.max_insts), "-expandBudget",
+                       str(tuned.expand_budget), "-outputFormat", "verbose",
+                       "-outputFName", out]
+        report, launches, n_ov = run_cli(argv)
+        acc, rt = verbose_summary(out)
+    why = "on-the-fly composition: the kernel searches a static network"
+    if report.route != f"route: plain frame loop ({why})":
+        raise RuntimeError(f"[cli otf] route {report.route!r}")
+    if not acc.startswith("Word accuracy = 100.00%") or n_ov:
+        raise RuntimeError(f"[cli otf] not certified: {acc!r}, {n_ov} overflow warnings")
+    if launches != (B, 0):
+        raise RuntimeError(f"[cli otf] launches gmm_logsumexp, frame_step {launches}; "
+                           f"expected {B} and 0")
+    n_held = same_as_library("cli otf", report.results, lib["results"], lib["markers"])
+    st = report.stages
+    print(f"[cli otf] CL ({cl.n_arcs} arcs) and G ({G.num_arcs} arcs) written as text in "
+          f"{t_write:.2f}s and read back equal to cl.npz and to the in-memory G (every "
+          f"array; {', '.join(same)} equal"
+          + (f", {', '.join(differ)} differ" if differ else "") + f"); {report.route}; "
+          f"-maxInsts {tuned.max_insts} -expandBudget {tuned.expand_budget} (the tuned "
+          f"budgets of [otf]); certified: {acc}; launches gmm_logsumexp {launches[0]}, "
+          f"frame_step {launches[1]}; all {n_held} utterances equal [otf]'s main path (words, "
+          f"word-end frames, scores); seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in st.items()) + f"; {rt} | {card}", flush=True)
+    phase_done("cli otf")
+    return {"gmm_logsumexp": {"launches_cli_otf": launches[0]},
+            "frame_step": {"launches_cli_otf": launches[1]}}
 
 
 if __name__ == "__main__":

@@ -26,6 +26,11 @@ against; nothing here imports it, or JAX. The port's slices so far:
     the fused scan on the card;
   - `decoder.stream`: the streaming decoder with partial results, one
     launch of the fused scan a chunk on the card;
+  - `cli.juicer`: the decoder CLI (`jtpu-juicer-torch`, or `python -m
+    juicer_tpu_torch.cli.juicer`), with its readers: AT&T FSM and symbol
+    files (`fst.io`, the native parser), HTK MMF models (`am.mmf`),
+    hybrid model sets, CMLLR input transforms (`am.xform`), HTK and LNA
+    features and the batch tester with WER (`harness`);
   - `harness.wsj_task`: the cached WSJ-order tasks (2k and 20k words),
     their on-the-fly composition pairs (`load_otf_task`), the reference
     bench's operating point and the on-the-fly script's (`OTF_POINT`).
@@ -45,6 +50,8 @@ raise instead of running on the CPU; tests pass `device="cpu"`.
 from __future__ import annotations
 
 import torch
+
+__version__ = "0.1.0"
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -9,8 +9,9 @@ match-or-backoff (`binarySearchInLabel` and the eps/backoff path walk,
 G is held as word arcs sorted by (state, input label) in CSR form, at
 most one backoff (epsilon input) arc per state, final weights and
 `final_reach` (the weight of the backoff walk to a final state). Weights
-are decoder-internal: negated costs, higher is better (the JAX class's
-`lm_scale` is not copied: no caller here scales G).
+are decoder-internal: negated costs scaled by `lm_scale`, higher is
+better. Backoff arcs are the epsilon-input arcs and, where the grammar's
+symbols have one, the `#phi`-labelled arcs (`phi_label`).
 
 The JAX class also lays the arcs out as padded (states, R) rows and dense
 (D, W) word-indexed tables: a TPU gathers rows and compares lanes where a
@@ -35,16 +36,17 @@ class GNetwork:
 
     ARPA-built machines have at most one backoff arc a state
     (`compile.gram.arpa_grammar` emits one per context); another raises.
-    Backoff arcs are the epsilon-input arcs (the JAX class also takes a
-    `#phi` label, which the port's grammar does not emit)."""
+    Backoff arcs are the epsilon-input arcs and the arcs labelled
+    `phi_label` (the index of `#phi` in G's input symbols, -1 for none).
+    Weights are -cost * lm_scale, rounded once in float64."""
 
-    def __init__(self, fst: Fst):
+    def __init__(self, fst: Fst, lm_scale: float = 1.0, phi_label: int = -1):
         src, dst, il, _, w = fst.arcs_numpy()
-        weight = -w
+        weight = -w * lm_scale
         self.n_states = fst.num_states
         self.init_state = fst.start
 
-        is_bo = il == EPSILON
+        is_bo = (il == EPSILON) | ((phi_label > 0) & (il == phi_label))
         bo = np.nonzero(is_bo)[0]
         if len(np.unique(src[bo])) != len(bo):
             s = int(src[bo][np.flatnonzero(np.bincount(src[bo]) > 1)[0]])
@@ -67,7 +69,7 @@ class GNetwork:
 
         self.final_w = np.full(self.n_states, LOG_ZERO, dtype=np.float64)
         for s, fw in fst.finals.items():
-            self.final_w[s] = -fw
+            self.final_w[s] = -fw * lm_scale
         self.final_reach = self._final_reach()
         self.max_backoff = self._max_backoff_depth()
         self._key_arcs()

@@ -1,9 +1,11 @@
-"""The FST algorithms a lattice needs, as in `juicer_tpu/fst/algos.py`:
-`connect` (trim to accessible and coaccessible states), `project` and the
-tropical `shortest_path`."""
+"""The FST algorithms the decode path needs, as in `juicer_tpu/fst/algos.py`:
+for lattices `connect` (trim to accessible and coaccessible states),
+`project` and the tropical `shortest_path`; for the decoder CLI's
+`-genTestSeqs`, `generate_sequences`."""
 
 from __future__ import annotations
 
+import random
 from collections import deque
 from typing import Optional
 
@@ -118,3 +120,35 @@ def shortest_path(f: Fst) -> tuple[float, list[int], list[int]]:
         if guard > f.num_arcs + f.num_states:
             raise RuntimeError("shortest_path: backtrace loop")
     return best_c, il[::-1], ol[::-1]
+
+
+def generate_sequences(f: Fst, n: int = 10, max_len: int = 1000, seed: Optional[int] = None
+                       ) -> list[tuple[list[int], list[int], float]]:
+    """Random accepted paths: (ilabels, olabels, cost) triples (eps dropped),
+    with the JAX function's `random.Random(seed)` draws, so a seed gives
+    the same sequences (`WFSTNetwork::generateSequences` analogue)."""
+    rng = random.Random(seed)
+    if f.start < 0 or f.num_states == 0:
+        return []
+    adj = f.out_arcs()
+    out = []
+    for _ in range(n):
+        s = f.start
+        il: list[int] = []
+        ol: list[int] = []
+        cost = 0.0
+        for _ in range(max_len):
+            opts = adj[s]
+            if f.is_final(s) and (not opts or rng.random() < 0.1):
+                out.append((il, ol, cost + f.final_weight(s)))
+                break
+            if not opts:
+                break  # dead end, discard
+            ai = opts[rng.randrange(len(opts))]
+            if f.arc_ilabel[ai] != EPSILON:
+                il.append(int(f.arc_ilabel[ai]))
+            if f.arc_olabel[ai] != EPSILON:
+                ol.append(int(f.arc_olabel[ai]))
+            cost += float(f.arc_weight[ai])
+            s = int(f.arc_dst[ai])
+    return out

@@ -1,11 +1,14 @@
-"""ctypes binding for the eps/tee closure of the native host library.
+"""ctypes binding for the native host library: the AT&T text FSM parser
+and the eps/tee closure.
 
-Counterpart of `get_lib` and `closure` in `juicer_tpu/native.py`. It
-compiles the repository's shared C++ source `native/jtpu_native.cpp` with
-g++ into this package's own build directory (`_native_build/`, rebuilt
-when the source is newer) and exposes only the closure entry, which the
-artifact build needs. Without a C++ toolchain it raises: the port keeps
-no pure-Python closure.
+Counterpart of `get_lib`, `parse_fsm` and `closure` in
+`juicer_tpu/native.py`. It compiles the repository's shared C++ source
+`native/jtpu_native.cpp` with g++ into this package's own build
+directory (`_native_build/`, rebuilt when the source is newer) and
+exposes the two entries the decode path needs: `parse_fsm` for
+`fst.read_fsm` and `closure` for the artifact build. Without a C++
+toolchain it raises: the port keeps no pure-Python closure, and its
+Python FSM parser is reached only by `read_fsm(use_native=False)`.
 """
 
 from __future__ import annotations
@@ -24,6 +27,22 @@ _LIB = os.path.join(_LIB_DIR, "libjtpu_native.so")
 
 _lock = threading.Lock()
 _lib = None
+
+
+class _FsmResult(ctypes.Structure):
+    _fields_ = [
+        ("n_arcs", ctypes.c_int64),
+        ("n_finals", ctypes.c_int64),
+        ("init_state", ctypes.c_int32),
+        ("max_state", ctypes.c_int32),
+        ("src", ctypes.POINTER(ctypes.c_int32)),
+        ("dst", ctypes.POINTER(ctypes.c_int32)),
+        ("ilab", ctypes.POINTER(ctypes.c_int32)),
+        ("olab", ctypes.POINTER(ctypes.c_int32)),
+        ("weight", ctypes.POINTER(ctypes.c_double)),
+        ("final_state", ctypes.POINTER(ctypes.c_int32)),
+        ("final_weight", ctypes.POINTER(ctypes.c_double)),
+    ]
 
 
 class _ClosureResult(ctypes.Structure):
@@ -63,6 +82,9 @@ def get_lib() -> ctypes.CDLL:
             )
             os.replace(tmp, _LIB)
         lib = ctypes.CDLL(_LIB)
+        lib.jtpu_parse_fsm.restype = ctypes.POINTER(_FsmResult)
+        lib.jtpu_parse_fsm.argtypes = [ctypes.c_char_p]
+        lib.jtpu_free_fsm.argtypes = [ctypes.POINTER(_FsmResult)]
         lib.jtpu_closure.restype = ctypes.POINTER(_ClosureResult)
         lib.jtpu_closure.argtypes = [
             ctypes.c_int64,
@@ -81,6 +103,30 @@ def _copy(ptr, n, dtype):
     if n == 0:
         return np.zeros(0, dtype=dtype)
     return np.ctypeslib.as_array(ptr, shape=(n,)).astype(dtype, copy=True)
+
+
+def parse_fsm(path: str):
+    """Native AT&T text FSM parse: (src, dst, ilabel, olabel, weight,
+    final states, final weights, initial state), numpy arrays and an int.
+    The initial state is the first arc line's source (-1 without arcs);
+    lines that do not parse are skipped."""
+    lib = get_lib()
+    rp = lib.jtpu_parse_fsm(os.fsencode(path))
+    if not rp:
+        raise OSError(f"jtpu_parse_fsm could not read {path}")
+    r = rp.contents
+    out = (
+        _copy(r.src, r.n_arcs, np.int32),
+        _copy(r.dst, r.n_arcs, np.int32),
+        _copy(r.ilab, r.n_arcs, np.int32),
+        _copy(r.olab, r.n_arcs, np.int32),
+        _copy(r.weight, r.n_arcs, np.float64),
+        _copy(r.final_state, r.n_finals, np.int32),
+        _copy(r.final_weight, r.n_finals, np.float64),
+        int(r.init_state),
+    )
+    lib.jtpu_free_fsm(rp)
+    return out
 
 
 def closure(n_states, row_ptr, arc_dst, arc_il, arc_ol, arc_w, final_w, tee,

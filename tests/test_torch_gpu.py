@@ -11,6 +11,7 @@ Without a card every test skips.
 
 import dataclasses
 import itertools
+import os
 
 import numpy as np
 import pytest
@@ -173,7 +174,7 @@ def _fuzz_artifact(seed, n_states=40, n_models=5, n_emit=3, n_gmms=12):
     for s_ in range(n_states - 1):
         arcs.append((s_, s_ + 1, int(rng.integers(1, n_models + 1)), 0, -0.1))
     arcs.sort(key=lambda a: a[0])
-    net = DecoderNetwork()
+    net = DecoderNetwork.__new__(DecoderNetwork)  # the arrays are set below
     cols = list(zip(*arcs))
     net.arc_src, net.arc_dst, net.arc_ilabel, net.arc_olabel = (
         np.asarray(c, np.int32) for c in cols[:4])
@@ -659,3 +660,181 @@ def test_otf_under_auto_raises_on_the_card(card):
     got = BatchDecoder(dec, use_fused=False).decode_scores_batch(sc[None])[0]
     assert got.words == dec.decode_scores(sc, use_fused=False).words
     assert fused_scan.counter.launches == n0
+
+
+# ---- the decoder CLI on the card against the CLI on the CPU ----------------
+
+CLI_PHONES = ["ah", "k", "ae", "t", "sil"]
+CLI_WORDS = {"a": ["ah"], "cat": ["k", "ae", "t"]}
+CLI_UTTS = [["a", "cat"], ["cat"], ["a"], ["cat", "a", "cat"], ["a", "a"]]
+TIMING = ("Total time spent decoding", "Real-time (RT) factor")
+
+
+def _word_loop(f, labels, lm):
+    """<s> (word)* </s> over the phone models: state 0 -sil:<s>-> 1, every
+    word a chain of its phones from 1 back to 1 (the first arc carries the
+    word and the cost lm[word]), 1 -sil:</s>-> 2, final."""
+    hmm = {p: i + 1 for i, p in enumerate(CLI_PHONES)}
+    f.set_start(0)
+    f.add_arc(0, 1, hmm["sil"], labels["<s>"], 0.0)
+    for w, phones in CLI_WORDS.items():
+        src = 1
+        for i, p in enumerate(phones):
+            dst = 1 if i == len(phones) - 1 else f.add_state()
+            f.add_arc(src, dst, hmm[p], labels[w] if i == 0 else 0, lm.get(w, 0.0) if i == 0
+                      else 0.0)
+            src = dst
+    f.add_arc(1, 2, hmm["sil"], labels["</s>"], lm.get("</s>", 0.0))
+    f.set_final(2, 0.0)
+    return f
+
+
+@pytest.fixture(scope="module")
+def cli_task(tmp_path_factory):
+    """A synthetic task written with the port's own writers: an MMF of five
+    well-separated phone models, a word-loop CLG, its CL with a backoff G
+    for on-the-fly composition, symbol files, a lexicon, five utterances
+    of HTK features synthesised from the models and their references."""
+    from juicer_tpu_torch.am.mmf import MmfDef, MmfHmm, MmfMixture, MmfState, MmfTransMat
+    from juicer_tpu_torch.am.mmf import write_mmf
+    from juicer_tpu_torch.fst import SymbolTable, write_fsm, write_symbols
+    from juicer_tpu_torch.harness.features import write_htk
+
+    td = tmp_path_factory.mktemp("cli_gpu")
+    rng = np.random.default_rng(0)
+    D = 8
+    d = MmfDef()
+    d.global_opts.vec_size = D
+    centers = {}
+    for name in CLI_PHONES:
+        probs = np.zeros((5, 5))
+        probs[0, 1] = 1
+        for i in range(1, 4):
+            probs[i, i] = probs[i, i + 1] = 0.5
+        center = rng.normal(scale=6.0, size=D)
+        means = [center + rng.normal(scale=0.5, size=D) for _ in range(3)]
+        centers[name] = means
+        d.hmms.append(MmfHmm(name, 5, [MmfState(mixtures=[MmfMixture(1.0, m, np.ones(D))])
+                                       for m in means], MmfTransMat(None, 5, probs)))
+    write_mmf(d, str(td / "models.mmf"))
+    (td / "lex.dict").write_text("a ah\ncat k ae t\n<s> sil\n</s> sil\n")
+    words = sorted(["a", "cat", "<s>", "</s>"])
+    labels = {w: i + 1 for i, w in enumerate(words)}
+    write_symbols(SymbolTable(["<eps>"] + CLI_PHONES), str(td / "in.syms"))
+    write_symbols(SymbolTable(["<eps>"] + words), str(td / "out.syms"))
+    write_fsm(_word_loop(Fst(LOG), labels, {"a": 0.7, "cat": 1.2, "</s>": 0.4}),
+              str(td / "clg.fsm"))
+    write_fsm(_word_loop(Fst(LOG), labels, {}), str(td / "cl.fsm"))
+    g = Fst(LOG)  # 0 -<s>-> 1; unigram state 2; word histories 3, 4; 5 final
+    g.set_start(0)
+    g.add_arc(0, 1, labels["<s>"], labels["<s>"], 0.0)
+    for s, bo in ((1, 0.3), (3, 0.5), (4, 0.6)):
+        g.add_arc(s, 2, 0, 0, bo)
+    g.add_arc(1, 3, labels["a"], labels["a"], 0.4)
+    g.add_arc(3, 4, labels["cat"], labels["cat"], 0.2)
+    for w, s, c in (("a", 3, 1.1), ("cat", 4, 1.3), ("</s>", 5, 0.9)):
+        g.add_arc(2, s, labels[w], labels[w], c)
+    g.set_final(5, 0.0)
+    write_fsm(g, str(td / "g.fsm"))
+    lines = []
+    for u, utt in enumerate(CLI_UTTS):
+        frames = []
+        for p in ["sil"] + [p for w in utt for p in CLI_WORDS[w]] + ["sil"]:
+            for m in centers[p]:
+                frames += [m + rng.normal(scale=0.3, size=D) for _ in range(3 + u % 2)]
+        write_htk(str(td / f"u{u}.mfc"), np.asarray(frames))
+        lines.append(str(td / f"u{u}.mfc"))
+    (td / "in.lst").write_text("\n".join(lines) + "\n")
+    (td / "refs.txt").write_text("".join(f"<s> {' '.join(u)} </s>\n" for u in CLI_UTTS))
+    return td
+
+
+def _cli_argv(td, fsm="clg"):
+    return ["-lexFName", str(td / "lex.dict"), "-sentStartWord", "<s>", "-sentEndWord",
+            "</s>", "-fsmFName", str(td / f"{fsm}.fsm"), "-inSymsFName", str(td / "in.syms"),
+            "-outSymsFName", str(td / "out.syms"), "-htkModelsFName", str(td / "models.mmf"),
+            "-inputFName", str(td / "in.lst"), "-refFName", str(td / "refs.txt")]
+
+
+CLI_CASES = {
+    "per_utterance": ([], "route: frame_step kernel"),
+    "batch": (["-batchSize", "3"], "route: frame_step kernel"),
+    "otf": (["-gramFsmFName", "{G}", "-batchSize", "2", "-pushing"],
+            "route: plain frame loop (on-the-fly composition: the kernel searches a static "
+            "network)"),
+    "lattice": (["-latticeDir", "{LAT}"],
+                "route: plain frame loop (gen_lattice: the kernel writes no lattice records)"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(CLI_CASES))
+def test_cli_on_the_card_equals_the_cpu(card, cli_task, tmp_path, case):
+    """The CLI's output on the card equals its output with -device cpu
+    (timing lines aside; lattice files: states and labels equal, weights
+    within 2e-3 + 1e-5 of their size), 100 % word accuracy; the
+    route line names the kernel or the plain loop's reason, and the
+    kernels launch as the route says (`gmm_logsumexp` once an utterance,
+    `frame_step` once a batch or an utterance on the kernel's route)."""
+    from juicer_tpu_torch.cli import juicer
+
+    flags, route = CLI_CASES[case]
+    fsm = "cl" if case == "otf" else "clg"
+    texts, reports = {}, {}
+    for dev in ("cuda", "cpu"):
+        argv = [f.replace("{G}", str(cli_task / "g.fsm"))
+                .replace("{LAT}", str(tmp_path / f"lat_{dev}")) for f in flags]
+        out = tmp_path / f"{dev}.out"
+        n0 = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+        reports[dev] = juicer.run(_cli_argv(cli_task, fsm) + argv
+                                  + ["-device", dev, "-outputFName", str(out)])
+        launches = (gmm_cuda.counter.launches - n0[0], fused_scan.counter.launches - n0[1])
+        texts[dev] = [ln for ln in out.read_text().splitlines() if not ln.startswith(TIMING)]
+        if dev == "cuda":
+            n_fs = {"per_utterance": len(CLI_UTTS), "batch": 2}.get(case, 0)
+            assert launches == (len(CLI_UTTS), n_fs), launches
+    assert reports["cuda"].route == route
+    assert reports["cpu"].route == "route: plain frame loop (device cpu)"
+    assert texts["cuda"] == texts["cpu"]
+    assert any(ln.startswith("Word accuracy = 100.00%") for ln in texts["cuda"])
+    if case == "lattice":
+        # the card scores with the GMM kernel, the CPU with the plain scorer
+        # (1e-4 apart a frame at |score| ~3e2): an edge's float32 weight,
+        # up to ~2e4 on dead paths, carries that within 1e-5 of its size,
+        # and is written with three decimals
+        names = sorted(os.listdir(tmp_path / "lat_cuda"))
+        assert names == sorted(os.listdir(tmp_path / "lat_cpu")) and names
+        for n in names:
+            a = [ln.split() for ln in (tmp_path / "lat_cuda" / n).read_text().splitlines()]
+            b = [ln.split() for ln in (tmp_path / "lat_cpu" / n).read_text().splitlines()]
+            assert len(a) == len(b) > 0, n
+            for ra, rb in zip(a, b):
+                k = 4 if len(rb) >= 4 else 1
+                assert ra[:k] == rb[:k], (n, ra, rb)
+                assert all(abs(float(x) - float(y)) <= 2e-3 + 1e-5 * abs(float(y))
+                           for x, y in zip(ra[k:], rb[k:])), (n, ra, rb)
+
+
+@pytest.mark.gpu
+def test_cli_loop_on_the_card_equals_the_cpu(card, cli_task, monkeypatch, capsys):
+    """-loop: the stream's partial and final lines on the card equal the
+    CPU's; one frame_step launch a chunk on the card."""
+    import io
+    import sys
+
+    from juicer_tpu_torch.cli import juicer
+    from juicer_tpu_torch.harness.features import read_htk
+
+    feats = read_htk(str(cli_task / "u3.mfc"))[0]
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        monkeypatch.setattr(sys, "stdin",
+                            io.TextIOWrapper(io.BytesIO(feats.astype("<f4").tobytes())))
+        n0 = fused_scan.counter.launches
+        report = juicer.run(_cli_argv(cli_task) + ["-loop", "-loopChunk", "20", "-device", dev])
+        outs[dev] = capsys.readouterr().out
+        if dev == "cuda":
+            assert report.route == "route: frame_step kernel"
+            assert fused_scan.counter.launches - n0 == -(-len(feats) // 20)
+    assert outs["cuda"] == outs["cpu"]
+    assert outs["cuda"].splitlines()[-1] == "final: <s> cat a cat </s>"
