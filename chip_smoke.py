@@ -164,6 +164,21 @@ Phases (any failure raises and exits non-zero before the result line):
            juicer_tpu_torch.cli.juicer`), the sentence's float32 frames on
            stdin: its `final:` line equals (a)'s words and the `partial:`
            words are a prefix of them; the route line names the kernel;
+  [cli ref 2k] (d) `-refCore` on the sentence, from (a)'s caches: route line
+     `oracle token passing on the host`, launches gmm_logsumexp 1 and
+     frame_step 0; words and word-end frames equal (a)'s (the kernel route)
+     and the transcript; score, acoustic and LM within 16 float32 spacings
+     of (a)'s (the oracle sums in float64 what the kernel sums in float32);
+     the oracle's seconds and frames/s printed;
+  [cli loop audio 2k] (e) `-loop -audioDevice - -loopChunk 100` as a
+     subprocess, 300 frames of `wsj_task.sample_audio` (seed 13) as S16LE
+     PCM on stdin: the `partial:` and `final:` words equal the library's,
+     computed before the 2k tables are released (`[2k stream audio]`: the
+     same PCM through `capture_features`, the streaming front end on the
+     card, each chunk scored by the GMM kernel and fed to a
+     `StreamingDecoder` of the CLI's configuration: one launch of each
+     kernel a chunk); stderr names the kernel route and the front end on
+     the card;
   [cli 20k] the slice's full-width path, after the [20k] task is released
      (its host artifact and tables: two in-memory builds may not fit):
        - files: the 20k CLG (7,870,751 arcs) as text, symbol files, the
@@ -188,6 +203,24 @@ Phases (any failure raises and exits non-zero before the result line):
          network, models, artifact, tables, features, decode, output),
          the CLI's frames/s beside the library entry point's of this
          call, the verbose output's RT factor;
+  [cli audio 20k] in [cli 20k]'s directory, the slice's path at full
+     width: 16 wav files of `wsj_task.sample_audio` (seed 21) whose MFCC
+     lengths are [20k]'s T twice over, a two-class base-class file and an
+     MLLRMEAN set of two transforms from the same seed. The library side
+     runs at the end of [20k] on its decoder (`[20k audio]`): the batched
+     front end on the card (`frontend.mfcc_batch`) within 1e-4 of `mfcc`
+     of each utterance on the CPU; `apply_mllr_means` on the card, its
+     float64 means and flat parameters within 1e-12 (relative above 1) of
+     the CPU's; each utterance scored by the GMM kernel on the adapted
+     parameters, edge-padded, one `BatchDecoder` wave. The CLI, one call
+     with `-inputFormat factory -mllrXformFile -regClassFile -batchSize 16`
+     at `WSJ_POINT`: route `frame_step kernel`, `front end: MFCC ... on
+     cuda`, launches gmm_logsumexp 16 and frame_step 1, every utterance's
+     words, word-end frames and score equal to the library's bit for bit,
+     its overflow warnings as many as the library's overflowing
+     utterances (the audio's flat likelihoods fill the bench's budgets;
+     counted, not hidden); the seconds of every stage printed (front end,
+     mllr, artifact, decode among them);
   [cli otf] after [otf]: CL (`cl.npz`) and G (`arpa_grammar` of
      `lm.arpa`) written as text and read back equal (the network's arrays
      and `GNetwork`'s); the CLI with `-gramFsmFName`, `-batchSize 8` at
@@ -195,6 +228,10 @@ Phases (any failure raises and exits non-zero before the result line):
      frame loop (on-the-fly composition: ...)`, certified, launches
      gmm_logsumexp 8 and frame_step 0, every utterance equal to [otf]'s
      main path;
+  [gramgen 20k] `jtpu-gramgen-torch -gramType ngram` (its `main`) on the 20k
+     lex.dict and lm.arpa: its G read back from the text equals [cli
+     otf]'s `arpa_grammar` (the G of [otf]) arc for arc, labels and states
+     exactly, weights within the text's three decimals;
   8. result: a `kernels` JSON line (both kernels, with the 20k fields, the
      OTF path's launches and the CLI phases' launches), the seconds of
      each phase, the card line, and last {"ok": true, "device":
@@ -220,6 +257,10 @@ PEAK_BYTES = 3.35e12
 GMM_ATOL = 1e-3
 B2 = 132  # the wide wave: the same utterances tiled to one block an SM
 STREAM_CHUNK = 100  # frames a feed of the streaming decoder
+AUDIO_SEED = 21  # [cli audio 20k]: the audio and the MLLR transforms
+LOOP_SEED, LOOP_FRAMES = 13, 300  # [cli loop audio 2k]'s audio
+FRONT_ATOL = 1e-4  # the batched front end on the card against `mfcc` on the CPU
+PARAM_TOL = 1e-12  # adapted float64 parameters, card against CPU, relative above 1
 
 
 def card_line() -> str:
@@ -719,12 +760,15 @@ def main() -> int:
     lattice_phase("2k", art, cfg, scorer, xs, card, against_cpu=True)
     phase_done("2k lattice")
 
+    loop_lib = stream_audio_library(art, task, scorer, dev)
+    phase_done("2k stream audio")
+
     at_2k = dict(fs_ms=fs_ms, fs_ms2=fs_ms2, fps=fps, fps2=fps2, fps_device=fps_device,
                  fps_device2=fps_device2, gmm16=gmm16, gmm132=gmm132)
     # release the 2k task's tables and waves before the CLI's and the 20k
     # task's; keep the results the CLI is held to
     cli_lib = dict(utts=utts[:4], results=results[:4], sent=(words_s, xs.numpy()),
-                   sent_result=r_card)
+                   sent_result=r_card, transcript=transcript, markers=markers, loop=loop_lib)
     del task, art, dec, bd, fs, scores, scores_tbg, x, feats, sc_card, plain_results
     gc.collect()
     torch.cuda.empty_cache()
@@ -743,7 +787,8 @@ def main() -> int:
     otf = phase_otf(card, dev, k20.pop("static"), phase_done)
     cli_lib = otf.pop("cli")
     gc.collect()
-    cliotf = phase_cli_otf(card, dev, cli_lib, phase_done)
+    cliotf, G = phase_cli_otf(card, dev, cli_lib, phase_done)
+    phase_gramgen_20k(card, G, phase_done)
     cli = {k: {**cli2k[k], **cli20[k], **cliotf[k]} for k in ("gmm_logsumexp", "frame_step")}
 
     # ---- 8. result ------------------------------------------------------
@@ -1223,11 +1268,14 @@ def phase_20k(card, dev, at_2k, phase_done):
     phase_done("20k parity")
     lattice_phase("20k", art, cfg, scorer, torch.as_tensor(xs), card, against_cpu=False)
     phase_done("20k lattice")
+    audio = audio_library(task, dec, [f.shape[0] for _, f in utts] * 2, dev, card)
+    phase_done("20k audio")
 
     static["entry_fps"] = entry[B][1]
     return {
         "static": static,
-        "cli": dict(utts=utts, results=plain_results, markers=markers, entry_fps=entry[B][1]),
+        "cli": dict(utts=utts, results=plain_results, markers=markers, entry_fps=entry[B][1],
+                    audio=audio),
         "gmm_logsumexp": {
             "ms_20k": gmm16["ms"], "ms_20k_b132": gmm132["ms"], "ms_20k_repeats": repeats,
             "bound_ms_20k": gmm16["bound_ms"], "bound_ms_20k_b132": gmm132["bound_ms"],
@@ -1722,7 +1770,8 @@ def phase_cli_2k(card, dev, lib, phase_done):
                                f"overflow warnings {n_ov}")
         same_as_library("cli 2k (a)", report.results, lib["results"] + [lib["sent_result"]],
                         set())
-        sent_words = [w.index + 1 for w in report.results[-1].words]
+        sent_a = report.results[-1]
+        sent_words = [w.index + 1 for w in sent_a.words]
         print(f"[cli 2k] (a) -batchSize 1 -outputFormat xmlf -writeBinaryFiles: {n} "
               f"utterances, {report.route}; launches gmm_logsumexp {launches[0]}, frame_step "
               f"{launches[1]} (one each an utterance); words, word-end frames and scores "
@@ -1784,11 +1833,147 @@ def phase_cli_2k(card, dev, lib, phase_done):
               f"start and set-up included): {len(words)} partial words, each a prefix of "
               f"(a)'s {len(want)}, final equal to (a)'s words; route: frame_step kernel",
               flush=True)
-    phase_done("cli 2k")
+        phase_done("cli 2k")
+        launches_d = phase_cli_ref_2k(card, argv_b + point, td, sent_a, lib, phase_done)
+        phase_cli_loop_audio_2k(card, base + point, out_syms, lib["loop"], phase_done)
     return {"gmm_logsumexp": {"launches_cli_2k": launches_a[0],
-                              "launches_cli_2k_lattice": launches_b[0]},
+                              "launches_cli_2k_lattice": launches_b[0],
+                              "launches_cli_ref_2k": launches_d[0],
+                              "launches_stream_audio_2k": lib["loop"]["launches"][0]},
             "frame_step": {"launches_cli_2k": launches_a[1],
-                           "launches_cli_2k_lattice": launches_b[1]}}
+                           "launches_cli_2k_lattice": launches_b[1],
+                           "launches_cli_ref_2k": launches_d[1],
+                           "launches_stream_audio_2k": lib["loop"]["launches"][1]}}
+
+
+def f32_spacings(a, b, size):
+    """|a - b| in float32 spacings at |size|."""
+    import numpy as np
+
+    return abs(a - b) / float(np.spacing(np.float32(abs(size))))
+
+
+def phase_cli_ref_2k(card, argv, td, sent_a, lib, phase_done):
+    """[cli ref 2k] (d): -refCore on the seed-12 sentence, from (a)'s binary
+    caches: the oracle token passing on the host over one host copy of the
+    sentence's GMM kernel scores. Its words are the transcript and (a)'s;
+    its scores lie within 16 float32 spacings of (a)'s (the frame-step
+    route sums in float32, the oracle in float64). Returns the launches."""
+    report, launches, n_ov = run_cli(argv + ["-refCore", "-outputFormat", "xmlf",
+                                             "-outputFName", os.path.join(td, "d.mlf")])
+    route = "route: oracle token passing on the host (-refCore; GMM scores on cuda"
+    if not report.route.startswith(route) or launches != (1, 0) or n_ov:
+        raise RuntimeError(f"[cli ref 2k]: route {report.route!r}, launches {launches}, "
+                           f"overflow warnings {n_ov}")
+    ur = report.results[0]
+    got = [(w.index + 1, w.end_time) for w in ur.words]
+    if got != [(w.index + 1, w.end_time) for w in sent_a.words]:
+        raise RuntimeError(f"[cli ref 2k]: the oracle's words or word-end frames {got} differ "
+                           f"from the kernel route's")
+    if [i for i, _ in got if i not in lib["markers"]] != lib["transcript"]:
+        raise RuntimeError("[cli ref 2k]: the oracle's words are not the transcript")
+    gaps = [f32_spacings(ur.total_score, sent_a.total_score, sent_a.total_score),
+            f32_spacings(ur.total_acoustic, sent_a.total_acoustic, sent_a.total_acoustic),
+            f32_spacings(ur.total_lm, sent_a.total_lm, sent_a.total_acoustic)]
+    if not max(gaps) <= 16:
+        raise RuntimeError(f"[cli ref 2k]: scores {gaps} float32 spacings from the kernel "
+                           f"route's")
+    st = report.stages
+    print(f"[cli ref 2k] (d) -refCore on the {ur.n_frames}-frame sentence: {report.route}; "
+          f"launches gmm_logsumexp {launches[0]}, frame_step {launches[1]}; {len(got)} words "
+          f"and word-end frames equal (a)'s (the kernel route) and the transcript; score "
+          f"{ur.total_score!r} against {sent_a.total_score!r}, acoustic {ur.total_acoustic!r} "
+          f"against {sent_a.total_acoustic!r}, lm {ur.total_lm!r} against "
+          f"{sent_a.total_lm!r}: {', '.join(f'{g:.2f}' for g in gaps)} float32 spacings "
+          f"(bound 16); the oracle's decode {st['decode']:.3f}s ({ur.n_frames / st['decode']:.1f} "
+          f"frames/s on the host); seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in st.items()) + f" | {card}", flush=True)
+    phase_done("cli ref 2k")
+    return launches
+
+
+def phase_cli_loop_audio_2k(card, argv, out_syms, lib, phase_done):
+    """[cli loop audio 2k] (e): -loop -audioDevice - as a subprocess, the
+    S16LE PCM of `lib` on stdin: the streaming front end and the stream
+    decoder on the card. Its partial and final words equal the library's
+    (`StreamingDecoder` fed the port's `StreamingFrontend` on the same PCM
+    on the card, `stream_audio_library`)."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "juicer_tpu_torch.cli.juicer", *argv, "-loop", "-loopChunk",
+         str(STREAM_CHUNK), "-audioDevice", "-"],
+        input=lib["pcm"].tobytes(), capture_output=True, cwd=ROOT, timeout=600)
+    t_loop = time.perf_counter() - t0
+    err = out.stderr.decode()
+    if out.returncode != 0:
+        raise RuntimeError(f"[cli loop audio 2k] exited {out.returncode}: {err[-2000:]}")
+    lines = out.stdout.decode().splitlines()
+    partial = [ln.split(": ", 1)[1].split(" (frame")[0] for ln in lines
+               if ln.startswith("partial: ")]
+    final = (lines[-1].split(": ", 1)[1].split() if lines and lines[-1].startswith("final:")
+             else None)
+    want = [out_syms[w] for w in lib["final"]]
+    if final != want or partial != [out_syms[w] for w in lib["partial"]]:
+        raise RuntimeError(f"[cli loop audio 2k]: final {final} and partials {partial} "
+                           f"against the library's {want}")
+    front = "front end: MFCC of PCM, streamed on cuda"
+    if "route: frame_step kernel" not in err or front not in err:
+        raise RuntimeError("[cli loop audio 2k] did not stream through the card's front end "
+                           "and the frame-step kernel")
+    print(f"[cli loop audio 2k] (e) -loop -audioDevice - -loopChunk {STREAM_CHUNK} as a "
+          f"subprocess, {len(lib['pcm'])} samples of PCM on stdin ({t_loop:.1f}s, process "
+          f"start and set-up included): route: frame_step kernel, {front}; {len(partial)} "
+          f"partial and {len(final)} final words equal the library's StreamingDecoder fed "
+          f"StreamingFrontend on the card (overflow {lib['overflow']}) | {card}", flush=True)
+    phase_done("cli loop audio 2k")
+
+
+def stream_audio_library(art, task, scorer, dev):
+    """The library side of [cli loop audio 2k]: LOOP_FRAMES frames of
+    `wsj_task.sample_audio` (seed LOOP_SEED) as S16LE PCM through
+    `capture_features` (the streaming front end on the card) in chunks of
+    STREAM_CHUNK frames' samples, each chunk scored by the GMM kernel and
+    fed to a `StreamingDecoder` over a decoder of the CLI's configuration
+    at `WSJ_POINT`. Returns the PCM, the partial and final words, the
+    chunks and the launches of both kernels."""
+    import io
+
+    from juicer_tpu_torch.decoder import fused_scan
+    from juicer_tpu_torch.decoder.core import TorchDecoder, TorchDecoderConfig
+    from juicer_tpu_torch.decoder.stream import StreamingDecoder
+    from juicer_tpu_torch.harness import wsj_task
+    from juicer_tpu_torch.harness.capture import PcmSource, capture_features
+    from juicer_tpu_torch.ops import gmm_cuda
+
+    p = wsj_task.WSJ_POINT
+    pcm = wsj_task.sample_audio(task.cache, task.models, [LOOP_FRAMES], LOOP_SEED)[0][1]
+    dec = TorchDecoder(art, TorchDecoderConfig(
+        max_insts=p["K"], expand_budget=p["E"], emit_prune_win=p["beam"],
+        phone_end_prune_win=p["end_beam"], word_prune_win=p["end_beam"],
+        max_emit_hyps=p["maxhyps"]), device=dev)
+    stream = StreamingDecoder(dec)
+    n0 = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    partial, n_chunks, n_frames = [], 0, 0
+    src = PcmSource(stream=io.BytesIO(pcm.tobytes()))
+    for feats in capture_features(src, chunk_samples=STREAM_CHUNK * 160, device=dev):
+        if feats.device != dev:
+            raise RuntimeError("[2k stream audio] the front end left the card")
+        partial += stream.feed(scorer(feats))
+        n_chunks += 1
+        n_frames += feats.shape[0]
+    fin = stream.finish()
+    launches = (gmm_cuda.counter.launches - n0[0], fused_scan.counter.launches - n0[1])
+    if n_frames != LOOP_FRAMES or launches != (n_chunks, n_chunks):
+        raise RuntimeError(f"[2k stream audio] {n_frames} frames in {n_chunks} chunks, "
+                           f"launches {launches}")
+    print(f"[2k stream audio] {LOOP_FRAMES} frames of audio (seed {LOOP_SEED}) through the "
+          f"streaming front end on the card in {n_chunks} chunks: launches gmm_logsumexp "
+          f"{launches[0]}, frame_step {launches[1]}; {len(partial)} partial words, "
+          f"{len(fin.words)} final; overflow {fin.overflow}, empty {fin.empty}", flush=True)
+    return dict(pcm=pcm, final=fin.words, partial=[h.word for h in partial],
+                launches=launches, overflow=fin.overflow)
 
 
 def phase_cli_20k(card, dev, lib, phase_done):
@@ -1847,46 +2032,51 @@ def phase_cli_20k(card, dev, lib, phase_done):
         acc, rt = verbose_summary(out)
         with open(os.path.join(td, "juicer.log")) as fd:
             logged_route = report.route in fd.read()
-    phase_done("cli 20k run")
-    if report.route != "route: frame_step kernel" or not logged_route:
-        raise RuntimeError(f"[cli 20k] route {report.route!r} (in the log: {logged_route})")
-    if not acc.startswith("Word accuracy = 100.00%") or n_ov:
-        raise RuntimeError(f"[cli 20k] not certified: {acc!r}, {n_ov} overflow warnings")
-    if launches != (B, 1):
-        raise RuntimeError(f"[cli 20k] launches gmm_logsumexp, frame_step {launches}; "
-                           f"expected {B} and 1")
-    n_held = same_as_library("cli 20k", report.results, results, lib["markers"])
-    # the GMM kernel's bits do not depend on the call: each utterance alone
-    # against its rows of the whole wave
-    scorer = make_gmm_scorer(models.flat_params(), device="cuda")
-    feats, lengths, Tmax = tile_features(utts, B, dev)
-    wave = scorer(feats.reshape(B * Tmax, -1)).view(B, Tmax, -1)
-    bits = all(torch.equal(scorer(torch.as_tensor(f, device=dev)), wave[i, :len(f)])
-               for i, (_, f) in enumerate(utts))
-    if not bits:
-        raise RuntimeError("[cli 20k] gmm_logsumexp gives other bits for a frame scored "
-                           "alone than in the wave")
-    st = report.stages
-    frames = sum(len(f) for _, f in tiled)
-    fps_pad = B * Tmax / st["decode"]
-    print(f"[cli 20k] {report.route}; certified: {acc}; overflow 0/{B}; launches "
-          f"gmm_logsumexp {launches[0]} (one an utterance), frame_step {launches[1]} (one "
-          f"a batch); words, word-end frames and scores of all {n_held} utterances equal the "
-          f"[20k] BatchDecoder's bit for bit; gmm_logsumexp scores each utterance alone "
-          f"with the bits of its rows in the whole wave", flush=True)
-    print(f"[cli 20k] seconds: text write {t_write:.3f}, "
-          + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
-          + f"; verbose output {rt!r} (decode {st['decode']:.4f}s over "
-          f"{report.speech_time:.2f}s of speech: RT factor {st['decode'] / report.speech_time:.5f}) "
-          f"| {card}", flush=True)
-    print(f"[cli 20k] decode: {B} x {Tmax} padded frames ({frames} true) in "
-          f"{st['decode']:.4f}s = {fps_pad:.1f} frames/s ({frames / st['decode']:.1f} true "
-          f"frames/s; one batch, its first call: the fused scan's set-up and 16 GMM launches "
-          f"included) beside the library entry point's {lib['entry_fps']:.1f} frames/s "
-          f"(a warm BatchDecoder wave of this call) | {card}", flush=True)
-    return {"gmm_logsumexp": {"launches_cli_20k": launches[0]},
+        phase_done("cli 20k run")
+        if report.route != "route: frame_step kernel" or not logged_route:
+            raise RuntimeError(f"[cli 20k] route {report.route!r} (in the log: {logged_route})")
+        if not acc.startswith("Word accuracy = 100.00%") or n_ov:
+            raise RuntimeError(f"[cli 20k] not certified: {acc!r}, {n_ov} overflow warnings")
+        if launches != (B, 1):
+            raise RuntimeError(f"[cli 20k] launches gmm_logsumexp, frame_step {launches}; "
+                               f"expected {B} and 1")
+        n_held = same_as_library("cli 20k", report.results, results, lib["markers"])
+        # the GMM kernel's bits do not depend on the call: each utterance alone
+        # against its rows of the whole wave
+        scorer = make_gmm_scorer(models.flat_params(), device="cuda")
+        feats, lengths, Tmax = tile_features(utts, B, dev)
+        wave = scorer(feats.reshape(B * Tmax, -1)).view(B, Tmax, -1)
+        bits = all(torch.equal(scorer(torch.as_tensor(f, device=dev)), wave[i, :len(f)])
+                   for i, (_, f) in enumerate(utts))
+        if not bits:
+            raise RuntimeError("[cli 20k] gmm_logsumexp gives other bits for a frame scored "
+                               "alone than in the wave")
+        st = report.stages
+        frames = sum(len(f) for _, f in tiled)
+        fps_pad = B * Tmax / st["decode"]
+        print(f"[cli 20k] {report.route}; certified: {acc}; overflow 0/{B}; launches "
+              f"gmm_logsumexp {launches[0]} (one an utterance), frame_step {launches[1]} (one "
+              f"a batch); words, word-end frames and scores of all {n_held} utterances equal the "
+              f"[20k] BatchDecoder's bit for bit; gmm_logsumexp scores each utterance alone "
+              f"with the bits of its rows in the whole wave", flush=True)
+        print(f"[cli 20k] seconds: text write {t_write:.3f}, "
+              + ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+              + f"; verbose output {rt!r} (decode {st['decode']:.4f}s over "
+              f"{report.speech_time:.2f}s of speech: RT factor {st['decode'] / report.speech_time:.5f}) "
+              f"| {card}", flush=True)
+        print(f"[cli 20k] decode: {B} x {Tmax} padded frames ({frames} true) in "
+              f"{st['decode']:.4f}s = {fps_pad:.1f} frames/s ({frames / st['decode']:.1f} true "
+              f"frames/s; one batch, its first call: the fused scan's set-up and 16 GMM launches "
+              f"included) beside the library entry point's {lib['entry_fps']:.1f} frames/s "
+              f"(a warm BatchDecoder wave of this call) | {card}", flush=True)
+        audio = phase_cli_audio_20k(card, base, td, lib["audio"], lib["markers"], phase_done)
+    return {"gmm_logsumexp": {"launches_cli_20k": launches[0],
+                              "launches_cli_audio_20k": audio["launches"][0]},
             "frame_step": {"launches_cli_20k": launches[1], "cli_20k_fps": fps_pad,
-                           "cli_20k_stages": {"text write": t_write, **st}}}
+                           "cli_20k_stages": {"text write": t_write, **st},
+                           "launches_cli_audio_20k": audio["launches"][1],
+                           "cli_audio_20k_overflow": audio["overflow"],
+                           "cli_audio_20k_stages": audio["stages"]}}
 
 
 def phase_cli_otf(card, dev, lib, phase_done):
@@ -1966,8 +2156,236 @@ def phase_cli_otf(card, dev, lib, phase_done):
           f"word-end frames, scores); seconds: "
           + ", ".join(f"{k} {v:.3f}" for k, v in st.items()) + f"; {rt} | {card}", flush=True)
     phase_done("cli otf")
-    return {"gmm_logsumexp": {"launches_cli_otf": launches[0]},
-            "frame_step": {"launches_cli_otf": launches[1]}}
+    return ({"gmm_logsumexp": {"launches_cli_otf": launches[0]},
+             "frame_step": {"launches_cli_otf": launches[1]}}, G)
+
+
+def phase_gramgen_20k(card, G, phase_done):
+    """[gramgen 20k]: `jtpu-gramgen-torch -gramType ngram` (its `main`, in
+    this process) on the 20k task's lex.dict and lm.arpa. Its G, read back
+    from the AT&T text, equals the G that [otf] builds
+    (`compile.arpa_grammar`) arc for arc: states, start, every arc's
+    source, destination and labels in order, the final states; weights
+    within 5e-4 (the writer's three decimals; finals six). Its output
+    symbols are the vocabulary's words with a pronunciation."""
+    import tempfile
+
+    import numpy as np
+
+    from juicer_tpu_torch.cli import gramgen
+    from juicer_tpu_torch.fst import read_fsm, read_symbols
+    from juicer_tpu_torch.harness import wsj_task
+
+    cache = wsj_task.task_dir("20k")
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        rc = gramgen.main(["-lexFName", os.path.join(cache, "lex.dict"), "-sentStartWord", "<s>",
+                           "-sentEndWord", "</s>", "-gramType", "ngram", "-lmFName",
+                           os.path.join(cache, "lm.arpa"), "-fsmFName",
+                           os.path.join(td, "g.fsm"), "-inSymsFName",
+                           os.path.join(td, "g.insyms"), "-outSymsFName",
+                           os.path.join(td, "g.outsyms")])
+        t_gen = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(td, "g.fsm"))
+        back = read_fsm(os.path.join(td, "g.fsm"))
+        osyms = read_symbols(os.path.join(td, "g.outsyms"))
+    if rc != 0:
+        raise RuntimeError(f"[gramgen 20k] exited {rc}")
+    if (back.num_states, back.start, back.num_arcs) != (G.num_states, G.start, G.num_arcs):
+        raise RuntimeError(f"[gramgen 20k] {back.num_states} states, start {back.start}, "
+                           f"{back.num_arcs} arcs against [otf]'s {G.num_states}, {G.start}, "
+                           f"{G.num_arcs}")
+    for k in ("arc_src", "arc_dst", "arc_ilabel", "arc_olabel"):
+        if not np.array_equal(np.asarray(getattr(back, k)), np.asarray(getattr(G, k))):
+            raise RuntimeError(f"[gramgen 20k] {k} differs from [otf]'s G")
+    w_err = float(np.abs(np.asarray(back.arc_weight) - np.asarray(G.arc_weight)).max())
+    if sorted(back.finals) != sorted(G.finals):
+        raise RuntimeError("[gramgen 20k] the final states differ from [otf]'s G")
+    f_err = max(abs(back.finals[q] - G.finals[q]) for q in G.finals)
+    if not (w_err <= 5e-4 + 1e-9 and f_err <= 5e-7):
+        raise RuntimeError(f"[gramgen 20k] weights {w_err}, finals {f_err} from [otf]'s G")
+    words = sorted({w for w in G.osyms} - {"<eps>"}) if G.osyms is not None else []
+    if sorted(set(osyms) - {"<eps>", None}) != words:
+        raise RuntimeError("[gramgen 20k] the output symbols differ from the vocabulary's")
+    print(f"[gramgen 20k] jtpu-gramgen-torch -gramType ngram: {back.num_states} states, "
+          f"{back.num_arcs} arcs, {size} bytes of text in {t_gen:.2f}s (host); read back equal "
+          f"to [otf]'s G arc for arc (labels and states exact; weights within {w_err:.2e} of the "
+          f"three-decimal text, finals {f_err:.1e}); {len(words)} output words | {card}",
+          flush=True)
+    phase_done("gramgen 20k")
+
+
+def write_wav(path, pcm, rate=16000):
+    import wave
+
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(pcm.tobytes())
+
+
+def mllr_texts(models, seed):
+    """A two-class base-class file (class 1: the states of the models whose
+    names start p0, p1 or p2; class 2: every other state) and an MLLRMEAN
+    set of two transforms A = I + N(0, 0.02^2), b = N(0, 0.1^2), from a
+    seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    D = models.vec_size
+    base = ('~b "two"\n<MMFIDMASK> *\n<PARAMETERS> MIXBASE\n<NUMCLASSES> 2\n'
+            "<CLASS> 1 {(p0*,p1*,p2*).state[2-4]}\n<CLASS> 2 {*.state[2-4]}\n")
+    xf = ""
+    for k in (1, 2):
+        A = np.eye(D) + rng.normal(scale=0.02, size=(D, D))
+        xf += (f"<LINXFORM> {k}\n<VECSIZE> {D}\n<OFFSET>\n<BIAS> {D}\n "
+               + " ".join(repr(float(x)) for x in rng.normal(scale=0.1, size=D))
+               + f"\n<BLOCKINFO> 1 {D}\n<BLOCK> 1\n<XFORM> {D} {D}\n "
+               + "\n ".join(" ".join(repr(float(x)) for x in row) for row in A) + "\n")
+    mllr = ('~a "spk"\n<ADAPTKIND> TREE\n<BASECLASS> ~b "two"\n<XFORMSET>\n'
+            "<XFORMKIND> MLLRMEAN\n<NUMXFORMS> 2\n" + xf
+            + "<XFORMWGTSET>\n<CLASSXFORM> 1 1\n<CLASSXFORM> 2 2\n")
+    return base, mllr
+
+
+def audio_library(task, dec, lengths, dev, card):
+    """The library side of [cli audio 20k], on the [20k] decoder: audio of
+    `lengths` frames (`wsj_task.sample_audio`, seed AUDIO_SEED), the batched
+    front end on the card (held to `mfcc` of each utterance on the CPU
+    within FRONT_ATOL), the means adapted by MLLR (`mllr_texts`) on the card
+    (held to the CPU's within PARAM_TOL), scored by the GMM kernel one
+    utterance at a time, edge-padded and decoded by `BatchDecoder`, as the
+    CLI does. Returns what [cli audio 20k] is held to."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from juicer_tpu_torch.am.regtree import apply_mllr_means, parse_baseclass, parse_xformset
+    from juicer_tpu_torch.decoder import fused_scan
+    from juicer_tpu_torch.harness import frontend, wsj_task
+    from juicer_tpu_torch.ops import gmm_cuda
+    from juicer_tpu_torch.ops.gmm import make_gmm_scorer
+    from juicer_tpu_torch.parallel.batch import BatchDecoder
+
+    models = task.models
+    t0 = time.perf_counter()
+    waves = [pcm for _, pcm in wsj_task.sample_audio(task.cache, models, lengths, AUDIO_SEED)]
+    t_make = time.perf_counter() - t0
+    base, mllr = mllr_texts(models, AUDIO_SEED)
+    with tempfile.TemporaryDirectory() as td:
+        for name, text in (("two.base", base), ("spk.mllr", mllr)):
+            with open(os.path.join(td, name), "w") as fd:
+                fd.write(text)
+        bc = parse_baseclass(os.path.join(td, "two.base"))
+        xset = parse_xformset(os.path.join(td, "spk.mllr"))
+    signals = [w.astype(np.float64) for w in waves]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats, got_lengths = frontend.mfcc_batch(signals, device=dev)
+    torch.cuda.synchronize()
+    t_front = time.perf_counter() - t0
+    if got_lengths != list(lengths) or feats.device != dev:
+        raise RuntimeError(f"[20k audio] front end lengths {got_lengths} for {list(lengths)}")
+    front_err = max(float((feats[b, :n].cpu() - frontend.mfcc(x, device="cpu")).abs().max())
+                    for b, (x, n) in enumerate(zip(signals, lengths)))
+    if not front_err <= FRONT_ATOL:
+        raise RuntimeError(f"[20k audio] batched front end on the card {front_err} from mfcc "
+                           f"on the CPU")
+    t0 = time.perf_counter()
+    adapted = apply_mllr_means(models, xset, bc, device=dev)
+    t_mllr = time.perf_counter() - t0
+    on_cpu = apply_mllr_means(models, xset, bc, device="cpu")
+
+    def rel(a, b):
+        return float((np.abs(a - b) / np.maximum(1.0, np.abs(b))).max())
+
+    fc, fh = adapted.flat_params(np.float64), on_cpu.flat_params(np.float64)
+    param_err = max([rel(a, b) for a, b in zip(adapted.gmm_means, on_cpu.gmm_means)]
+                    + [rel(getattr(fc, k), getattr(fh, k)) for k in ("V", "M", "b")])
+    moved = max(float(np.abs(a - b).max()) for a, b in zip(adapted.gmm_means, models.gmm_means))
+    if not param_err <= PARAM_TOL or not moved > 0:
+        raise RuntimeError(f"[20k audio] adapted parameters, card against CPU: {param_err}; "
+                           f"means moved {moved}")
+    scorer = make_gmm_scorer(adapted.flat_params(), device="cuda")
+    n0 = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    scs = [scorer(feats[b, :n]) for b, n in enumerate(lengths)]
+    t_max = max(lengths)
+    padded = torch.stack([torch.cat([x, x[-1:].expand(t_max - len(x), -1)]) for x in scs])
+    results = BatchDecoder(dec).decode_scores_batch(padded, list(lengths))
+    launches = (gmm_cuda.counter.launches - n0[0], fused_scan.counter.launches - n0[1])
+    n_ov = sum(r.overflow for r in results)
+    dead = sum(r.empty for r in results)
+    print(f"[20k audio] {len(waves)} utterances of audio (seed {AUDIO_SEED}, made in "
+          f"{t_make:.2f}s on the host), T={list(lengths)}: the batched front end on the card "
+          f"({feats.shape[0]} x {feats.shape[1]} x {feats.shape[2]}, {t_front:.4f}s) against "
+          f"mfcc of each utterance on the CPU, max |err| {front_err:.3e} (atol {FRONT_ATOL}); "
+          f"MLLR (2 classes, 2 transforms) on the card in {t_mllr:.4f}s, its float64 means and "
+          f"flat parameters {param_err:.3e} from the CPU's (tolerance {PARAM_TOL}, relative "
+          f"above 1), the means moved up to {moved:.3f}; BatchDecoder launches gmm_logsumexp "
+          f"{launches[0]}, frame_step {launches[1]}; overflow {n_ov}/{len(results)}, dead "
+          f"{dead}/{len(results)}, words {[len(r.words) for r in results]}, peak active "
+          f"{max(r.max_active for r in results)}, peak candidates "
+          f"{max(r.max_cand for r in results)} | {card}", flush=True)
+    return dict(waves=waves, base=base, mllr=mllr, results=results, overflow=n_ov)
+
+
+def phase_cli_audio_20k(card, base, td, lib, markers, phase_done):
+    """[cli audio 20k]: the slice's full-width path in one CLI call: the
+    16 wav files of `audio_library` with `-inputFormat factory`, the
+    base-class file and MLLRMEAN set of `mllr_texts`, `-batchSize 16` at
+    `WSJ_POINT`, in [cli 20k]'s directory (its network text, symbols, MMF
+    and lexicon). Held: route `frame_step kernel`, the front end on the
+    card, launches gmm_logsumexp 16 and frame_step 1, every utterance's
+    words, word-end frames and score equal to the library's bit for bit,
+    the CLI's overflow warnings equal to the library's overflow count.
+    Returns the launches, the overflow count and the CLI's stages."""
+    import torch
+
+    from juicer_tpu_torch.harness import wsj_task
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    p = wsj_task.WSJ_POINT
+    names = [f"a{i:02d}" for i in range(len(lib["waves"]))]
+    for name, pcm in zip(names, lib["waves"]):
+        write_wav(os.path.join(td, f"{name}.wav"), pcm)
+    with open(os.path.join(td, "audio.lst"), "w") as fd:
+        fd.write("".join(f"{n}={os.path.join(td, n + '.wav')}\n" for n in names))
+    for name, text in (("two.base", lib["base"]), ("spk.mllr", lib["mllr"])):
+        with open(os.path.join(td, name), "w") as fd:
+            fd.write(text)
+    out = os.path.join(td, "audio_out.txt")
+    argv = [a if a != os.path.join(td, "in.lst") else os.path.join(td, "audio.lst")
+            for a in base]
+    argv += ["-inputFormat", "factory", "-mllrXformFile", os.path.join(td, "spk.mllr"),
+             "-regClassFile", os.path.join(td, "two.base"), "-removeSentMarks",
+             "-batchSize", str(len(names)), "-mainBeam", str(p["beam"]), "-phoneEndBeam",
+             str(p["end_beam"]), "-wordEmitBeam", str(p["end_beam"]), "-maxHyps",
+             str(p["maxhyps"]), "-maxInsts", str(p["K"]), "-expandBudget", str(p["E"]),
+             "-outputFormat", "verbose", "-outputFName", out]
+    report, launches, n_ov = run_cli(argv)
+    front = "front end: MFCC of wav files, a batch in one pass on cuda"
+    if report.route != "route: frame_step kernel" or not report.front_end.startswith(front):
+        raise RuntimeError(f"[cli audio 20k] {report.route!r}, {report.front_end!r}")
+    if launches != (len(names), 1):
+        raise RuntimeError(f"[cli audio 20k] launches gmm_logsumexp, frame_step {launches}; "
+                           f"expected {len(names)} and 1")
+    n_held = same_as_library("cli audio 20k", report.results, lib["results"], markers)
+    if n_ov != lib["overflow"]:
+        raise RuntimeError(f"[cli audio 20k] {n_ov} overflow warnings, the library "
+                           f"{lib['overflow']} overflowing utterances")
+    st = report.stages
+    print(f"[cli audio 20k] -inputFormat factory -mllrXformFile -regClassFile -batchSize "
+          f"{len(names)}: {report.route}; {report.front_end}; launches gmm_logsumexp "
+          f"{launches[0]}, frame_step {launches[1]}; words, word-end frames and scores of all "
+          f"{n_held} utterances equal the library's (the same card features and adapted "
+          f"models through BatchDecoder) bit for bit; overflow {n_ov}/{len(names)} (as the "
+          f"library's); seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in st.items()) + f" | {card}", flush=True)
+    phase_done("cli audio 20k")
+    return dict(launches=launches, overflow=n_ov, stages=dict(st))
 
 
 if __name__ == "__main__":

@@ -29,8 +29,21 @@ against; nothing here imports it, or JAX. The port's slices so far:
   - `cli.juicer`: the decoder CLI (`jtpu-juicer-torch`, or `python -m
     juicer_tpu_torch.cli.juicer`), with its readers: AT&T FSM and symbol
     files (`fst.io`, the native parser), HTK MMF models (`am.mmf`),
-    hybrid model sets, CMLLR input transforms (`am.xform`), HTK and LNA
-    features and the batch tester with WER (`harness`);
+    hybrid model sets, CMLLR input transforms (`am.xform`), model-space
+    MLLR with regression classes (`am.regtree`, float64 on the device),
+    HTK and LNA features, wav audio through the MFCC front end on the
+    device (`harness.frontend`, a batch of files in one pass), live PCM
+    through the streaming front end (`harness.capture`, `-loop
+    -audioDevice`), and the batch tester with WER (`harness`). It takes
+    every flag of `jtpu-juicer`; both refuse the HTKLib-backed ones
+    (-useHModels, -htkConfig, -parentXformDir);
+  - `decoder.ref_core` and `decoder.otf.RefOtfDecoder`: the oracle token
+    passing on the host (`-refCore`), independent of both kernels;
+  - `cli.gramgen` and `compile.gram.GramGen`: the grammar generator
+    (`jtpu-gramgen-torch`: word loops, sil-wordloop-sil, ARPA n-grams
+    with `<unk>`, `#phi` backoffs, sil/sp loops, normalisation, the LM
+    scale and insertion penalty, gzip and npz-cached LMs (`lm.arpa`),
+    BBN word pairs (`lm.wordpair`));
   - `harness.wsj_task`: the cached WSJ-order tasks (2k and 20k words),
     their on-the-fly composition pairs (`load_otf_task`), the reference
     bench's operating point and the on-the-fly script's (`OTF_POINT`).

@@ -11,9 +11,11 @@ A reduced copy of `juicer_tpu/am/models.py` (the rebuild of `HTKModels`,
   - the float64 oracle scoring (`score_gmm`, `score_all`, `calc_output`)
     that `-doModelsIOTest` compares;
   - the matmul-expanded GMM packing (`flat_params`) the GMM kernel reads
-    and the padded HMM topology (`packed_topology`) of the artifact.
-Model-space MLLR (`with_mean_transform`) is not copied: `-mllrXformFile`
-is not ported yet.
+    and the padded HMM topology (`packed_topology`) of the artifact;
+  - the transition structure the oracle decoder walks (`get_se_index`);
+  - model-space MLLR with one global transform (`with_mean_transform`),
+    a float64 product on the caller's device; regression classes are in
+    `am/regtree.py`.
 """
 
 from __future__ import annotations
@@ -216,6 +218,22 @@ class AcousticModelSet:
     def get_tee_log_prob(self, hmm_ind: int) -> float:
         return float(self.get_trans_mat(hmm_ind)[0, -1])
 
+    def get_se_index(self, hmm_ind: int) -> list[tuple[int, int]]:
+        """Per-state [start, end) predecessor ranges of states 1..N-1; the
+        tee transition (0 -> N-1) is left out (`createTrPandSEIndex`)."""
+        tm = self.get_trans_mat(hmm_ind)
+        n = tm.shape[0]
+        out = []
+        for j in range(1, n):
+            mn = 1 if j == n - 1 else 0
+            while mn < n - 1 and tm[mn, j] <= LOG_ZERO:
+                mn += 1
+            mx = n - 1
+            while mx >= 1 and tm[mx, j] <= LOG_ZERO:
+                mx -= 1
+            out.append((mn, mx + 1))
+        return out
+
     # -- float64 oracle scoring --------------------------------------------
 
     def score_gmm(self, gmm_ind: int, x: np.ndarray) -> float:
@@ -243,6 +261,34 @@ class AcousticModelSet:
     def calc_output(self, hmm_ind: int, state_ind: int, x: np.ndarray) -> float:
         """b_j(o_t) for emitting state j (1..N-2, entry and exit excluded)."""
         return self.score_gmm(int(self.hmm_gmm_inds[hmm_ind][state_ind - 1]), x)
+
+    # -- speaker adaptation ------------------------------------------------
+
+    def with_params(self, means=None, variances=None, log_weights=None) -> "AcousticModelSet":
+        """A copy sharing the topology, with new per-GMM means, variances
+        or log weights (the others copied)."""
+        ms = AcousticModelSet()
+        ms.vec_size, ms.hybrid_mode, ms.log_priors = self.vec_size, self.hybrid_mode, self.log_priors
+        ms.gmm_means = means if means is not None else [m.copy() for m in self.gmm_means]
+        ms.gmm_vars = variances if variances is not None else [v.copy() for v in self.gmm_vars]
+        ms.gmm_log_weights = (log_weights if log_weights is not None
+                              else [w.copy() for w in self.gmm_log_weights])
+        ms.trans_mats, ms._trans_names = self.trans_mats, self._trans_names
+        ms.hmm_names, ms.hmm_gmm_inds = self.hmm_names, self.hmm_gmm_inds
+        ms.hmm_trans_ind, ms._hmm_index = self.hmm_trans_ind, self._hmm_index
+        ms._gmm_name_index = self._gmm_name_index
+        return ms
+
+    def with_mean_transform(self, A: np.ndarray, b: np.ndarray,
+                            device="cuda") -> "AcousticModelSet":
+        """Model-space MLLR with one global regression class: a copy with
+        every Gaussian mean mu' = A mu + b, all means in one float64
+        product on `device`. Rebuild the scorer from the returned set."""
+        from .regtree import transform_rows
+
+        return self.with_params(means=transform_rows(
+            self.gmm_means, np.ones(sum(len(m) for m in self.gmm_means), np.int64),
+            {1: (A, b)}, device))
 
     # -- packing -----------------------------------------------------------
 

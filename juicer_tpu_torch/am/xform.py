@@ -6,8 +6,8 @@ HTKLib-backed speaker adaptation (`HModels.h:14-120`; CLI flags
 `juicer.cpp:200-216,676-760`): per-speaker feature-space transforms
 x' = A x + b loaded from HTK transform files and applied to the feature
 stream before scoring, with parent input-transform cascades through the
-`parent` chain (x -> parent(x) -> child(...)). Model-space MLLRMEAN
-transforms (`juicer_tpu/am/regtree.py`) are not ported yet.
+`parent` chain (x -> parent(x) -> child(...)). Model-space MLLR
+transforms with regression classes are in `am/regtree.py`.
 
 The parser accepts the HTK ascii transform-set layout: <BIAS> vectors and
 block-diagonal <XFORM>/<BLOCK> matrices inside a <LINXFORM>; everything
@@ -22,6 +22,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
+import torch
 
 
 @dataclass
@@ -30,8 +31,15 @@ class InputXform:
     b: np.ndarray  # (D,) bias
     logdet: float = 0.0
 
-    def apply(self, feats: np.ndarray) -> np.ndarray:
-        return feats @ self.A.T + self.b[None, :]
+    def apply(self, feats):
+        """x' = A x + b of (T, D) features: float64 numpy for numpy input;
+        for a tensor, float32 on its device (float64 inside), as the
+        batch tester casts the numpy result."""
+        if isinstance(feats, np.ndarray):
+            return feats @ self.A.T + self.b[None, :]
+        A = torch.as_tensor(self.A, dtype=torch.float64, device=feats.device)
+        b = torch.as_tensor(self.b, dtype=torch.float64, device=feats.device)
+        return (feats.to(torch.float64) @ A.T + b[None, :]).to(torch.float32)
 
     def compose(self, parent: "InputXform") -> "InputXform":
         """Cascade: parent transform applied FIRST, then self, HTKLib's

@@ -8,8 +8,21 @@ or a hybrid phone list with priors), the network (AT&T text FSM and
 symbol files, cached as `<fsm>.npz`, with the LM scale and insertion
 penalty applied at load), checks that they agree, builds the decode
 artifact and a `TorchDecoder` on the device, and decodes an input list
-with the batch tester (WER and real-time factor), or float32 frames from
-stdin with `-loop`.
+with the batch tester (WER and real-time factor), or float32 frames or
+PCM audio from stdin with `-loop`.
+
+Inputs: HTK, LNA or npy feature files, read on the host; or wav audio
+(`-inputFormat factory`), turned into MFCC features by the front end
+(`harness/frontend.py`) on the device, a batch's files in one pass, the
+features handed to the GMM kernel where they are. `-loop -audioDevice`
+captures S16LE PCM (an ALSA device through `arecord`, or `-` for stdin)
+through the streaming front end (`harness/capture.py`) on the device.
+The front end's device is printed on stderr and in the log
+(`front end: ...`).
+
+Models: `-mllrXformFile` (with `-regClassFile` base classes) adapts the
+Gaussian means by model-space MLLR (`am/regtree.py`), in float64 on the
+device, before the GMM kernel's parameters are packed.
 
 On the card every utterance is scored by one launch of the GMM kernel,
 on the device, and decoded without a copy of its scores to the host:
@@ -24,15 +37,18 @@ batch from `why_not_covered`) and printed on stderr and in the log as
 `route: frame_step kernel` or `route: plain frame loop (<reason>)`;
 on-the-fly composition (-gramFsmFName) and lattices take the plain frame
 loop, which no kernel covers. A kernel's error is never caught, and no
-route is retried on another.
+route is retried on another. `-refCore` decodes with the oracle token
+passing on the host (`decoder/ref_core.py`, `RefOtfDecoder` with a G)
+from one host copy of each utterance's GMM scores; its route line says
+so. It builds no artifact, and refuses -loop and -modelLevelOutput, as
+the JAX CLI does.
 
-The seconds of each stage (FSM parse, network, models, artifact, tables,
-features, decode, output) are printed on stderr and in the log at the
-end, and handed back by `run`.
+The seconds of each stage (models, mllr, FSM parse, network, artifact,
+tables, features or front end, decode, output) are printed on stderr and
+in the log at the end, and handed back by `run`.
 
-Not ported yet (each flag exits with a message): -refCore,
--mllrXformFile / -regClassFile, -inputFormat factory and -audioDevice.
--parentXformDir is rejected as the JAX CLI rejects it.
+The HTKLib-backed flags (-useHModels, -htkConfig, -parentXformDir) are
+refused, as the JAX CLI refuses them.
 """
 
 from __future__ import annotations
@@ -68,7 +84,8 @@ def make_parser():
     p.add_argument("-phoneEndBeam", type=float, default=0.0)
     p.add_argument("-wordEmitBeam", type=float, default=0.0)
     p.add_argument("-maxHyps", type=int, default=0, help="histogram pruning top-N")
-    p.add_argument("-refCore", action="store_true", help="not ported yet")
+    p.add_argument("-refCore", action="store_true",
+                   help="decode with the oracle token passing on the host")
     p.add_argument("-maxInsts", type=int, default=8192)
     p.add_argument("-expandBudget", type=int, default=32768)
     p.add_argument("-batchSize", type=int, default=1, help="utterances decoded per device batch")
@@ -78,7 +95,7 @@ def make_parser():
     p.add_argument("-inputFName", default=None,
                    help="list of feature files (not needed with -loop)")
     p.add_argument("-inputFormat", default="htk", choices=["htk", "lna", "npy", "factory"],
-                   help="factory (the wav front end) is not ported yet")
+                   help="factory: wav audio through the MFCC front end on the device")
     p.add_argument("-framesPerSec", type=float, default=100.0)
     p.add_argument("-outputFName", default=None)
     p.add_argument("-outputFormat", default="verbose",
@@ -96,8 +113,13 @@ def make_parser():
     p.add_argument("-speakerNamePattern", default=None,
                    help="regex with one capture group extracting the speaker "
                         "from the utterance name")
-    p.add_argument("-mllrXformFile", default=None, help="not ported yet")
-    p.add_argument("-regClassFile", default=None, help="not ported yet")
+    # model-space MLLR with regression classes
+    p.add_argument("-mllrXformFile", default=None,
+                   help="HTK transform file (MLLRMEAN <XFORMSET>) applied to "
+                        "the Gaussian means at load time")
+    p.add_argument("-regClassFile", default=None,
+                   help="HTK ~b base-class file assigning mixture components "
+                        "to regression classes for -mllrXformFile")
     p.add_argument("-doModelsIOTest", action="store_true",
                    help="round-trip the acoustic models through the binary "
                         "format and verify scores agree")
@@ -110,11 +132,15 @@ def make_parser():
     p.add_argument("-pushing", action="store_true",
                    help="label-and-weight pushing in on-the-fly composition")
     p.add_argument("-loop", action="store_true",
-                   help="streaming mode: read float32 feature frames from "
-                        "stdin, print partial hypotheses as they converge")
+                   help="streaming mode: read float32 feature frames (or PCM "
+                        "with -audioDevice) from stdin, print partial "
+                        "hypotheses as they converge")
     p.add_argument("-loopChunk", type=int, default=50,
                    help="frames per streaming chunk in -loop mode")
-    p.add_argument("-audioDevice", default=None, help="not ported yet")
+    p.add_argument("-audioDevice", default=None,
+                   help="in -loop mode, capture S16LE PCM audio: an ALSA "
+                        "device name (through arecord), or '-' to read raw "
+                        "PCM from stdin, through the streaming MFCC front end")
     p.add_argument("-audioSampleRate", type=int, default=16000)
     # reference flags accepted for drop-in compatibility (`juicer.cpp:169-294`)
     p.add_argument("-silMonophone", default="",
@@ -138,27 +164,9 @@ def make_parser():
     return p
 
 
-# flags of the JAX CLI whose modules are not ported yet
-_NOT_PORTED = (
-    ("refCore", "-refCore (the numpy oracle cores RefDecoder / RefOtfDecoder)"),
-    ("mllrXformFile", "-mllrXformFile (model-space MLLR, am/regtree.py)"),
-    ("regClassFile", "-regClassFile (model-space MLLR, am/regtree.py)"),
-    ("audioDevice", "-audioDevice (live capture, harness/capture.py)"),
-)
-
-
-def reject_not_ported(args) -> None:
-    for name, what in _NOT_PORTED:
-        if getattr(args, name):
-            raise SystemExit(f"juicer: {what} is not ported to juicer_tpu_torch yet; "
-                             f"the JAX CLI jtpu-juicer has it")
-    if args.inputFormat == "factory":
-        raise SystemExit("juicer: -inputFormat factory (the MFCC front end, "
-                         "harness/frontend.py) is not ported to juicer_tpu_torch yet; "
-                         "the JAX CLI jtpu-juicer has it")
-
-
 def load_models(args):
+    """The model set of -htkModelsFName (through its npz cache) or of a
+    hybrid phone list; not adapted (`adapt_models`)."""
     from ..am import AcousticModelSet
     from ..lexicon import PhoneSet
 
@@ -176,6 +184,15 @@ def load_models(args):
         priors = np.loadtxt(args.priorsFName).reshape(-1)
         return AcousticModelSet.hybrid(list(ps.phones), priors, args.statesPerModel)
     raise SystemExit("juicer: need -htkModelsFName or (-monoListFName -priorsFName)")
+
+
+def adapt_models(args, models, device):
+    """-mllrXformFile (and -regClassFile): the means adapted by
+    model-space MLLR, in float64 on `device`."""
+    from ..am.regtree import apply_mllr_means, parse_baseclass, parse_xformset
+
+    bc = parse_baseclass(args.regClassFile) if args.regClassFile else None
+    return apply_mllr_means(models, parse_xformset(args.mllrXformFile), bc, device=device)
 
 
 def do_models_io_test(models):
@@ -241,11 +258,13 @@ def check_monophones(args):
 
 @dataclass
 class RunReport:
-    """What one run of the CLI did: its route, the seconds of each stage,
-    the batch tester's per-utterance results and seconds of speech (none
-    in -loop mode). It holds no reference to the decoder."""
+    """What one run of the CLI did: its route, its front end (wav or PCM
+    input), the seconds of each stage, the batch tester's per-utterance
+    results and seconds of speech (none in -loop mode). It holds no
+    reference to the decoder."""
 
     route: str = ""
+    front_end: str = ""
     stages: dict = field(default_factory=dict)
     results: list = field(default_factory=list)
     speech_time: float = 0.0
@@ -266,24 +285,44 @@ def _stage(report: RunReport, name: str):
     report.stages[name] = report.stages.get(name, 0.0) + time.perf_counter() - t0
 
 
-def run_loop(args, dec, score, out_names, use_fused):
-    """Streaming decode: float32 frames (vec_size each) on stdin; converged
-    partial words printed as they stabilise, the final hypothesis at EOF
-    (`-loop`, `DecoderBatchTest.cpp` loop path with PARTIAL_DECODING)."""
+def run_loop(args, dec, score, out_names, use_fused, device):
+    """Streaming decode: float32 frames (vec_size each) on stdin, or with
+    -audioDevice S16LE PCM through the streaming front end on `device`;
+    converged partial words printed as they stabilise, the final
+    hypothesis at EOF (`-loop`, `DecoderBatchTest.cpp` loop path with
+    PARTIAL_DECODING)."""
     D = dec.art.models.vec_size
     chunk_frames = max(1, args.loopChunk)
     stream = dec.stream(use_fused=use_fused)
-    raw = sys.stdin.buffer
-    frame_bytes = 4 * D
-    while True:
-        data = raw.read(frame_bytes * chunk_frames)
-        n = len(data) // frame_bytes
-        if n == 0:
-            break
-        feats = np.frombuffer(data[: n * frame_bytes], dtype="<f4").reshape(n, D)
+
+    def emit(feats):
         for h in stream.feed(score(feats)):
             name = out_names[h.word - 1] if 0 < h.word <= len(out_names) else "<?>"
             print(f"partial: {name} (frame {h.end_frame})", flush=True)
+
+    if args.audioDevice:
+        from ..harness.capture import PcmSource, capture_features
+
+        src = (PcmSource(stream=sys.stdin.buffer, sample_rate=args.audioSampleRate)
+               if args.audioDevice == "-"
+               else PcmSource(device=args.audioDevice, sample_rate=args.audioSampleRate))
+        try:
+            for feats in capture_features(src, chunk_samples=chunk_frames * 160,
+                                          device=device):
+                if feats.shape[1] != D:
+                    raise SystemExit(f"juicer: front end dim {feats.shape[1]} != model dim {D}")
+                emit(feats)
+        finally:
+            src.close()
+    else:
+        raw = sys.stdin.buffer
+        frame_bytes = 4 * D
+        while True:
+            data = raw.read(frame_bytes * chunk_frames)
+            n = len(data) // frame_bytes
+            if n == 0:
+                break
+            emit(np.frombuffer(data[: n * frame_bytes], dtype="<f4").reshape(n, D))
     final = stream.finish()
     words = " ".join(out_names[w - 1] if 0 < w <= len(out_names) else "<?>"
                      for w in final.words)
@@ -297,7 +336,9 @@ def run(argv=None) -> RunReport:
     if args.useHModels or args.htkConfig or args.parentXformDir:
         raise SystemExit("juicer: HTKLib-backed HModels are not supported; use "
                          "-mllrXformFile/-regClassFile (MLLR) or -inputXformDir (CMLLR)")
-    reject_not_ported(args)
+    for flag, on in (("-loop", args.loop), ("-modelLevelOutput", args.modelLevelOutput)):
+        if on and args.refCore:
+            raise SystemExit(f"juicer: {flag} requires the decoder core, not -refCore")
     import torch
 
     from .. import resolve_device
@@ -307,7 +348,8 @@ def run(argv=None) -> RunReport:
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"juicer: {e}")
 
-    from ..decoder import DecoderNetwork, TorchDecoder, TorchDecoderConfig
+    from ..decoder import (DecoderNetwork, RefDecoder, RefOtfDecoder, TorchDecoder,
+                           TorchDecoderConfig)
     from ..decoder.artifact import DecoderArtifact
     from ..decoder.fused_scan import why_not_covered, why_not_fused
     from ..fst import read_fsm, read_symbols
@@ -325,6 +367,9 @@ def run(argv=None) -> RunReport:
     vocab = Vocabulary(args.lexFName, "!", args.sentStartWord, args.sentEndWord)
     with _stage(report, "models"):
         models = load_models(args)
+    if args.mllrXformFile:
+        with _stage(report, "mllr"):
+            models = adapt_models(args, models, device)
 
     if args.doModelsIOTest:
         do_models_io_test(models)
@@ -365,21 +410,18 @@ def run(argv=None) -> RunReport:
         with _stage(report, "network"):
             g_net = GNetwork(g_fst, lm_scale=args.lmScaleFactor, phi_label=phi)
 
-    with _stage(report, "artifact"):
-        art = DecoderArtifact(net, models)
-    cfg = TorchDecoderConfig(
-        max_insts=args.maxInsts,
-        expand_budget=args.expandBudget,
-        phone_start_prune_win=args.phoneStartBeam,
-        emit_prune_win=args.mainBeam,
-        phone_end_prune_win=args.phoneEndBeam,
-        word_prune_win=args.wordEmitBeam,
-        max_emit_hyps=args.maxHyps,
-        gen_lattice=args.latticeDir is not None or args.modelLevelOutput,
-        otf_pushing=args.pushing,
-    )
+    beams = dict(phone_start_prune_win=args.phoneStartBeam, emit_prune_win=args.mainBeam,
+                 phone_end_prune_win=args.phoneEndBeam, word_prune_win=args.wordEmitBeam,
+                 max_emit_hyps=args.maxHyps)
+    if not args.refCore:  # the oracle reads the network itself
+        with _stage(report, "artifact"):
+            art = DecoderArtifact(net, models)
     with _stage(report, "tables"):
-        dec = TorchDecoder(art, cfg, device=device, g_network=g_net)
+        if not args.refCore:
+            dec = TorchDecoder(art, TorchDecoderConfig(
+                max_insts=args.maxInsts, expand_budget=args.expandBudget, **beams,
+                gen_lattice=args.latticeDir is not None or args.modelLevelOutput,
+                otf_pushing=args.pushing), device=device, g_network=g_net)
         if models.hybrid_mode:
             log_priors = torch.as_tensor(models.log_priors, device=device)
         else:
@@ -390,20 +432,32 @@ def run(argv=None) -> RunReport:
             torch.cuda.synchronize(device)
 
     def score(feats) -> torch.Tensor:
-        """(T, D) host features -> (T, n_gmms) scores on the device: one
-        launch of the GMM kernel on the card; float64 for a hybrid set
-        (log posteriors minus float64 log priors, as the JAX CLI's numpy
-        does; the decoder reads them in its dtype)."""
-        x = torch.from_numpy(np.array(feats, dtype=np.float32)).to(device)
+        """(T, D) features (host, or a tensor from the front end, used where
+        it lies) -> (T, n_gmms) scores on the device: one launch of the GMM
+        kernel on the card; float64 for a hybrid set (log posteriors minus
+        float64 log priors, as the JAX CLI's numpy does; the decoder reads
+        them in its dtype)."""
+        x = (feats.to(device, torch.float32) if isinstance(feats, torch.Tensor)
+             else torch.from_numpy(np.array(feats, dtype=np.float32)).to(device))
         # hybrid HMM/ANN: log posterior - log prior (`HTKFlatModels.cpp:196-220`)
         return x - log_priors[None, :] if models.hybrid_mode else scorer(x)
 
     # the route: the frame-step kernel where it covers the decoder on the
-    # card, else the plain frame loop, named with the reason
-    why = why_not_fused(dec) if device.type == "cuda" else f"device {device.type}"
-    report.route = ("route: frame_step kernel" if why is None
-                    else f"route: plain frame loop ({why})")
+    # card, else the plain frame loop, named with the reason; or the oracle
+    if args.refCore:
+        why = "-refCore"
+        report.route = ("route: oracle token passing on the host (-refCore; GMM scores on "
+                        f"{device.type}, one host copy an utterance)")
+    else:
+        why = why_not_fused(dec) if device.type == "cuda" else f"device {device.type}"
+        report.route = ("route: frame_step kernel" if why is None
+                        else f"route: plain frame loop ({why})")
     _say(report.route)
+    factory = args.inputFormat == "factory" and not args.loop
+    if factory or (args.loop and args.audioDevice):
+        what = "wav files, a batch in one pass" if factory else "PCM, streamed"
+        report.front_end = f"front end: MFCC of {what} on {device}"
+        _say(report.front_end)
 
     def use_fused(T: int) -> bool:
         if why is not None:
@@ -415,8 +469,15 @@ def run(argv=None) -> RunReport:
 
     lattice_mode = args.latticeDir is not None or args.modelLevelOutput
 
+    if args.refCore:
+        ref = (RefOtfDecoder(net, g_net, models, **beams) if otf
+               else RefDecoder(net, models, **beams))
+
     def decode_fn(feats):
         sc = score(feats)
+        if args.refCore:
+            host = sc.cpu().numpy()  # one copy an utterance, read per (t, gmm)
+            return ref.decode(score_fn=lambda t, g: float(host[t, g]), n_frames=len(host))
         if lattice_mode:
             res, lattice = dec.decode_scores_lattice(sc, use_fused=False)
             if args.modelLevelOutput:
@@ -457,10 +518,11 @@ def run(argv=None) -> RunReport:
         lna_outputs=models.vec_size if models.hybrid_mode else 0,
         lattice_dir=args.latticeDir,
         speaker_xforms=speaker_xforms,
+        device=device,
     )
     if args.loop:
         with _stage(report, "decode"):
-            run_loop(args, dec, score, out_names, use_fused=why is None)
+            run_loop(args, dec, score, out_names, use_fused=why is None, device=device)
         _report_stages(report)
         return report
 
@@ -472,7 +534,7 @@ def run(argv=None) -> RunReport:
         refs = BatchTester.read_references(args.refFName, specs, vocab.get_index)
 
     batch_fn = None
-    if args.batchSize > 1 and not lattice_mode:
+    if args.batchSize > 1 and not lattice_mode and not args.refCore:
         from ..parallel.batch import BatchDecoder
 
         routes = {True: BatchDecoder(dec, use_fused=True),
@@ -488,7 +550,7 @@ def run(argv=None) -> RunReport:
 
     tester.run(specs, refs, batch_fn=batch_fn, batch_size=args.batchSize)
     st = report.stages
-    st["features"] = tester.load_time
+    st["front end" if factory else "features"] = tester.load_time
     st["decode"] = tester.decode_time
     st["output"] = tester.run_time - tester.decode_time - tester.load_time
     report.results, report.speech_time = tester.results, tester.speech_time

@@ -1,3 +1,3 @@
-from .gram import arpa_grammar
+from .gram import GramGen, GramType, arpa_grammar
 
-__all__ = ["arpa_grammar"]
+__all__ = ["GramGen", "GramType", "arpa_grammar"]

@@ -1,6 +1,7 @@
-"""The grammar G of on-the-fly composition, in the form the decoder reads.
+"""The grammar G of on-the-fly composition, and the oracle decoder over it.
 
-Counterpart of `GNetwork` in `juicer_tpu/decoder/otf.py`, the rebuild of
+Counterpart of `GNetwork` and `RefOtfDecoder` in
+`juicer_tpu/decoder/otf.py`, the rebuild of
 the reference's `WFSTOnTheFlyDecoder` grammar side: the decoder searches
 CL and intersects each crossed word label with G lazily, by
 match-or-backoff (`binarySearchInLabel` and the eps/backoff path walk,
@@ -20,6 +21,11 @@ with one `torch.searchsorted` a backoff level over `arc_key`, the sorted
 int64 keys `state * W + label` (`core.TorchDecoder._g_advance`). A left
 search lands on the first of equal keys, which is the arc the JAX
 tables' first-match rule picks among duplicate (state, label) arcs.
+
+`RefOtfDecoder` is the oracle of on-the-fly composition: the host token
+passing of `ref_core.RefDecoder` with a G state on every token, advanced
+by `GNetwork.advance` on each word crossing, and HMM instances keyed by
+(CL arc, G state).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..fst import EPSILON, Fst
+from .ref_core import RefDecoder, Token
 
 LOG_ZERO = -1e30
 
@@ -148,3 +155,107 @@ class GNetwork:
     def __repr__(self) -> str:
         return (f"GNetwork(states={self.n_states}, word_arcs={len(self.arc_il)}, "
                 f"W={self.W}, max_backoff={self.max_backoff})")
+
+
+class RefOtfDecoder(RefDecoder):
+    """Oracle on-the-fly decoder: tokens carry a G state; instances are
+    keyed by (CL arc, G state)."""
+
+    def __init__(self, cl_network, g_network: GNetwork, models, **kw):
+        super().__init__(cl_network, models, **kw)
+        self.g = g_network
+
+    def _propagate_token(self, tok, arc) -> None:
+        net, g_net = self.net, self.g
+        if getattr(tok, "g", None) is None:
+            tok.g = g_net.init_state
+        if arc is not None:
+            olabel = net.arc_olabel[arc]
+            if olabel != 0:
+                # advance G on the word crossing, its LM weight onto the token
+                g2, gw = g_net.advance(tok.g, olabel)
+                if g2 < 0:
+                    return  # the word is not in G from this context
+                tok.g = g2
+                tok.score += gw
+                tok.lm += gw
+                tok.path = self._new_path(tok, olabel)
+            next_state = net.arc_dst[arc]
+            fw = net.final_weight[next_state]
+            if fw > LOG_ZERO:
+                gfw = g_net.final_reach[tok.g]
+                if gfw > LOG_ZERO and tok.score + fw + gfw > self.best_final.score:
+                    self.best_final = tok.copy()
+                    self.best_final.g = tok.g
+                    self.best_final.score += fw + gfw
+                    self.best_final.lm += fw + gfw
+        else:
+            next_state = net.init_state
+
+        for nxt in net.arcs_from(next_state):
+            ilabel = net.arc_ilabel[nxt]
+            w = net.arc_weight[nxt]
+            if ilabel == 0:
+                tmp = tok.copy()
+                tmp.g = tok.g
+                tmp.score += w
+                tmp.lm += w
+                if tmp.score > self.cur_end_thresh:
+                    self._propagate_token(tmp, nxt)
+                continue
+            key = (nxt, tok.g)
+            inst = self.insts.get(key)
+            if inst is None:
+                inst = self.insts[key] = self._new_inst(nxt, ilabel - 1)
+                inst.g = tok.g
+                self.new_active.insert(0, key)
+            entry = inst.states[0]
+            new_score = tok.score + w
+            if new_score > entry.score:
+                if entry.score <= LOG_ZERO:
+                    inst.n_active += 1
+                ntok = tok.copy()
+                ntok.g = tok.g
+                ntok.score = new_score
+                ntok.lm += w
+                inst.states[0] = ntok
+                if new_score > self.best_emit:
+                    self.best_emit = new_score
+                if new_score > self.best_start:
+                    self.best_start = new_score
+            if inst.tee > LOG_ZERO:
+                tee_score = new_score + inst.tee
+                tmp = tok.copy()
+                tmp.g = tok.g
+                tmp.score = tee_score
+                tmp.acoustic += inst.tee
+                tmp.lm += w
+                thresh = self.cur_word_thresh if net.arc_olabel[nxt] != 0 else self.cur_end_thresh
+                if tee_score > thresh:
+                    self._propagate_token(tmp, nxt)
+
+    def _do_external(self) -> None:
+        # as the base class's, with (arc, G state) keys
+        self.best_start = LOG_ZERO
+        survivors = []
+        for key in self.active:
+            inst = self.insts.get(key)
+            if inst is None:
+                continue
+            exit_tok = inst.states[inst.n_states - 1]
+            if exit_tok.score > LOG_ZERO:
+                arc = inst.arc
+                thresh = (self.cur_end_thresh if self.net.arc_olabel[arc] == 0
+                          else self.cur_word_thresh)
+                if exit_tok.score > thresh:
+                    t2 = exit_tok.copy()
+                    t2.g = inst.g
+                    self._propagate_token(t2, arc)
+                inst.states[inst.n_states - 1] = Token()
+                inst.n_active -= 1
+                if inst.n_active == 0:
+                    del self.insts[key]
+                    continue
+            survivors.append(key)
+        self.active = [k for k in survivors if k in self.insts]
+        self._join_new_active()

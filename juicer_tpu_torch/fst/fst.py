@@ -16,6 +16,8 @@ import numpy as np
 from .semiring import INF, LOG, Semiring
 
 EPSILON = 0
+EPSILON_STR = "<eps>"
+PHI_STR = "#phi"
 
 
 class SymbolTable:

@@ -16,9 +16,15 @@ Rebuild of `DecoderBatchTest` / `DecoderSingleTest`
   - WER via weighted edit distance with HTK costs 7/7/10
     (`printStatistics`, `:148-201`).
 
-Feature files are htk, lna or npy; the wav front end (`factory`) is not
-ported yet. Besides the decode time, the tester adds up the seconds it
-spends reading features (`load_time`) and the whole run (`run_time`).
+Feature files are htk, lna or npy, read on the host; or wav audio
+(`factory`), which the MFCC front end (`harness/frontend.py`) turns into
+features on the tester's `device`, a batch's files (or an utterance
+alone) in one pass of `frontend.wavs_to_features`. Features made on a
+device stay there, and
+speaker transforms apply to them there. Besides the decode time, the
+tester adds up the seconds it spends reading features or running the
+front end (`load_time`, the device synchronised) and the whole run
+(`run_time`).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from enum import Enum
 from typing import Callable, Optional, TextIO, Union
 
 import numpy as np
+import torch
 
 from .editdist import EditDistance
 from .features import read_htk, read_lna
@@ -102,10 +109,11 @@ class BatchTester:
         remove_sent_marks: bool = False,
         sent_start_index: int = -1,
         sent_end_index: int = -1,
-        feature_kind: str = "htk",  # htk | lna | npy
+        feature_kind: str = "htk",  # htk | lna | npy | factory
         lna_outputs: int = 0,
         lattice_dir: Optional[str] = None,
         speaker_xforms=None,  # am.xform.SpeakerXforms
+        device="cuda",  # where the front end runs (factory)
     ):
         self.decode_fn = decode_fn
         self.word_names = word_names
@@ -119,6 +127,7 @@ class BatchTester:
         self.lna_outputs = lna_outputs
         self.lattice_dir = lattice_dir
         self.speaker_xforms = speaker_xforms
+        self.device = device
         self.results: list[UtteranceResult] = []
         self.decode_time = 0.0
         self.speech_time = 0.0
@@ -137,27 +146,44 @@ class BatchTester:
                     specs.append(UtteranceSpec.parse(line))
         return specs
 
-    def load_features(self, spec: UtteranceSpec) -> np.ndarray:
+    def load_features(self, spec: UtteranceSpec):
+        return self.load_batch([spec])[0]
+
+    def load_batch(self, specs: list[UtteranceSpec]) -> list:
+        """The features of `specs`: (T, D) host arrays, or (T, D) float32
+        tensors on the device for wav audio (one front-end pass)."""
         t0 = time.perf_counter()
-        feats = self._load_features(spec)
+        if self.feature_kind == "factory":
+            from .frontend import wavs_to_features
+
+            feats = wavs_to_features([s.path for s in specs], device=self.device)
+        else:
+            feats = [self._read(s.path) for s in specs]
+        feats = [self._finish(s, f) for s, f in zip(specs, feats)]
+        if any(isinstance(f, torch.Tensor) and f.is_cuda for f in feats):
+            torch.cuda.synchronize()
         self.load_time += time.perf_counter() - t0
         return feats
 
-    def _load_features(self, spec: UtteranceSpec) -> np.ndarray:
+    def _read(self, path: str) -> np.ndarray:
         if self.feature_kind == "htk":
-            feats, _, _ = read_htk(spec.path)
-        elif self.feature_kind == "lna":
-            feats = read_lna(spec.path, self.lna_outputs)
-        elif self.feature_kind == "npy":
-            feats = np.load(spec.path)
-        else:
-            raise ValueError(f"unknown feature kind {self.feature_kind}")
+            return read_htk(path)[0]
+        if self.feature_kind == "lna":
+            return read_lna(path, self.lna_outputs)
+        if self.feature_kind == "npy":
+            return np.load(path)
+        raise ValueError(f"unknown feature kind {self.feature_kind}")
+
+    def _finish(self, spec: UtteranceSpec, feats):
+        """The spec's frame range and its speaker's transform."""
         if spec.start_frame >= 0:
             feats = feats[spec.start_frame : spec.end_frame + 1]
         if self.speaker_xforms is not None:
             xf = self.speaker_xforms.for_utterance(spec.name)
             if xf is not None:
-                feats = xf.apply(feats).astype(np.float32)
+                feats = xf.apply(feats)
+                if isinstance(feats, np.ndarray):
+                    feats = feats.astype(np.float32)
         return feats
 
     @staticmethod
@@ -223,7 +249,7 @@ class BatchTester:
             if batch_fn is not None and batch_size > 1:
                 for i in range(0, len(specs), batch_size):
                     group = specs[i : i + batch_size]
-                    feats = [self.load_features(s) for s in group]
+                    feats = self.load_batch(group)
                     t0 = time.perf_counter()
                     results = batch_fn(feats)
                     dt = time.perf_counter() - t0

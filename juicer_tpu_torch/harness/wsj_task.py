@@ -8,7 +8,9 @@ copies of what the reference bench drives them with: the operating point
 `OTF_POINT` (`scripts/wsj_otf.py`) and the utterance sampler
 `sample_utterances` (`scripts/wsj_bench.py`), which random-walks the
 task's bigram and synthesises features from the models, so every
-utterance has a known transcript.
+utterance has a known transcript. `sample_audio` makes wav-front-end
+input the same way: audio of a sampled sentence whose MFCC features
+follow the models' means, with exactly the frame counts asked for.
 
 The decode artifact is derived from the network and models. By default
 it is read from this package's `_cache/<task>_artifact.npz`, or built and
@@ -26,6 +28,7 @@ import time
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from ..am.models import AcousticModelSet
 from ..decoder.artifact import DecoderArtifact
@@ -185,50 +188,45 @@ def word_labels(cache: str):
             {index["<s>"], index["</s>"]})
 
 
-def sample_utterances(cache, models, n_utts, target_frames, seed,
-                      frames_per_state=3):
-    """Random-walk the bigram, synthesise features from the models; a copy
-    of `scripts/wsj_bench.py:sample_utterances` (LM-sampled text). Returns
-    [(word ids, (T, D) float32 features)]."""
-    rng = np.random.default_rng(seed)
-    bz = np.load(os.path.join(cache, "bigram.npz"))
-    phone_index = {}
-    with open(os.path.join(cache, "phones.lst")) as fd:
-        for i, line in enumerate(fd):
-            phone_index[line.strip()] = i
-    prons = {}
-    with open(os.path.join(cache, "lex.dict")) as fd:
-        for line in fd:
-            parts = line.split()
-            prons[parts[0]] = [phone_index[p] for p in parts[1:]]
-    hmm_of_phone = {p: models.get_hmm_index(name)
-                    for name, p in phone_index.items()}
+class _Sentences:
+    """A task's bigram, pronunciations and phone models, and its sentence
+    sampler (`scripts/wsj_bench.py`'s random walk)."""
 
-    n_words_total = len(prons) - 2
-    SB, SE = n_words_total, n_words_total + 1
+    def __init__(self, cache, models):
+        self.bz = np.load(os.path.join(cache, "bigram.npz"))
+        phone_index = {}
+        with open(os.path.join(cache, "phones.lst")) as fd:
+            for i, line in enumerate(fd):
+                phone_index[line.strip()] = i
+        self.prons = {}
+        with open(os.path.join(cache, "lex.dict")) as fd:
+            for line in fd:
+                parts = line.split()
+                self.prons[parts[0]] = [phone_index[p] for p in parts[1:]]
+        self.hmm_of_phone = {p: models.get_hmm_index(name) for name, p in phone_index.items()}
+        n_words_total = len(self.prons) - 2
+        self.SB, self.SE = n_words_total, n_words_total + 1
 
-    def frames_of(w):
-        return (len(prons[f"w{w}"]) * (models.get_num_states(0) - 2)
-                * frames_per_state)
-
-    def sample_sentence():
-        # ONE sentence <s> w... </s>: the grammar has no sentence loop
-        words, w, frames_est = [], SB, 0
+    def sample_sentence(self, rng, frames_of):
+        """ONE sentence <s> w... </s> (the grammar has no sentence loop):
+        its words and the sum of frames_of(w)."""
+        words, w, frames_est = [], self.SB, 0
         while True:
-            ids = bz[f"ids_{w}"]
-            p = 10.0 ** bz[f"logp_{w}"]
+            ids = self.bz[f"ids_{w}"]
+            p = 10.0 ** self.bz[f"logp_{w}"]
             p /= p.sum()
             w = int(rng.choice(ids, p=p))
-            if w == SE:
+            if w == self.SE:
                 return words, frames_est
             words.append(w)
             frames_est += frames_of(w)
 
-    utts = []
-    for _ in range(n_utts):
+    def sample_close(self, rng, frames_of, target_frames):
+        """The first of up to 300 sentences within 0.6-1.5x the target
+        frames, else the closest non-empty one."""
         best = None
         for _try in range(300):
-            words, frames_est = sample_sentence()
+            words, frames_est = self.sample_sentence(rng, frames_of)
             if not words:
                 continue
             err = abs(frames_est - target_frames)
@@ -236,13 +234,33 @@ def sample_utterances(cache, models, n_utts, target_frames, seed,
                 best = (err, words)
             if target_frames * 0.6 <= frames_est <= target_frames * 1.5:
                 break
-        words = best[1]
+        return best[1]
+
+    def phone_seq(self, words):
+        """sil + the words' phones + sil."""
+        return (self.prons["<s>"] + sum((self.prons[f"w{w}"] for w in words), [])
+                + self.prons["</s>"])
+
+
+def sample_utterances(cache, models, n_utts, target_frames, seed,
+                      frames_per_state=3):
+    """Random-walk the bigram, synthesise features from the models; a copy
+    of `scripts/wsj_bench.py:sample_utterances` (LM-sampled text). Returns
+    [(word ids, (T, D) float32 features)]."""
+    rng = np.random.default_rng(seed)
+    task = _Sentences(cache, models)
+
+    def frames_of(w):
+        return (len(task.prons[f"w{w}"]) * (models.get_num_states(0) - 2)
+                * frames_per_state)
+
+    utts = []
+    for _ in range(n_utts):
+        words = task.sample_close(rng, frames_of, target_frames)
         # features: sil + words + sil
         frames = []
-        phone_seq = prons["<s>"] + sum((prons[f"w{w}"] for w in words), []) \
-            + prons["</s>"]
-        for p in phone_seq:
-            h = hmm_of_phone[p]
+        for p in task.phone_seq(words):
+            h = task.hmm_of_phone[p]
             n = models.get_num_states(h)
             for j in range(1, n - 1):
                 g = int(models.hmm_gmm_inds[h][j - 1])
@@ -253,3 +271,65 @@ def sample_utterances(cache, models, n_utts, target_frames, seed,
                     frames.append(mu + rng.normal(size=len(mu)) * sd)
         utts.append((words, np.asarray(frames, dtype=np.float32)))
     return utts
+
+
+def sample_audio(cache, models, lengths, seed):
+    """16 kHz S16LE audio for the task's models, whose MFCC front end
+    (`harness/frontend.py`, the default configuration) makes exactly
+    lengths[i] frames for utterance i. Returns [(word ids, int16
+    samples)].
+
+    Each utterance is a bigram-sampled sentence (sil, words, sil) of about
+    three frames a state; its HMM states share the T frames
+    equally (one frame more for a random few). A state is held as a
+    periodic signal of period one frame shift (100 Hz), so every frame
+    inside it sees the same waveform, whose spectral envelope (the
+    pre-emphasis undone) has the static cepstra c1..c12 and c0 of one
+    component mean of the state's GMM. The statics follow the models'
+    means within about 1; the deltas are the front end's (near 0 inside
+    a held state), while the models' dynamic means are as large as their
+    static ones, so many GMMs score alike: the audio exercises the front
+    end and the decoder, but its likelihoods are flat and the sentence it
+    was made from is not a transcript a decoder recovers."""
+    from .frontend import FrontendConfig, _Tables
+
+    cfg = FrontendConfig()
+    rng = np.random.default_rng(seed)
+    task = _Sentences(cache, models)
+    tabs = _Tables(cfg, torch.device("cpu"))
+    dct, lift, fb = tabs.dct.numpy(), tabs.lift.numpy(), tabs.fb.numpy()
+    centers = (fb * np.arange(fb.shape[1])).sum(1) / fb.sum(1)  # in rfft bins
+    P = cfg.frame_shift
+    harmonics = np.arange(P // 2 + 1) * cfg.n_fft / P  # the period's harmonics, in bins
+    pre = np.abs(1 - cfg.preemphasis * np.exp(-2j * np.pi * harmonics / cfg.n_fft))
+
+    def held(mu, n):
+        ceps = np.concatenate([[mu[12]], mu[:12]]) / lift
+        ceps[0] *= 0.5  # row 0 of the DCT has twice the others' norm
+        amp = np.exp(np.interp(harmonics, centers, ceps @ dct) / 2) / pre
+        amp[0] = 0.0
+        period = np.fft.irfft(amp * np.exp(2j * np.pi * rng.random(len(amp))), P)
+        return np.tile(period, -(-n // P))[:n]
+
+    out = []
+    for T in lengths:
+        def frames_of(w):
+            return sum(models.get_num_states(task.hmm_of_phone[p]) - 2
+                       for p in task.prons[f"w{w}"]) * 3
+
+        words = task.sample_close(rng, frames_of, T)
+        gmms = [int(g) for p in task.phone_seq(words)
+                for g in models.hmm_gmm_inds[task.hmm_of_phone[p]]]
+        if len(gmms) > T:
+            raise ValueError(f"{len(gmms)} states do not fit {T} frames")
+        hold = np.full(len(gmms), T // len(gmms))
+        hold[rng.choice(len(gmms), T - int(hold.sum()), replace=False)] += 1
+        pieces = []
+        for g, n in zip(gmms, hold):
+            mu = models.gmm_means[g][int(rng.integers(len(models.gmm_means[g])))]
+            pieces.append(held(mu, P * int(n)))
+        pieces.append(held(mu, cfg.frame_len - P))  # the last frame's window
+        x = np.concatenate(pieces)
+        x *= 6000.0 / np.abs(x).max()
+        out.append((words, np.round(x).astype("<i2")))
+    return out

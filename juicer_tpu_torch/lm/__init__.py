@@ -1,3 +1,4 @@
 from .arpa import ArpaLM
+from .wordpair import WordPairLM
 
-__all__ = ["ArpaLM"]
+__all__ = ["ArpaLM", "WordPairLM"]

@@ -838,3 +838,212 @@ def test_cli_loop_on_the_card_equals_the_cpu(card, cli_task, monkeypatch, capsys
             assert fused_scan.counter.launches - n0 == -(-len(feats) // 20)
     assert outs["cuda"] == outs["cpu"]
     assert outs["cuda"].splitlines()[-1] == "final: <s> cat a cat </s>"
+
+
+# ---- the wav front end, live capture, MLLR and the oracle core -------------
+
+AUDIO_TONES = {"ah": 300.0, "k": 2500.0, "ae": 900.0, "t": 5000.0, "sil": 0.0}
+
+
+def _tone_pcm(phones, rng):
+    """S16LE PCM of a phone sequence, a tone a phone held 14-18 frames
+    (silence a low noise), and each phone's (first sample, samples)."""
+    out, spans, pos = [], [], 0
+    for p in phones:
+        n = 160 * int(rng.integers(14, 19))
+        x = 30 * rng.normal(size=n)
+        if AUDIO_TONES[p]:
+            x += 6000 * np.sin(2 * np.pi * AUDIO_TONES[p] * np.arange(n) / 16000
+                               + 6 * rng.random())
+        out.append(x)
+        spans.append((pos, n, p))
+        pos += n
+    return np.clip(np.concatenate(out), -32768, 32767).astype("<i2"), spans
+
+
+@pytest.fixture(scope="module")
+def audio_task(cli_task):
+    """`cli_task` with wav audio of its utterances, a 39-dimensional MMF
+    whose means and variances are the front end's features of each
+    phone's frames (the port's `mfcc` on the CPU), a two-class base-class
+    file and an MLLRMEAN set."""
+    import wave
+
+    from juicer_tpu_torch.am.mmf import MmfDef, MmfHmm, MmfMixture, MmfState, MmfTransMat
+    from juicer_tpu_torch.am.mmf import write_mmf
+    from juicer_tpu_torch.harness.frontend import mfcc
+
+    td = cli_task
+    rng = np.random.default_rng(5)
+    frames = {p: [] for p in CLI_PHONES}
+    lines = []
+    for u, utt in enumerate(CLI_UTTS):
+        phones = ["sil"] + [p for w in utt for p in CLI_WORDS[w]] + ["sil"]
+        pcm, spans = _tone_pcm(phones, rng)
+        with wave.open(str(td / f"u{u}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(pcm.tobytes())
+        np.save(str(td / f"u{u}.pcm.npy"), pcm)
+        lines.append(str(td / f"u{u}.wav"))
+        f = mfcc(pcm.astype(np.float64), device="cpu").numpy()
+        for start, n, p in spans:
+            frames[p].append(f[start // 160 + 2:(start + n) // 160 - 3])
+    (td / "wav.lst").write_text("\n".join(lines) + "\n")
+    d = MmfDef()
+    d.global_opts.vec_size = 39
+    for name in CLI_PHONES:
+        x = np.concatenate(frames[name]).astype(np.float64)
+        probs = np.zeros((5, 5))
+        probs[0, 1] = 1
+        for i in range(1, 4):
+            probs[i, i] = probs[i, i + 1] = 0.5
+        d.hmms.append(MmfHmm(name, 5, [MmfState(mixtures=[MmfMixture(1.0, x.mean(0),
+                                                                     x.var(0) + 1.0)])
+                                       for _ in range(3)], MmfTransMat(None, 5, probs)))
+    write_mmf(d, str(td / "models39.mmf"))
+    (td / "two.base").write_text('~b "two"\n<NUMCLASSES> 2\n<CLASS> 1 {(ah,k).state[2-4]}\n'
+                                 "<CLASS> 2 {*.state[2-4]}\n")
+    xf = ""
+    for k in (1, 2):
+        A = np.eye(39) + rng.normal(scale=0.01, size=(39, 39))
+        xf += (f"<LINXFORM> {k}\n<VECSIZE> 39\n<BIAS> 39\n "
+               + " ".join(repr(float(v)) for v in rng.normal(scale=0.05, size=39))
+               + "\n<XFORM> 39 39\n "
+               + "\n ".join(" ".join(repr(float(v)) for v in row) for row in A) + "\n")
+    (td / "spk.mllr").write_text('~a "spk"\n<XFORMSET>\n<XFORMKIND> MLLRMEAN\n<NUMXFORMS> 2\n'
+                                 + xf + "<XFORMWGTSET>\n<CLASSXFORM> 1 1\n<CLASSXFORM> 2 2\n")
+    return td
+
+
+def _audio_argv(td):
+    argv = _cli_argv(td)
+    argv[argv.index("-inputFName") + 1] = str(td / "wav.lst")
+    argv[argv.index("-htkModelsFName") + 1] = str(td / "models39.mmf")
+    return argv + ["-inputFormat", "factory"]
+
+
+@pytest.mark.gpu
+def test_front_end_on_the_card_equals_the_cpu(card):
+    """`mfcc`, `mfcc_batch` (each row its utterance alone, padding zero) and
+    `StreamingFrontend` chunk by chunk on the card against the CPU, within
+    1e-4 (float64 inside, another FFT and product order)."""
+    from juicer_tpu_torch.harness import capture, frontend
+
+    rng = np.random.default_rng(3)
+    sigs = [3000 * np.sin(np.arange(n) * 0.07) + 500 * rng.normal(size=n)
+            for n in (16000, 5123, 9001, 250)]
+    feats, lengths = frontend.mfcc_batch(sigs, device=card)
+    assert feats.device == card and feats.dtype == torch.float32
+    for b, s in enumerate(sigs):
+        want = frontend.mfcc(s, device="cpu")
+        one = frontend.mfcc(s, device=card)
+        assert one.device == card and one.shape == want.shape == (lengths[b], 39)
+        assert float((one.cpu() - want).abs().max()) <= 1e-4
+        assert float((feats[b, :lengths[b]].cpu() - want).abs().max()) <= 1e-4
+        assert not feats[b, lengths[b]:].any()
+    for cmn in (False, True):
+        cfg = frontend.FrontendConfig(cmn=cmn)
+        on_card, on_cpu = (capture.StreamingFrontend(cfg, device=card),
+                           capture.StreamingFrontend(cfg, device="cpu"))
+        for i in range(0, 16000, 777):
+            a, b = on_card.feed(sigs[0][i:i + 777]), on_cpu.feed(sigs[0][i:i + 777])
+            assert a.device == card and a.shape == b.shape
+            assert a.numel() == 0 or float((a.cpu() - b).abs().max()) <= 1e-4
+        a, b = on_card.flush(), on_cpu.flush()
+        assert a.shape == b.shape and float((a.cpu() - b).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_mllr_on_the_card_equals_the_cpu(card, audio_task):
+    """`apply_mllr_means` and `with_mean_transform` on the card: float64
+    means and flat parameters within 1e-12 (relative above 1) of the CPU's."""
+    from juicer_tpu_torch.am.regtree import apply_mllr_means, parse_baseclass, parse_xformset
+
+    models = AcousticModelSet.from_mmf(str(audio_task / "models39.mmf"))
+    xs = parse_xformset(str(audio_task / "spk.mllr"))
+    bc = parse_baseclass(str(audio_task / "two.base"))
+    pairs = [(apply_mllr_means(models, xs, bc, device=card),
+              apply_mllr_means(models, xs, bc, device="cpu")),
+             (models.with_mean_transform(xs.xforms[2].A, xs.xforms[2].b, device=card),
+              models.with_mean_transform(xs.xforms[2].A, xs.xforms[2].b, device="cpu"))]
+    for got, want in pairs:
+        for a, b in zip(got.gmm_means, want.gmm_means):
+            assert np.abs(a - b).max() <= 1e-12 * max(1.0, np.abs(b).max())
+        fa, fb = got.flat_params(np.float64), want.flat_params(np.float64)
+        for k in ("V", "M", "b"):
+            a, b = getattr(fa, k), getattr(fb, k)
+            assert (np.abs(a - b) / np.maximum(1.0, np.abs(b))).max() <= 1e-12, k
+
+
+AUDIO_CLI_CASES = {
+    "factory_mllr_batch": (["-batchSize", "3", "{MLLR}"], "route: frame_step kernel"),
+    "factory_ref_core": (["-refCore"], "route: oracle token passing on the host (-refCore; "
+                                       "GMM scores on cuda"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(AUDIO_CLI_CASES))
+def test_cli_audio_on_the_card_equals_the_cpu(card, audio_task, tmp_path, case):
+    """wav input through the front end on the card, with MLLR in batches of
+    3 through the kernels, and through the oracle core: output equal to
+    `-device cpu` (timing lines aside), four sentences of five correct (the
+    fifth, "a a", is one tone held twice as long); the front end named on
+    the card; launches gmm_logsumexp one an utterance, frame_step one a batch
+    (none for the oracle)."""
+    from juicer_tpu_torch.cli import juicer
+
+    flags, route = AUDIO_CLI_CASES[case]
+    mllr = ["-mllrXformFile", str(audio_task / "spk.mllr"), "-regClassFile",
+            str(audio_task / "two.base")]
+    flags = [g for f in flags for g in (mllr if f == "{MLLR}" else [f])]
+    texts = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp_path / f"{dev}.out"
+        n0 = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+        report = juicer.run(_audio_argv(audio_task) + flags
+                            + ["-device", dev, "-outputFName", str(out)])
+        launches = (gmm_cuda.counter.launches - n0[0], fused_scan.counter.launches - n0[1])
+        texts[dev] = [ln for ln in out.read_text().splitlines() if not ln.startswith(TIMING)]
+        if dev == "cuda":
+            assert report.route.startswith(route)
+            assert report.front_end.startswith("front end: MFCC of wav files, a batch in one "
+                                               "pass on cuda")
+            n_fs = 0 if "-refCore" in flags else 2
+            assert launches == (len(CLI_UTTS), n_fs), launches
+    assert texts["cuda"] == texts["cpu"]
+    # "a a" is one tone held twice as long: the word loop hears one "a"
+    correct = [ln.split("Sentence correct = ")[1] for ln in texts["cuda"] if "Sentence correct" in ln]
+    assert len(correct) == 1 and int(correct[0].split("/")[0]) >= 4, correct
+
+
+@pytest.mark.gpu
+def test_cli_loop_audio_on_the_card_equals_the_cpu(card, audio_task, monkeypatch, capsys):
+    """-loop -audioDevice -: PCM on stdin through the streaming front end
+    and the stream decoder; the card's partial and final lines equal the
+    CPU's; the kernel launched for the chunks on the card."""
+    import io
+    import sys
+
+    from juicer_tpu_torch.cli import juicer
+
+    pcm = np.load(str(audio_task / "u3.pcm.npy"))
+    argv = _cli_argv(audio_task)
+    argv[argv.index("-htkModelsFName") + 1] = str(audio_task / "models39.mmf")
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        monkeypatch.setattr(sys, "stdin", io.TextIOWrapper(io.BytesIO(pcm.tobytes())))
+        n0 = fused_scan.counter.launches
+        report = juicer.run(argv + ["-loop", "-loopChunk", "20", "-audioDevice", "-",
+                                    "-device", dev])
+        outs[dev] = capsys.readouterr().out
+        if dev == "cuda":
+            assert report.route == "route: frame_step kernel"
+            assert report.front_end.startswith("front end: MFCC of PCM, streamed on cuda")
+            assert fused_scan.counter.launches - n0 >= 2
+    assert outs["cuda"] == outs["cpu"]
+    # the running mean of the stream's first frames is theirs alone, which
+    # moves the start of the first word
+    assert outs["cuda"].splitlines()[-1].startswith("final: <s> ")
