@@ -142,9 +142,16 @@ Phases (any failure raises and exits non-zero before the result line):
        - lattice: that sentence with `gen_lattice=True` as in [lattice];
        - stream: that sentence through `dec.stream(use_fused=False)` in
          chunks of 100 frames, `finish()` equal to the whole decode;
+  [toolchain 2k] after the 2k tables are released: the 2k CLG rebuilt on
+     the host by the port's offline toolchain from the task's phones.lst,
+     lex.dict and lm.arpa (`wsj_task.build_task`: `GramGen(NGRAM)`,
+     `LexGen` with aux phones, the monophone `CDGen`, `build_clg`, each
+     stage's states, arcs and seconds printed), held to clg.npz bit for bit
+     (every array and scalar; a difference names the array and its first
+     index); [cli 2k] writes its network text from it;
   [cli 2k] the decoder CLI (`juicer_tpu_torch.cli.juicer`, run in this
      process through `run`, which `main` is with an exit code) on the 2k
-     task, after the 2k tables are released. The smoke writes the CLI's
+     task. The smoke writes the CLI's
      files into a temporary directory with its own writers (floats at
      round-trip precision): the CLG as AT&T text (the initial state's arcs
      first), symbol files (model names in, `Vocabulary` words out), the
@@ -179,6 +186,24 @@ Phases (any failure raises and exits non-zero before the result line):
      `StreamingDecoder` of the CLI's configuration: one launch of each
      kernel a chunk); stderr names the kernel route and the front end on
      the card;
+  [toolchain cli 2k] in [cli 2k]'s directory, the users' entry points end
+     to end: `jtpu-gramgen-torch -gramType ngram`, `jtpu-lexgen-torch
+     -silMonophone sil -pauseMonophone sp -outputAuxPhones`,
+     `jtpu-cdgen-torch -cdType monophone -lexInSymsFName` and
+     `jtpu-build-wfst-torch` (their `main`s, in this process) on the 2k
+     files; G, L, C and final.fsm read back with the JAX tools' counts
+     (final.fsm 178,593 states and 1,605,301 arcs: the CLI route's CLG is
+     not clg.npz's, as its C carries the aux self-loops twice and the text
+     between the tools has three decimals). `jtpu-juicer-torch` decodes
+     [cli 2k]'s utterances from final.fsm at `WSJ_POINT`, `-batchSize 1`:
+     route `frame_step kernel`, one launch of each kernel an utterance,
+     certified (overflow 0, dead 0, every utterance's words equal its
+     transcript, `Word accuracy = 100.00%`). Then `jtpu-genwfstseqs-torch`
+     on final.fsm (5 sequences over its input symbols), `jtpu-hmmgen-torch`
+     on the MMF (H's states read back) and `jtpu-untie-torch` with a tied
+     list of four logical names (the untied MMF read back: each logical
+     model's means are its physical model's within the MMF writer's seven
+     significant digits, the list sorted);
   [cli 20k] the slice's full-width path, after the [20k] task is released
      (its host artifact and tables: two in-memory builds may not fit):
        - files: the 20k CLG (7,870,751 arcs) as text, symbol files, the
@@ -221,9 +246,16 @@ Phases (any failure raises and exits non-zero before the result line):
      utterances (the audio's flat likelihoods fill the bench's budgets;
      counted, not hidden); the seconds of every stage printed (front end,
      mllr, artifact, decode among them);
-  [cli otf] after [otf]: CL (`cl.npz`) and G (`arpa_grammar` of
-     `lm.arpa`) written as text and read back equal (the network's arrays
-     and `GNetwork`'s); the CLI with `-gramFsmFName`, `-batchSize 8` at
+  [toolchain 20k] before [otf]: the 20k CL rebuilt on the host by the
+     port's toolchain (`wsj_task.build_task`: `LexGen` with aux phones,
+     `minimize(determinize(arcsort(L)))`, the monophone `CDGen`,
+     `compose(C, closure(arcsort(L)))`), held to cl.npz bit for bit;
+  [cli otf] after [otf]: [toolchain 20k]'s CL and G (`arpa_grammar` of
+     `lm.arpa`) written as text and read back equal to cl.npz and to G
+     (the network's arrays and `GNetwork`'s); the G of [otf] and of this
+     phase is the port's grammar generator's, so the pair the CLI decodes
+     is the port's toolchain's from end to end; the CLI with
+     `-gramFsmFName`, `-batchSize 8` at
      `OTF_POINT`'s beams and [otf]'s tuned budgets: route line `plain
      frame loop (on-the-fly composition: ...)`, certified, launches
      gmm_logsumexp 8 and frame_step 0, every utterance equal to [otf]'s
@@ -772,6 +804,7 @@ def main() -> int:
     del task, art, dec, bd, fs, scores, scores_tbg, x, feats, sc_card, plain_results
     gc.collect()
     torch.cuda.empty_cache()
+    cli_lib["clg"] = phase_toolchain_2k(card, phase_done)
     cli2k = phase_cli_2k(card, dev, cli_lib, phase_done)
     k20 = phase_20k(card, dev, at_2k, phase_done)
     # release the static 20k task (its host artifact and 5.73 GB of tables)
@@ -784,8 +817,11 @@ def main() -> int:
     del cli_lib
     gc.collect()
     torch.cuda.empty_cache()
+    cl20 = phase_toolchain_20k(card, phase_done)
     otf = phase_otf(card, dev, k20.pop("static"), phase_done)
     cli_lib = otf.pop("cli")
+    cli_lib["cl"] = cl20
+    del cl20
     gc.collect()
     cliotf, G = phase_cli_otf(card, dev, cli_lib, phase_done)
     phase_gramgen_20k(card, G, phase_done)
@@ -1749,7 +1785,7 @@ def phase_cli_2k(card, dev, lib, phase_done):
 
     cache = wsj_task.task_dir("2k")
     p = wsj_task.WSJ_POINT
-    net = DecoderNetwork.load_npz(os.path.join(cache, "clg.npz"))
+    net = lib.pop("clg")  # [toolchain 2k]'s CLG, equal to clg.npz bit for bit
     models = AcousticModelSet.load_npz(os.path.join(cache, "models.npz"))
     utts = lib["utts"] + [lib["sent"]]
     names = [f"u{i}" for i in range(len(lib["utts"]))] + ["sent"]
@@ -1836,14 +1872,17 @@ def phase_cli_2k(card, dev, lib, phase_done):
         phase_done("cli 2k")
         launches_d = phase_cli_ref_2k(card, argv_b + point, td, sent_a, lib, phase_done)
         phase_cli_loop_audio_2k(card, base + point, out_syms, lib["loop"], phase_done)
+        tool = phase_toolchain_cli_2k(card, td, base, point, utts, phase_done)
     return {"gmm_logsumexp": {"launches_cli_2k": launches_a[0],
                               "launches_cli_2k_lattice": launches_b[0],
                               "launches_cli_ref_2k": launches_d[0],
-                              "launches_stream_audio_2k": lib["loop"]["launches"][0]},
+                              "launches_stream_audio_2k": lib["loop"]["launches"][0],
+                              "launches_toolchain_cli_2k": tool["launches"][0]},
             "frame_step": {"launches_cli_2k": launches_a[1],
                            "launches_cli_2k_lattice": launches_b[1],
                            "launches_cli_ref_2k": launches_d[1],
-                           "launches_stream_audio_2k": lib["loop"]["launches"][1]}}
+                           "launches_stream_audio_2k": lib["loop"]["launches"][1],
+                           "launches_toolchain_cli_2k": tool["launches"][1]}}
 
 
 def f32_spacings(a, b, size):
@@ -2093,7 +2132,6 @@ def phase_cli_otf(card, dev, lib, phase_done):
     from juicer_tpu_torch.decoder.otf import GNetwork
     from juicer_tpu_torch.fst import read_fsm
     from juicer_tpu_torch.harness import wsj_task
-    from juicer_tpu_torch.lexicon import load_vocabulary
 
     cache = wsj_task.task_dir("20k")
     p = wsj_task.OTF_POINT
@@ -2102,10 +2140,10 @@ def phase_cli_otf(card, dev, lib, phase_done):
         raise RuntimeError(f"[cli otf] the tuner moved F to {tuned.final_budget}; the CLI "
                            f"has no flag for it (its F is 1024)")
     B = len(lib["utts"])
-    cl = DecoderNetwork.load_npz(os.path.join(cache, "cl.npz"))
+    cl = lib.pop("cl")  # [toolchain 20k]'s CL, equal to cl.npz bit for bit
+    want = DecoderNetwork.load_npz(os.path.join(cache, "cl.npz"))
     models = AcousticModelSet.load_npz(os.path.join(cache, "models.npz"))
-    vocab = load_vocabulary(os.path.join(cache, "phones.lst"), os.path.join(cache, "lex.dict"),
-                            "<s>", "</s>")
+    vocab = wsj_task.task_lexicon(cache).vocab
     G = arpa_grammar(vocab, os.path.join(cache, "lm.arpa"))
     g_want = GNetwork(G)
     names = [f"u{i}" for i in range(B)]
@@ -2117,7 +2155,7 @@ def phase_cli_otf(card, dev, lib, phase_done):
         back = DecoderNetwork.from_files(*(os.path.join(td, n)
                                            for n in ("net.fsm", "in.syms", "out.syms")),
                                          remove_aux="input")
-        same, differ = check_network_read_back("cli otf", back, cl)
+        same, differ = check_network_read_back("cli otf", back, want)
         g_got = GNetwork(read_fsm(os.path.join(td, "g.fsm")))
         for k in ("arc_il", "arc_dst", "arc_w", "row_ptr", "bo_dst", "bo_w", "final_w",
                   "final_reach", "arc_key"):
@@ -2146,8 +2184,9 @@ def phase_cli_otf(card, dev, lib, phase_done):
                            f"expected {B} and 0")
     n_held = same_as_library("cli otf", report.results, lib["results"], lib["markers"])
     st = report.stages
-    print(f"[cli otf] CL ({cl.n_arcs} arcs) and G ({G.num_arcs} arcs) written as text in "
-          f"{t_write:.2f}s and read back equal to cl.npz and to the in-memory G (every "
+    print(f"[cli otf] CL ({cl.n_arcs} arcs, [toolchain 20k]'s) and G ({G.num_arcs} arcs) "
+          f"written as text in {t_write:.2f}s and read back equal to cl.npz and to the "
+          f"in-memory G (every "
           f"array; {', '.join(same)} equal"
           + (f", {', '.join(differ)} differ" if differ else "") + f"); {report.route}; "
           f"-maxInsts {tuned.max_insts} -expandBudget {tuned.expand_budget} (the tuned "
@@ -2158,6 +2197,199 @@ def phase_cli_otf(card, dev, lib, phase_done):
     phase_done("cli otf")
     return ({"gmm_logsumexp": {"launches_cli_otf": launches[0]},
              "frame_step": {"launches_cli_otf": launches[1]}}, G)
+
+
+def phase_toolchain_20k(card, phase_done):
+    """[toolchain 20k]: the 20k CL rebuilt by the port's offline toolchain
+    from `phones.lst` and `lex.dict` (`wsj_task.build_task`'s CL half:
+    `LexGen`, `minimize(determinize(arcsort(L)))`, the monophone `CDGen`,
+    `compose(C, closure(arcsort(L)))`) and held to cl.npz bit for bit.
+    Returns the network, which [cli otf] writes as its CL text."""
+    from juicer_tpu_torch.harness import wsj_task
+
+    t0 = time.perf_counter()
+    out = wsj_task.build_task("20k", networks=("cl",), verbose=False)
+    cl = out["cl"]
+    print(f"[toolchain 20k] CL = C o closure(min(det(L))) rebuilt on the host in "
+          f"{time.perf_counter() - t0:.2f}s: {cl.n_states} states, {cl.n_arcs} arcs, equal to "
+          f"cl.npz bit for bit (every array; {', '.join(wsj_task.NETWORK_SCALARS)}); peak host "
+          f"RSS {wsj_task.peak_rss_bytes() / 2**30:.2f} GiB | {card}", flush=True)
+    phase_done("toolchain 20k")
+    return cl
+
+
+def phase_toolchain_2k(card, phase_done):
+    """[toolchain 2k]: the 2k CLG rebuilt by the port's offline toolchain
+    from `phones.lst`, `lex.dict` and `lm.arpa` (`wsj_task.build_task`'s
+    CLG half: `GramGen(NGRAM)`, `LexGen`, the monophone `CDGen`,
+    `build_clg(verbose=True)`, which prints each stage's states, arcs and
+    seconds) and held to clg.npz bit for bit. Returns the network, which
+    [cli 2k] writes as its CLG text."""
+    from juicer_tpu_torch.harness import wsj_task
+
+    t0 = time.perf_counter()
+    out = wsj_task.build_task("2k", networks=("clg",), verbose=True)
+    net = out["clg"]
+    print(f"[toolchain 2k] CLG rebuilt on the host in {time.perf_counter() - t0:.1f}s: "
+          f"{net.n_states} states, {net.n_arcs} arcs, equal to clg.npz bit for bit (every "
+          f"array; {', '.join(wsj_task.NETWORK_SCALARS)}); peak host RSS "
+          f"{wsj_task.peak_rss_bytes() / 2**30:.2f} GiB | {card}", flush=True)
+    phase_done("toolchain 2k")
+    return net
+
+
+# the JAX tools' counts on the 2k files (-gramType ngram; -silMonophone sil
+# -pauseMonophone sp -outputAuxPhones; -cdType monophone): the CLI route's
+# CLG differs from clg.npz's 181,003 / 1,617,510 (the monophone C carries
+# its aux self-loops twice, and the text between the tools has three
+# decimals)
+TOOLCHAIN_CLI_2K = {"g.fsm": (2004, 123026), "l.fsm": (11195, 13195), "c.fsm": (1, 51),
+                    "final.fsm": (178593, 1605301)}
+
+
+def phase_toolchain_cli_2k(card, td, base, point, utts, phase_done):
+    """[toolchain cli 2k]: the users' entry points end to end, in [cli 2k]'s
+    directory td (its MMF, lexicon, features, input list and references):
+    `jtpu-gramgen-torch`, `jtpu-lexgen-torch`, `jtpu-cdgen-torch` and
+    `jtpu-build-wfst-torch` (their `main`s, in this process) on the 2k
+    files, then `jtpu-juicer-torch` on final.fsm and final.{in,out}syms at
+    `WSJ_POINT`, one utterance a launch. Certified: overflow 0, dead 0, the
+    words of every utterance equal its transcript, route `frame_step
+    kernel`, one launch of each kernel an utterance. Then
+    `jtpu-genwfstseqs-torch` on final.fsm, `jtpu-hmmgen-torch` and
+    `jtpu-untie-torch` on the MMF (a tied list of four logical names), their
+    outputs read back. Returns the decode's launches."""
+    import contextlib
+    import io
+    import math
+
+    import numpy as np
+
+    from juicer_tpu_torch.am.models import AcousticModelSet
+    from juicer_tpu_torch.cli import build_wfst, cdgen, genwfstseqs, gramgen, hmmgen, lexgen
+    from juicer_tpu_torch.cli import untie
+    from juicer_tpu_torch.fst import read_fsm, read_symbols
+    from juicer_tpu_torch.harness import wsj_task
+
+    cache = wsj_task.task_dir("2k")
+
+    def j(name):
+        return os.path.join(td, name)
+
+    def outs(prefix):
+        return ["-fsmFName", j(f"{prefix}.fsm"), "-inSymsFName", j(f"{prefix}.insyms"),
+                "-outSymsFName", j(f"{prefix}.outsyms")]
+
+    marks = ["-sentStartWord", "<s>", "-sentEndWord", "</s>"]
+    phones = ["-monoListFName", os.path.join(cache, "phones.lst"), "-silMonophone", "sil",
+              "-pauseMonophone", "sp"]
+    steps = [("gramgen", gramgen.main, ["-lexFName", os.path.join(cache, "lex.dict"), *marks,
+                                         "-gramType", "ngram", "-lmFName",
+                                         os.path.join(cache, "lm.arpa"), *outs("g")]),
+             ("lexgen", lexgen.main, [*phones, "-lexFName", os.path.join(cache, "lex.dict"),
+                                       *marks, "-outputAuxPhones", *outs("l")]),
+             ("cdgen", cdgen.main, ["-cdType", "monophone", *phones, "-lexInSymsFName",
+                                     j("l.insyms"), *outs("c")]),
+             ("build-wfst", build_wfst.main, [j("g.fsm"), j("l.fsm"), j("c.fsm")])]
+    tool_s = {}
+    for name, main, argv in steps:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            rc = main(argv)
+        tool_s[name] = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"[toolchain cli 2k] jtpu-{name}-torch exited {rc}")
+        print(f"[toolchain cli 2k] jtpu-{name}-torch ({tool_s[name]:.1f}s): "
+              f"{said.getvalue().strip()}", flush=True)
+    counts = {}
+    for f, want in TOOLCHAIN_CLI_2K.items():
+        m = read_fsm(j(f))
+        counts[f] = (m.num_states, m.num_arcs)
+        if counts[f] != want:
+            raise RuntimeError(f"[toolchain cli 2k] {f}: {counts[f]} states and arcs, the JAX "
+                               f"tools' {want}")
+        del m
+    gc.collect()
+
+    # the decode, one utterance a launch
+    final = ["-fsmFName", j("final.fsm"), "-inSymsFName", j("final.insyms"), "-outSymsFName",
+             j("final.outsyms")]
+    argv = [a for a in base]
+    for flag, value in zip(final[::2], final[1::2]):
+        argv[argv.index(flag) + 1] = value
+    out = j("tool_out.txt")
+    report, launches, n_ov = run_cli(
+        argv + point + ["-batchSize", "1", "-refFName", j("refs.txt"), "-removeSentMarks",
+                        "-outputFormat", "verbose", "-outputFName", out])
+    acc, rt = verbose_summary(out)
+    out_syms = read_symbols(j("final.outsyms"))
+    dead = sum(1 for ur in report.results if not ur.words or not math.isfinite(ur.total_score))
+    wrong = [i for i, (ur, (words, _)) in enumerate(zip(report.results, utts))
+             if [out_syms[w.index + 1] for w in ur.words] != [f"w{w}" for w in words]]
+    n = len(utts)
+    if n_ov or dead or wrong or len(report.results) != n or not acc.startswith(
+            "Word accuracy = 100.00%"):
+        raise RuntimeError(f"[toolchain cli 2k] not certified: overflow {n_ov}/{n}, dead "
+                           f"{dead}/{n}, utterances off their transcript {wrong}, {acc!r}")
+    if report.route != "route: frame_step kernel" or launches != (n, n):
+        raise RuntimeError(f"[toolchain cli 2k] route {report.route!r}, launches gmm_logsumexp, "
+                           f"frame_step {launches}; expected {n} and {n}")
+    st = report.stages
+    print(f"[toolchain cli 2k] jtpu-juicer-torch on final.fsm ({counts['final.fsm'][0]} states, "
+          f"{counts['final.fsm'][1]} arcs: the CLI route's CLG, not clg.npz's) at WSJ_POINT, "
+          f"-batchSize 1: {report.route}; certified: {acc}; overflow {n_ov}/{n}, dead {dead}/{n}, "
+          f"every utterance's words equal its transcript; launches gmm_logsumexp {launches[0]}, "
+          f"frame_step {launches[1]} (one each an utterance); seconds: tools "
+          + ", ".join(f"{k} {v:.1f}" for k, v in tool_s.items()) + "; juicer "
+          + ", ".join(f"{k} {v:.3f}" for k, v in st.items()) + f"; {rt} | {card}", flush=True)
+
+    # genwfstseqs on the network, hmmgen and untie on the models
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        rc = genwfstseqs.main([*final, "-nSeqs", "5", "-seed", "0"])
+    in_syms = set(read_symbols(j("final.insyms")))
+    seqs = said.getvalue().splitlines()
+    if rc != 0 or len(seqs) != 5 or not all(
+            set(ln.split(" : ")[0].split()) <= in_syms for ln in seqs):
+        raise RuntimeError(f"[toolchain cli 2k] jtpu-genwfstseqs-torch exited {rc}: {seqs}")
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        rc = hmmgen.main(["-htkModelsFName", j("models.mmf"), *outs("h")])
+    models = AcousticModelSet.from_mmf(j("models.mmf"))
+    h = read_fsm(j("h.fsm"))
+    n_h = 2 + sum(models.get_num_states(i) for i in range(len(models.hmm_names)))
+    if rc != 0 or h.num_states != n_h or len(read_symbols(j("h.outsyms"))) != len(
+            models.hmm_names) + 1:
+        raise RuntimeError(f"[toolchain cli 2k] jtpu-hmmgen-torch exited {rc}: {h.num_states} "
+                           f"states, expected {n_h}")
+    names = models.hmm_names
+    tied = {f"x-{names[0]}+{names[1]}": names[0], f"{names[2]}-{names[1]}": names[1],
+            "Zz": names[2], names[3]: names[3]}
+    with open(j("tied.lst"), "w") as fd:
+        fd.write("".join(f"{k} {v}\n" if k != v else f"{k}\n" for k, v in tied.items()))
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        rc = untie.main(["-htkModelsFName", j("models.mmf"), "-tiedListFName", j("tied.lst"),
+                         "-outModelsFName", j("untied.mmf"), "-outListFName", j("untied.lst")])
+    if rc != 0:
+        raise RuntimeError(f"[toolchain cli 2k] jtpu-untie-torch exited {rc}")
+    untied = AcousticModelSet.from_mmf(j("untied.mmf"))
+    with open(j("untied.lst")) as fd:
+        listed = fd.read().split()
+    logical = sorted(tied, key=str.encode)
+    # the MMF writer's "%e" keeps seven significant digits
+    same = all(np.allclose(untied.gmm_means[int(g)], models.gmm_means[int(k)], rtol=1e-6,
+                           atol=0.0)
+               for name in logical
+               for g, k in zip(untied.hmm_gmm_inds[untied.get_hmm_index(name)],
+                               models.hmm_gmm_inds[models.get_hmm_index(tied[name])]))
+    if untied.hmm_names != logical or listed != logical or not same:
+        raise RuntimeError(f"[toolchain cli 2k] jtpu-untie-torch: {untied.hmm_names}, list "
+                           f"{listed}, means equal to the physical models' {same}")
+    print(f"[toolchain cli 2k] jtpu-genwfstseqs-torch -nSeqs 5: 5 sequences over "
+          f"final.insyms; jtpu-hmmgen-torch: H of {h.num_states} states, {h.num_arcs} arcs "
+          f"({len(names)} models); jtpu-untie-torch: {len(names)} physical -> {len(logical)} "
+          f"logical models, read back with each logical model's means its physical model's "
+          f"(within the writer's seven digits), the list sorted | {card}", flush=True)
+    phase_done("toolchain cli 2k")
+    return dict(launches=launches)
 
 
 def phase_gramgen_20k(card, G, phase_done):

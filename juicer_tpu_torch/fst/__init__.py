@@ -1,12 +1,12 @@
-"""The FST utilities the decoder and its CLI need.
+"""Weighted finite-state transducers: a copy of `juicer_tpu/fst/` (the
+port imports nothing of it).
 
-A reduced copy of `juicer_tpu/fst/` (the port imports nothing of it): the
-mutable `Fst` container and `SymbolTable`, the LOG and TROPICAL
-semirings, `algos.connect`, `algos.project`, `algos.shortest_path` and
-`algos.generate_sequences`, and the AT&T text readers and writers
-(`read_fsm`, `write_fsm`, `read_symbols`, `write_symbols`). The compile
-toolchain (compose, determinize, minimize, ...) is not here: the decoder
-reads a network that was compiled before.
+The mutable `Fst` container and `SymbolTable`, the LOG and TROPICAL
+semirings, every algorithm of the offline toolchain and of the decode
+path's lattices (`algos`: compose, determinize, minimize, push, ...),
+and the AT&T text readers and writers (`read_fsm`, `write_fsm`,
+`read_symbols`, `write_symbols`). Weights are costs (negative natural-log
+probabilities), as on disk.
 """
 
 from . import algos

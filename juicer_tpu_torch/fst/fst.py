@@ -1,5 +1,5 @@
 """The mutable FST container and symbol tables, as in
-`juicer_tpu/fst/fst.py` (reduced).
+`juicer_tpu/fst/fst.py`.
 
 States are dense ints, arcs (src, dst, ilabel, olabel, weight) live in
 parallel Python lists, final states carry weights, label 0 is epsilon.
@@ -30,6 +30,12 @@ class SymbolTable:
         for s in symbols or ():
             self.add(s)
 
+    @classmethod
+    def with_epsilon(cls) -> "SymbolTable":
+        t = cls()
+        t.add(EPSILON_STR)
+        return t
+
     def add(self, sym: str) -> int:
         idx = self._index.get(sym)
         if idx is None:
@@ -51,6 +57,9 @@ class SymbolTable:
         """Index for symbol, -1 if absent."""
         return self._index.get(sym, -1)
 
+    def __contains__(self, sym: str) -> bool:
+        return sym in self._index
+
     def __getitem__(self, idx: int) -> Optional[str]:
         return self._syms[idx]
 
@@ -63,6 +72,16 @@ class SymbolTable:
     def is_auxiliary(self, idx: int) -> bool:
         s = self._syms[idx]
         return s is not None and s.startswith("#")
+
+    @property
+    def num_aux(self) -> int:
+        return sum(1 for s in self._syms if s is not None and s.startswith("#"))
+
+    def copy(self) -> "SymbolTable":
+        t = SymbolTable()
+        t._syms = list(self._syms)
+        t._index = dict(self._index)
+        return t
 
 
 class Fst:
@@ -87,17 +106,23 @@ class Fst:
         self.num_states += 1
         return s
 
-    def _ensure_state(self, s: int) -> int:
+    def add_states(self, n: int) -> int:
+        """Add n states; return the index of the first."""
+        s = self.num_states
+        self.num_states += n
+        return s
+
+    def ensure_state(self, s: int) -> int:
         if s >= self.num_states:
             self.num_states = s + 1
         return s
 
     def set_start(self, s: int) -> None:
-        self.start = self._ensure_state(s)
+        self.start = self.ensure_state(s)
 
     def add_arc(self, src: int, dst: int, ilabel: int, olabel: int, weight: float = 0.0) -> None:
-        self._ensure_state(src)
-        self._ensure_state(dst)
+        self.ensure_state(src)
+        self.ensure_state(dst)
         self.arc_src.append(src)
         self.arc_dst.append(dst)
         self.arc_ilabel.append(ilabel)
@@ -105,7 +130,7 @@ class Fst:
         self.arc_weight.append(weight)
 
     def set_final(self, s: int, weight: float = 0.0) -> None:
-        self._ensure_state(s)
+        self.ensure_state(s)
         self.finals[s] = weight
 
     def is_final(self, s: int) -> bool:
@@ -133,6 +158,24 @@ class Fst:
             adj[s].append(i)
         return adj
 
+    def csr(self, sort_by: str = "none"):
+        """Arcs packed as CSR (row_ptr over src, arc arrays sorted by src).
+
+        sort_by: 'none' keeps each state's insertion order, 'ilabel' or
+        'olabel' sorts a state's arcs by that label."""
+        src, dst, il, ol, w = self.arcs_numpy()
+        if sort_by == "ilabel":
+            order = np.lexsort((il, src))
+        elif sort_by == "olabel":
+            order = np.lexsort((ol, src))
+        else:
+            order = np.argsort(src, kind="stable")
+        src, dst, il, ol, w = src[order], dst[order], il[order], ol[order], w[order]
+        row_ptr = np.zeros(self.num_states + 1, dtype=np.int64)
+        np.add.at(row_ptr, src + 1, 1)
+        row_ptr = np.cumsum(row_ptr)
+        return row_ptr, dst, il, ol, w
+
     def copy(self) -> "Fst":
         f = Fst(self.semiring)
         f.start = self.start
@@ -146,6 +189,20 @@ class Fst:
         f.isyms = self.isyms
         f.osyms = self.osyms
         return f
+
+    def relabel(self, ilabel_map=None, olabel_map=None) -> None:
+        """Relabel in place by callables or dicts (missing keys unchanged)."""
+
+        def as_fn(m):
+            if m is None or callable(m):
+                return m
+            return lambda x: m.get(x, x)
+
+        fi, fo = as_fn(ilabel_map), as_fn(olabel_map)
+        if fi is not None:
+            self.arc_ilabel = [fi(x) for x in self.arc_ilabel]
+        if fo is not None:
+            self.arc_olabel = [fo(x) for x in self.arc_olabel]
 
     def __repr__(self) -> str:
         return (f"Fst(states={self.num_states}, arcs={self.num_arcs}, "

@@ -45,6 +45,17 @@ class Semiring:
             return INF
         return a + b
 
+    def divide(self, a: float, b: float) -> float:
+        """a ⊘ b (inverse of times); undefined if b is zero."""
+        if a == INF:
+            return INF
+        return a - b
+
+    def approx_equal(self, a: float, b: float, delta: float) -> bool:
+        if a == INF or b == INF:
+            return a == b
+        return abs(a - b) <= delta
+
 
 TROPICAL = Semiring("tropical")
 LOG = Semiring("log")

@@ -17,13 +17,27 @@ it is read from this package's `_cache/<task>_artifact.npz`, or built and
 written there uncompressed; `cache=False` builds it in memory and reads
 and writes no file. `load_otf_task` builds the on-the-fly composition
 pair in memory: the artifact of CL (`cl.npz`) and G from `lm.arpa`.
+
+`build_task` rebuilds a task's networks from its `phones.lst`, `lex.dict`
+and `lm.arpa` with the port's toolchain, by the library calls that wrote
+the tracked `cl.npz` and `clg.npz` (`scripts/wsj_otf.py`'s `ensure_cl`
+and `scripts/wsj_bench.py`'s `ensure_task`), and holds each to its file
+bit for bit. Run as
+
+    python -m juicer_tpu_torch.harness.wsj_task --build 20k
+
+it rebuilds CL, then CLG, prints each stage's states, arcs and seconds
+and the peak host RSS, and exits non-zero on a difference, naming the
+array and its first differing index.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import re
 import resource
+import sys
 import time
 from dataclasses import dataclass, field
 
@@ -33,10 +47,12 @@ import torch
 from ..am.models import AcousticModelSet
 from ..decoder.artifact import DecoderArtifact
 from ..decoder.core import TorchDecoderConfig
-from ..compile import arpa_grammar
+from ..compile import (CDGen, CDPhoneLookup, CDType, GramGen, GramType, LexGen,
+                       arpa_grammar, build_clg)
 from ..decoder.network import DecoderNetwork
 from ..decoder.otf import GNetwork
-from ..lexicon import Vocabulary, load_vocabulary
+from ..fst import algos
+from ..lexicon import Lexicon, Vocabulary
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(_PKG)
@@ -102,8 +118,7 @@ def load_task(name: str = "2k", verbose: bool = True, cache: bool = True) -> Wsj
             art.save_npz(tmp)
             os.replace(tmp, path)
             costs["save_s"] = time.perf_counter() - t0
-    # the process's peak resident set so far (`ru_maxrss`, KiB on Linux)
-    costs["peak_rss_bytes"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    costs["peak_rss_bytes"] = peak_rss_bytes()
     if verbose:
         steps = ", ".join(f"{k[:-2]} {v:.1f}s" for k, v in costs.items() if k.endswith("_s"))
         print(f"[task] {name}: {net.n_arcs} arcs; {art}; {steps}; peak host RSS "
@@ -139,8 +154,7 @@ def load_otf_task(name: str = "20k", verbose: bool = True) -> OtfTask:
     art = DecoderArtifact(net, models)
     costs["artifact_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    vocab = load_vocabulary(os.path.join(cache_dir, "phones.lst"),
-                            os.path.join(cache_dir, "lex.dict"), "<s>", "</s>")
+    vocab = task_lexicon(cache_dir).vocab
     G = arpa_grammar(vocab, os.path.join(cache_dir, "lm.arpa"))
     costs["grammar_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -155,6 +169,118 @@ def load_otf_task(name: str = "20k", verbose: bool = True) -> OtfTask:
               f"{len(g.arc_il)} word arcs ({G.num_arcs} arcs), max_backoff {g.max_backoff}, "
               f"W {g.W}; {steps}", flush=True)
     return OtfTask(name, cache_dir, net, models, art, vocab, g, costs)
+
+
+def task_lexicon(cache: str) -> Lexicon:
+    """The lexicon of task directory `cache` as the offline pipeline loads
+    it: sil and sp, the sentence markers `<s>` and `</s>`, no special-word
+    character."""
+    return Lexicon.load(os.path.join(cache, "phones.lst"), os.path.join(cache, "lex.dict"),
+                        sil_phone="sil", pause_phone="sp", sent_start_word="<s>",
+                        sent_end_word="</s>", spec_word_char="")
+
+
+def _monophone_c(lexicon: Lexicon, n_aux: int):
+    """The monophone C over every phone of the lexicon's phone list."""
+    phones = list(lexicon.phone_set.phones)
+    lookup = CDPhoneLookup(lexicon.phone_set)
+    lookup.add_phones(phones)
+    lookup.bind_models(phones)
+    return CDGen(CDType.MONOPHONE, lookup, phones, n_aux_syms=n_aux).build()
+
+
+def build_cl(lexicon: Lexicon):
+    """C o closure(min(det(L))), the CL of on-the-fly composition, as an
+    `Fst` with C's input and L's output symbols (`ensure_cl`)."""
+    lexgen = LexGen(lexicon)
+    L = lexgen.build(output_aux_phones=True)
+    L = algos.minimize(algos.determinize(algos.arcsort(L)))
+    C = _monophone_c(lexicon, lexgen.n_aux)
+    cl = algos.compose(C, algos.closure(algos.arcsort(L)))
+    cl.isyms, cl.osyms = C.isyms, L.osyms
+    return cl
+
+
+def build_task_clg(lexicon: Lexicon, lm_fname: str, verbose: bool = True):
+    """The static CLG of the NGRAM grammar of `lm_fname` (`ensure_task`):
+    `build_clg` of G, L with aux phones and the monophone C; verbose
+    prints each stage's states, arcs and seconds."""
+    G = GramGen(lexicon.vocab, GramType.NGRAM, lm_fname=lm_fname).build()
+    lexgen = LexGen(lexicon)
+    L = lexgen.build(output_aux_phones=True)
+    C = _monophone_c(lexicon, lexgen.n_aux)
+    return build_clg(G, L, C, verbose=verbose).clg
+
+
+NETWORK_ARRAYS = ("arc_src", "arc_dst", "arc_ilabel", "arc_olabel", "arc_weight", "row_ptr",
+                  "final_weight")
+NETWORK_SCALARS = ("n_states", "init_state", "word_end_marker", "sil_marker", "sp_marker")
+
+
+def require_same_network(what: str, got: DecoderNetwork, want: DecoderNetwork) -> None:
+    """Raise unless two networks are equal bit for bit: every array's dtype,
+    shape and bits (the first differing index is named) and the scalars."""
+    for k in NETWORK_ARRAYS:
+        a, b = getattr(got, k), getattr(want, k)
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise RuntimeError(f"{what}: {k} is {a.dtype} {a.shape}, the file's "
+                               f"{b.dtype} {b.shape}")
+        bits = f"u{a.dtype.itemsize}"
+        diff = np.flatnonzero(a.view(bits) != b.view(bits))
+        if len(diff):
+            i = int(diff[0])
+            raise RuntimeError(f"{what}: {k} differs at index {i} ({a[i]!r} against the "
+                               f"file's {b[i]!r}; {len(diff)} entries differ)")
+    for k in NETWORK_SCALARS:
+        if getattr(got, k) != getattr(want, k):
+            raise RuntimeError(f"{what}: {k} is {getattr(got, k)}, the file's "
+                               f"{getattr(want, k)}")
+
+
+def peak_rss_bytes() -> int:
+    """The process's peak resident set (`ru_maxrss`, KiB on Linux)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def build_task(name: str = "2k", networks=("cl", "clg"), verbose: bool = True) -> dict:
+    """Rebuild `networks` of task `name` ("cl": C o closure(det(L)), against
+    `cl.npz`; "clg": the static CLG, against `clg.npz`) with the port's
+    toolchain and hold each to its tracked file bit for bit (raises
+    RuntimeError naming the array and index that differ). Returns
+    {network: DecoderNetwork}, and "seconds" {stage: s}."""
+    cache = task_dir(name)
+    out, seconds = {}, {}
+
+    def done(stage, f, t0):
+        seconds[stage] = time.perf_counter() - t0
+        if verbose:
+            print(f"[build {name}] {stage}: {f.num_states} states, {f.num_arcs} arcs, "
+                  f"{seconds[stage]:.1f}s; peak host RSS {peak_rss_bytes() / 2**30:.2f} GiB",
+                  flush=True)
+
+    lexicon = task_lexicon(cache)
+    for which in networks:
+        t0 = time.perf_counter()
+        if which == "cl":
+            f = build_cl(lexicon)
+            done("CL", f, t0)
+            net = DecoderNetwork(f, f.isyms, f.osyms, remove_aux="input")
+        elif which == "clg":
+            f = build_task_clg(lexicon, os.path.join(cache, "lm.arpa"), verbose)
+            done("CLG", f, t0)
+            net = DecoderNetwork(f, f.isyms, f.osyms)
+        else:
+            raise ValueError(f"unknown network {which!r}")
+        del f
+        require_same_network(f"[build {name}] {which}", net,
+                             DecoderNetwork.load_npz(os.path.join(cache, f"{which}.npz")))
+        if verbose:
+            print(f"[build {name}] {which}: {net.n_states} states, {net.n_arcs} arcs, equal to "
+                  f"{which}.npz bit for bit (every array and {', '.join(NETWORK_SCALARS)})",
+                  flush=True)
+        out[which] = net
+    out["seconds"] = seconds
+    return out
 
 
 def decoder_config(point=WSJ_POINT, emit_diagnostics=True) -> TorchDecoderConfig:
@@ -333,3 +459,23 @@ def sample_audio(cache, models, lengths, seed):
         x *= 6000.0 / np.abs(x).max()
         out.append((words, np.round(x).astype("<i2")))
     return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Rebuild a task's networks with the port's "
+                                 "toolchain and hold them to the tracked npz files.")
+    ap.add_argument("--build", required=True, help="task name: 2k or 20k")
+    args = ap.parse_args(argv)
+    t0 = time.perf_counter()
+    try:
+        build_task(args.build)
+    except RuntimeError as e:
+        print(f"[build {args.build}] FAILED: {e}", flush=True)
+        return 1
+    print(f"[build {args.build}] done in {time.perf_counter() - t0:.1f}s; peak host RSS "
+          f"{peak_rss_bytes() / 2**30:.2f} GiB", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,14 +1,17 @@
-"""ctypes binding for the native host library: the AT&T text FSM parser
-and the eps/tee closure.
+"""ctypes binding for the native host library: the AT&T text FSM parser,
+the eps/tee closure and weighted determinization.
 
-Counterpart of `get_lib`, `parse_fsm` and `closure` in
+Counterpart of `get_lib`, `parse_fsm`, `closure` and `determinize` in
 `juicer_tpu/native.py`. It compiles the repository's shared C++ source
 `native/jtpu_native.cpp` with g++ into this package's own build
 directory (`_native_build/`, rebuilt when the source is newer) and
-exposes the two entries the decode path needs: `parse_fsm` for
-`fst.read_fsm` and `closure` for the artifact build. Without a C++
-toolchain it raises: the port keeps no pure-Python closure, and its
-Python FSM parser is reached only by `read_fsm(use_native=False)`.
+exposes three entries: `parse_fsm` for `fst.read_fsm`, `closure` for the
+artifact build and `determinize` for `fst.algos.determinize`. Without a
+C++ toolchain each raises: the port takes no pure-Python path on its
+own. Its Python FSM parser is reached only by `read_fsm(use_native=
+False)`, its Python subset construction only by
+`algos.determinize_plain`, the plain version the tests hold the native
+one to.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(os.path.dirname(_PKG), "native", "jtpu_native.cpp")
 _LIB_DIR = os.path.join(_PKG, "_native_build")
 _LIB = os.path.join(_LIB_DIR, "libjtpu_native.so")
+# `jtpu_determinize` gives up (error set) past this many output states.
+DETERMINIZE_MAX_SUBSETS = 50_000_000
 
 _lock = threading.Lock()
 _lib = None
@@ -65,6 +70,28 @@ class _ClosureResult(ctypes.Structure):
     ]
 
 
+class _DetResult(ctypes.Structure):
+    _fields_ = [
+        ("n_states", ctypes.c_int64),
+        ("n_arcs", ctypes.c_int64),
+        ("arc_src", ctypes.POINTER(ctypes.c_int32)),
+        ("arc_dst", ctypes.POINTER(ctypes.c_int32)),
+        ("arc_il", ctypes.POINTER(ctypes.c_int32)),
+        ("arc_ostr", ctypes.POINTER(ctypes.c_int32)),
+        ("arc_w", ctypes.POINTER(ctypes.c_double)),
+        ("n_finals", ctypes.c_int64),
+        ("fin_sid", ctypes.POINTER(ctypes.c_int32)),
+        ("fin_ostr", ctypes.POINTER(ctypes.c_int32)),
+        ("fin_w", ctypes.POINTER(ctypes.c_double)),
+        ("n_strs", ctypes.c_int64),
+        ("str_off", ctypes.POINTER(ctypes.c_int64)),
+        ("str_len", ctypes.POINTER(ctypes.c_int32)),
+        ("str_labels", ctypes.POINTER(ctypes.c_int32)),
+        ("n_labels", ctypes.c_int64),
+        ("error", ctypes.c_int32),
+    ]
+
+
 def get_lib() -> ctypes.CDLL:
     """Build (if stale) and load the native library."""
     global _lib
@@ -95,6 +122,15 @@ def get_lib() -> ctypes.CDLL:
             ctypes.c_int64,
         ]
         lib.jtpu_free_closure.argtypes = [ctypes.POINTER(_ClosureResult)]
+        lib.jtpu_determinize.restype = ctypes.POINTER(_DetResult)
+        lib.jtpu_determinize.argtypes = [
+            ctypes.c_int64, ctypes.c_int32,
+            np.ctypeslib.ndpointer(np.int64), np.ctypeslib.ndpointer(np.int32),
+            np.ctypeslib.ndpointer(np.int32), np.ctypeslib.ndpointer(np.int32),
+            np.ctypeslib.ndpointer(np.float64), np.ctypeslib.ndpointer(np.float64),
+            ctypes.c_int32, ctypes.c_int64,
+        ]
+        lib.jtpu_free_determinize.argtypes = [ctypes.POINTER(_DetResult)]
         _lib = lib
         return _lib
 
@@ -166,4 +202,46 @@ def closure(n_states, row_ptr, arc_dst, arc_il, arc_ol, arc_w, final_w, tee,
         "labels": _copy(r.labels, r.n_labels, np.int32),
     }
     lib.jtpu_free_closure(rp)
+    return out
+
+
+def determinize(n_states, start, row_ptr, arc_dst, arc_il, arc_ol, arc_w, final_w,
+                semiring: str):
+    """Native weighted determinization (subset construction with output-
+    string residuals) of a machine in CSR form: a dict of numpy arrays,
+    the arcs and finals with interned output-string ids and the string
+    table. Raises RuntimeError on a subset blow-up."""
+    lib = get_lib()
+    sr = {"tropical": 0, "log": 1}[semiring]
+    rp = lib.jtpu_determinize(
+        int(n_states), int(start),
+        np.ascontiguousarray(row_ptr, np.int64),
+        np.ascontiguousarray(arc_dst, np.int32),
+        np.ascontiguousarray(arc_il, np.int32),
+        np.ascontiguousarray(arc_ol, np.int32),
+        np.ascontiguousarray(arc_w, np.float64),
+        np.ascontiguousarray(final_w, np.float64),
+        sr, DETERMINIZE_MAX_SUBSETS,
+    )
+    if not rp:
+        raise RuntimeError("jtpu_determinize failed")
+    r = rp.contents
+    if r.error:
+        lib.jtpu_free_determinize(rp)
+        raise RuntimeError("determinize: subset blow-up (not determinizable?)")
+    out = {
+        "n_states": int(r.n_states),
+        "arc_src": _copy(r.arc_src, r.n_arcs, np.int32),
+        "arc_dst": _copy(r.arc_dst, r.n_arcs, np.int32),
+        "arc_il": _copy(r.arc_il, r.n_arcs, np.int32),
+        "arc_ostr": _copy(r.arc_ostr, r.n_arcs, np.int32),
+        "arc_w": _copy(r.arc_w, r.n_arcs, np.float64),
+        "fin_sid": _copy(r.fin_sid, r.n_finals, np.int32),
+        "fin_ostr": _copy(r.fin_ostr, r.n_finals, np.int32),
+        "fin_w": _copy(r.fin_w, r.n_finals, np.float64),
+        "str_off": _copy(r.str_off, r.n_strs, np.int64),
+        "str_len": _copy(r.str_len, r.n_strs, np.int32),
+        "str_labels": _copy(r.str_labels, r.n_labels, np.int32),
+    }
+    lib.jtpu_free_determinize(rp)
     return out

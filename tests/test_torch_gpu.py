@@ -1047,3 +1047,112 @@ def test_cli_loop_audio_on_the_card_equals_the_cpu(card, audio_task, monkeypatch
     # the running mean of the stream's first frames is theirs alone, which
     # moves the start of the first word
     assert outs["cuda"].splitlines()[-1].startswith("final: <s> ")
+
+
+# ---- tasks built by the port's offline toolchain, decoded on the card --------
+
+
+def _decode_batch(art, scores, lengths, device):
+    """Both kernels' launches and the results of one `BatchDecoder` wave at
+    `WSJ_POINT` over padded (B, T, G) scores."""
+    dec = TorchDecoder(art, wsj_task.decoder_config(), device=device)
+    n0 = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    results = BatchDecoder(dec).decode_scores_batch(scores, lengths)
+    return results, (gmm_cuda.counter.launches - n0[0], fused_scan.counter.launches - n0[1])
+
+
+@pytest.mark.gpu
+def test_toolchain_synth_task_on_the_card_equals_the_cpu(card):
+    """`utils.synth.make_synth_task` (lexicon, models, CLG and artifact made
+    by the port's toolchain from a seed, no JAX) on the card: four sampled
+    utterances scored by the GMM kernel, decoded by the frame-step kernel
+    in one wave, equal the CPU's decode of the same scores; every
+    utterance decodes to its words."""
+    from juicer_tpu_torch.utils.synth import make_synth_task
+
+    task = make_synth_task(n_words=20, n_phones=10, n_comps=4, vec_size=13, seed=3)
+    rng = np.random.default_rng(5)
+    utts = [[f"w{i}" for i in rng.integers(20, size=int(rng.integers(2, 5)))] for _ in range(4)]
+    feats = [task.synth_utterance(u, rng) for u in utts]
+    scorer = make_gmm_scorer(task.models.flat_params(), device=card)
+    n0 = gmm_cuda.counter.launches
+    scs = [scorer(torch.as_tensor(f, device=card)) for f in feats]
+    assert gmm_cuda.counter.launches - n0 == len(feats)
+    lengths = [len(f) for f in feats]
+    T = max(lengths)
+    scores = torch.stack([torch.cat([s, s[-1:].expand(T - len(s), -1)]) for s in scs])
+    got, launches = _decode_batch(task.artifact, scores, lengths, card)
+    want, _ = _decode_batch(task.artifact, scores.cpu(), lengths, "cpu")
+    assert launches == (0, 1)
+    vocab = task.lexicon.vocab
+    for r, w, u in zip(got, want, utts):
+        assert not r.overflow and not r.empty
+        assert (r.words, r.score) == (w.words, w.score)
+        assert [h.end_frame for h in r.word_hyps] == [h.end_frame for h in w.word_hyps]
+        assert [vocab.get_word(x - 1) for x in r.words] == u
+
+
+TOOLCHAIN_LM = """\\data\\
+ngram 1=4
+ngram 2=5
+
+\\1-grams:
+-0.60206 </s>
+-99 <s> -0.30103
+-0.47712 a -0.30103
+-0.60206 cat -0.30103
+
+\\2-grams:
+-0.30103 <s> a
+-0.4 <s> cat
+-0.47712 a cat
+-0.30103 cat </s>
+-0.5 a </s>
+
+\\end\\
+"""
+
+
+@pytest.mark.gpu
+def test_toolchain_cli_task_on_the_card_equals_the_cpu(card, cli_task, tmp_path):
+    """The port's CLIs build a tiny task from `cli_task`'s lexicon and
+    phone models (`jtpu-gramgen-torch -gramType ngram` over a bigram LM,
+    `jtpu-lexgen-torch`, `jtpu-cdgen-torch -cdType monophone`,
+    `jtpu-build-wfst-torch`); `jtpu-juicer-torch` decodes its final.fsm on
+    the card through both kernels, equal to `-device cpu`, 100 % word
+    accuracy."""
+    from juicer_tpu_torch.cli import build_wfst, cdgen, gramgen, juicer, lexgen
+
+    td = tmp_path
+    (td / "phones.lst").write_text("\n".join(CLI_PHONES) + "\n")
+    (td / "lm.arpa").write_text(TOOLCHAIN_LM)
+
+    def outs(prefix):
+        return ["-fsmFName", str(td / f"{prefix}.fsm"), "-inSymsFName",
+                str(td / f"{prefix}.insyms"), "-outSymsFName", str(td / f"{prefix}.outsyms")]
+
+    lex, marks = str(cli_task / "lex.dict"), ["-sentStartWord", "<s>", "-sentEndWord", "</s>"]
+    assert gramgen.main(["-lexFName", lex, *marks, "-gramType", "ngram", "-lmFName",
+                         str(td / "lm.arpa"), *outs("g")]) == 0
+    assert lexgen.main(["-monoListFName", str(td / "phones.lst"), "-lexFName", lex, *marks,
+                        "-silMonophone", "sil", "-outputAuxPhones", *outs("l")]) == 0
+    assert cdgen.main(["-cdType", "monophone", "-monoListFName", str(td / "phones.lst"),
+                       "-silMonophone", "sil", "-lexInSymsFName", str(td / "l.insyms"),
+                       *outs("c")]) == 0
+    assert build_wfst.main([str(td / f"{m}.fsm") for m in "glc"]) == 0
+    argv = _cli_argv(cli_task)
+    for flag, name in (("-fsmFName", "final.fsm"), ("-inSymsFName", "final.insyms"),
+                       ("-outSymsFName", "final.outsyms")):
+        argv[argv.index(flag) + 1] = str(td / name)
+    texts = {}
+    for dev in ("cuda", "cpu"):
+        out = td / f"{dev}.out"
+        n0 = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+        report = juicer.run(argv + ["-device", dev, "-outputFName", str(out)])
+        launches = (gmm_cuda.counter.launches - n0[0], fused_scan.counter.launches - n0[1])
+        texts[dev] = [ln for ln in out.read_text().splitlines() if not ln.startswith(TIMING)]
+        if dev == "cuda":
+            assert report.route == "route: frame_step kernel"
+            assert launches == (len(CLI_UTTS), len(CLI_UTTS)), launches
+    assert texts["cuda"] == texts["cpu"]
+    assert any(ln.startswith("Word accuracy = 100.00%") for ln in texts["cuda"])

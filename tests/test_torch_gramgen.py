@@ -35,7 +35,7 @@ from juicer_tpu.lm import ArpaLM as JaxArpaLM
 from juicer_tpu_torch.cli import gramgen
 from juicer_tpu_torch.compile import GramGen, GramType, arpa_grammar
 from juicer_tpu_torch.harness import wsj_task
-from juicer_tpu_torch.lexicon import Vocabulary, load_vocabulary
+from juicer_tpu_torch.lexicon import Lexicon, Vocabulary
 from juicer_tpu_torch.lm import ArpaLM
 
 LEX = "a ah\ncat k ae t\ndog d ao g\n<s> sil\n</s> sil\n"
@@ -221,7 +221,8 @@ def test_errors_equal_jax(files, what):
 
 def test_arpa_grammar_is_gramgen_at_its_defaults():
     cache = wsj_task.task_dir("2k")
-    vocab = load_vocabulary(f"{cache}/phones.lst", f"{cache}/lex.dict", "<s>", "</s>")
+    vocab = Lexicon.load(f"{cache}/phones.lst", f"{cache}/lex.dict", sent_start_word="<s>",
+                         sent_end_word="</s>", spec_word_char="").vocab
     lm = f"{cache}/lm.arpa"
     got = arpa_grammar(vocab, lm)
     assert_same_fst(got, GramGen(vocab, GramType.NGRAM, lm_fname=lm).build())

@@ -51,7 +51,7 @@ from juicer_tpu_torch.decoder.lattice import shortest_path
 from juicer_tpu_torch.decoder.otf import GNetwork
 from juicer_tpu_torch.fst import LOG, Fst
 from juicer_tpu_torch.harness import wsj_task
-from juicer_tpu_torch.lexicon import load_vocabulary
+from juicer_tpu_torch.lexicon import Lexicon as TorchLexicon
 from juicer_tpu_torch.parallel.batch import BatchDecoder
 
 from test_decoder import make_models, scores_matrix
@@ -247,7 +247,8 @@ def test_g_advance_equals_jax_on_the_2k_grammar(dtype):
 
 
 def _toy_vocab(td):
-    return load_vocabulary(str(td / "phones.lst"), str(td / "lex.dict"), "<s>", "</s>")
+    return TorchLexicon.load(str(td / "phones.lst"), str(td / "lex.dict"), sent_start_word="<s>",
+                             sent_end_word="</s>", spec_word_char="").vocab
 
 
 @pytest.mark.parametrize("task", ["toy", "2k"])
@@ -262,7 +263,9 @@ def test_arpa_grammar_equals_gramgen(toy, task):
     else:
         cache = wsj_task.task_dir("2k")
         files = (f"{cache}/phones.lst", f"{cache}/lex.dict")
-        vocab, lm = load_vocabulary(*files, "<s>", "</s>"), f"{cache}/lm.arpa"
+        vocab = TorchLexicon.load(*files, sent_start_word="<s>", sent_end_word="</s>",
+                                  spec_word_char="").vocab
+        lm = f"{cache}/lm.arpa"
         jvocab = Lexicon.load(*files, sil_phone="sil", pause_phone="sp", sent_start_word="<s>",
                               sent_end_word="</s>", spec_word_char="").vocab
         labels, markers = wsj_task.word_labels(cache)
