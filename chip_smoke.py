@@ -84,12 +84,36 @@ Phases (any failure raises and exits non-zero before the result line):
        - certification through `BatchDecoder` at B=16 and B=132 (overflow
          0, dead 0, transcripts exact, each B=132 result equal to its B=16
          result), launch counts zeroed before and read after each;
+       - [mesh 20k] `BatchDecoder(dec, mesh=)` over replicas on the one
+         card: (dev, dev) at B=16 (shares 8 + 8) and B=132 (66 + 66),
+         (dev, dev, dev) at B=16 (6 + 5 + 5); each share's features scored
+         by the GMM scorer of its device; launch counts zeroed before and
+         read after the first call must be one of each kernel a share;
+         every utterance equal to the single-device results bit for bit
+         and certified; `memory_allocated` before and after the replicas
+         are made (no growth: one decoder a device, the tables shared) and
+         after the decode (less than half the tables' bytes more: no
+         second copy); a second call's wall seconds beside the
+         single-device call's (replicas on one card: not a scaling
+         number); after [20k parity], the plain route over (dev, dev) on
+         its sentence twice (shares 1 + 1), equal to
+         `decode_scores(use_fused=False)`, no frame_step launch;
        - frame-step ms a wave at 20k beside 2k at both B, its bound; the
          entry point's and the device-only frames/s;
        - the streaming decoder on one utterance in chunks of 100 frames
          through the kernel: one launch a chunk, every partial emission a
          prefix of the final words, `finish()` equal to `decode_scores`;
        - card vs CPU parity on one short whole sentence (seed 12), as in 7;
+  [mesh gloo 2k] after 7 (and [2k stream audio]), the multi-process demo
+     (`python -m juicer_tpu_torch.parallel.multihost_demo 2 --task 2k
+     --device cuda`): two `gloo` ranks on the card, each loading the 2k
+     artifact from the cache the 2k phases wrote and decoding its
+     round-robin share of the 8 seed-11 utterances as one `BatchDecoder`
+     batch; each rank must launch each kernel once; every utterance's
+     words, word-end frames and score must equal the main path's result
+     in this process, and the all-reduced totals (words, frames,
+     utterances) its sums; the demo's wall seconds and each rank's decode
+     seconds printed;
   [variants] the configurations outside the frame-step kernel (float64, the
      exact histogram with a binding maxHyps (the peak of active slots
      without one), the sort merge, the sort
@@ -265,7 +289,8 @@ Phases (any failure raises and exits non-zero before the result line):
      otf]'s `arpa_grammar` (the G of [otf]) arc for arc, labels and states
      exactly, weights within the text's three decimals;
   8. result: a `kernels` JSON line (both kernels, with the 20k fields, the
-     OTF path's launches and the CLI phases' launches), the seconds of
+     OTF path's launches, the CLI phases' launches, the mesh's
+     (`launches_mesh`) and the gloo ranks' (`launches_gloo`)), the seconds of
      each phase, the card line, and last {"ok": true, "device":
      {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -490,7 +515,7 @@ def main() -> int:
         from juicer_tpu_torch.harness import wsj_task
         from juicer_tpu_torch.ops import gmm_cuda
         from juicer_tpu_torch.ops.gmm import make_gmm_scorer
-        from juicer_tpu_torch.parallel.batch import BatchDecoder
+        from juicer_tpu_torch.parallel.mesh import BatchDecoder
     except ImportError as e:
         print(f"chip_smoke: the juicer_tpu_torch package is not beside this "
               f"script ({e})", file=sys.stderr)
@@ -731,7 +756,7 @@ def main() -> int:
             if not same_result(r, ref) or r.overflow:
                 raise RuntimeError(f"B={B2}: utterance {i} differs from the B={B} wave")
     del results2, again2, results16
-    fs2 = bd._fs[B2]
+    fs2 = bd._fs[dec.device, B2]
     scores2 = scorer(x2).view(B2, Tmax, G)
     tr_ms2 = cuda_ms(lambda: scores2.transpose(0, 1).contiguous(), 3)
     scores2_tbg = scores2.transpose(0, 1).contiguous()
@@ -794,6 +819,7 @@ def main() -> int:
 
     loop_lib = stream_audio_library(art, task, scorer, dev)
     phase_done("2k stream audio")
+    gloo = phase_mesh_gloo_2k(card, results, len(utts), phase_done)
 
     at_2k = dict(fs_ms=fs_ms, fs_ms2=fs_ms2, fps=fps, fps2=fps2, fps_device=fps_device,
                  fps_device2=fps_device2, gmm16=gmm16, gmm132=gmm132)
@@ -839,6 +865,7 @@ def main() -> int:
         "plain_ms_b132": gmm132["plain_ms"], "bound_ms_b132": gmm132["bound_ms"],
         "library_ms_b132": gmm132["library_ms"], "launches_b132": launches2[0],
         **k20["gmm_logsumexp"], **otf["gmm_logsumexp"], **cli["gmm_logsumexp"],
+        "launches_gloo": gloo["gmm_logsumexp"],
     }, {
         "name": "frame_step", "route": "cuda",
         "source": "juicer_tpu_torch/csrc/frame_step.cu",
@@ -849,6 +876,7 @@ def main() -> int:
         "bound_ms_dense": dense_bound, "ms_b132": fs_ms2,
         "launches_b132": launches2[1],
         **k20["frame_step"], **otf["frame_step"], **cli["frame_step"],
+        "launches_gloo": gloo["frame_step"],
     }]}))
     print("[time] phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; total {sum(phase_s.values()):.1f}", flush=True)
@@ -864,6 +892,64 @@ VARIANTS = (("float64", dict(dtype="float64")),
             ("exact", dict(histogram_mode="exact")),
             ("sort", dict(merge_strategy="sort")),
             ("sort+lattice", dict(merge_strategy="sort", gen_lattice=True)))
+
+
+def phase_mesh_gloo_2k(card, results, n_utts, phase_done):
+    """[mesh gloo 2k]: the multi-process demo, two `gloo` ranks on the card,
+    each decoding its round-robin share of the 2k utterances; every
+    utterance must equal this process's result (`results[u]`, the main
+    path's wave) and the summed totals this process's sums. Returns each
+    kernel's launches summed over the ranks."""
+    n = 2
+    cmd = [sys.executable, "-m", "juicer_tpu_torch.parallel.multihost_demo", str(n),
+           "--task", "2k", "--device", "cuda", "--timeout", "240"]
+    t0 = time.perf_counter()
+    # the demo kills its workers at its own time limit, before this one
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=ROOT)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise RuntimeError(f"mesh gloo 2k: the demo exited {out.returncode}: "
+                           f"{out.stderr[-3000:]}")
+    got, aggs = {}, []
+    for line in out.stdout.splitlines():
+        if line.startswith("WORKER_RESULT "):
+            r = json.loads(line[len("WORKER_RESULT "):])
+            got[r["utt"]] = r
+        elif line.startswith("WORKER_AGG "):
+            aggs.append(json.loads(line[len("WORKER_AGG "):]))
+    if sorted(got) != list(range(n_utts)) or len(aggs) != n:
+        raise RuntimeError(f"mesh gloo 2k: results of utterances {sorted(got)} and {len(aggs)} "
+                           f"totals, expected {n_utts} and {n}: {out.stdout[-2000:]}")
+    for u in range(n_utts):
+        r, want = got[u], results[u]
+        if (r["words"] != list(want.words) or r["end_frames"] != frames_of(want)
+                or r["score"] != want.score or r["n_frames"] != want.n_frames or r["overflow"]):
+            raise RuntimeError(f"mesh gloo 2k: utterance {u} differs from the in-process "
+                               f"result: {r} against {want.words}, {frames_of(want)}, "
+                               f"{want.score}")
+    sums = (sum(len(r.words) for r in results[:n_utts]),
+            sum(r.n_frames for r in results[:n_utts]), n_utts)
+    launches = {"gmm_logsumexp": 0, "frame_step": 0}
+    for a in aggs:
+        if (a["words"], a["frames"], a["utts"]) != sums:
+            raise RuntimeError(f"mesh gloo 2k: rank {a['rank']} summed {a}, expected {sums}")
+        if a["launches"] != {"gmm_logsumexp": 1, "frame_step": 1}:
+            raise RuntimeError(f"mesh gloo 2k: rank {a['rank']} launched {a['launches']}, "
+                               f"expected one of each kernel for its share")
+        for k in launches:
+            launches[k] += a["launches"][k]
+    ok = [line for line in out.stdout.splitlines() if line.startswith("MULTIHOST OK")]
+    decode_s = ", ".join(f"{a['decode_s']:.3f}" for a in sorted(aggs, key=lambda a: a["rank"]))
+    print(f"[mesh gloo 2k] {ok[0] if ok else 'no MULTIHOST OK line'}; {n} gloo ranks on "
+          f"{sorted({a['device'] for a in aggs})}, each one launch of each kernel for its "
+          f"share; every utterance's words, word-end frames and score equal this "
+          f"process's, totals {list(sums)} equal its sums; decode {decode_s}s a rank; "
+          f"the demo's wall {seconds:.1f}s (processes' start, CUDA, task load "
+          f"included) | {card}", flush=True)
+    if not ok:
+        raise RuntimeError("mesh gloo 2k: rank 0 printed no MULTIHOST OK line")
+    phase_done("mesh gloo 2k")
+    return launches
 
 
 def variants_phase(art, cfg, scorer, xs, words, labels, markers, card):
@@ -1077,6 +1163,104 @@ def card_cpu_parity(art, cfg, dec, sc_card):
     return r_card, ys_card, r_cpu, ys_cpu
 
 
+def mesh_20k(card, dec, scorer, waves, plain_results, entry, utts, labels, markers,
+             table_bytes):
+    """[mesh 20k]: `BatchDecoder` over meshes of replicas on the one card
+    (see the module docstring). `waves` maps each batch size to its
+    features, true lengths and Tmax. Returns the kernels line's mesh
+    fields."""
+    import torch
+
+    from juicer_tpu_torch.decoder import fused_scan
+    from juicer_tpu_torch.ops import gmm_cuda
+    from juicer_tpu_torch.parallel.mesh import BatchDecoder, shares
+
+    dev = dec.device
+    B = len(plain_results)
+    G = scorer.n_gmms
+    launches = [0, 0]
+    growth = {}
+    for mesh, b in (((dev, dev), B), ((dev, dev), B2), ((dev, dev, dev), B)):
+        xx, lens, Tmax = waves[b]
+        D = xx.shape[-1]
+        # the cycle collector would otherwise free earlier tensors in between
+        gc.collect()
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated(dev)
+        bd = BatchDecoder(dec, mesh=mesh)
+        m1 = torch.cuda.memory_allocated(dev)
+        if m1 > m0 or list(bd.replicas.values()) != [dec]:
+            raise RuntimeError(f"mesh 20k: replicas on one card allocated {m1 - m0} bytes")
+        # each share's features scored on the share's device
+        scorers = {dev: scorer}
+        parts = [(d, lo, hi) for d, (lo, hi) in zip(mesh, shares(b, len(mesh))) if hi > lo]
+
+        def call():
+            sc = [scorers[d](xx.view(b, Tmax, D)[lo:hi].reshape(-1, D)).view(hi - lo, Tmax, G)
+                  for d, lo, hi in parts]
+            return bd.decode_scores_batch(torch.cat([s.to(mesh[0]) for s in sc]), lens)
+
+        gmm_cuda.counter.launches = 0
+        fused_scan.counter.launches = 0
+        got = call()
+        n = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+        if n != (len(parts), len(parts)):
+            raise RuntimeError(f"mesh 20k: {len(parts)} shares launched gmm_logsumexp, "
+                               f"frame_step {n} times; expected one each a share")
+        launches[0] += n[0]
+        launches[1] += n[1]
+        torch.cuda.synchronize()
+        m2 = torch.cuda.memory_allocated(dev)
+        if m2 - m0 >= table_bytes // 2:
+            raise RuntimeError(f"mesh 20k: the mesh holds {m2 - m0} more bytes, as much as "
+                               f"a second copy of the {table_bytes} bytes of tables")
+        certify(got, f"mesh 20k {len(mesh)}x B={b}", utts, labels, markers)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = call()
+        t_mesh = time.perf_counter() - t0
+        for i, (r, a) in enumerate(zip(got, again)):
+            if not same_result(r, plain_results[i % B]) or not same_result(a, r):
+                raise RuntimeError(f"mesh 20k {len(mesh)}x B={b}: utterance {i} differs from "
+                                   f"the single-device results")
+        growth[f"{len(mesh)}x{b}"] = m2 - m0
+        print(f"[mesh 20k] {len(mesh)} replicas on {dev}, B={b} in shares of "
+              f"{[hi - lo for _, lo, hi in parts]}: launches gmm_logsumexp {n[0]}, frame_step "
+              f"{n[1]} (one each a share); every utterance's words, word-end frames and "
+              f"score equal the single-device results, certified; memory_allocated {m0} "
+              f"before the replicas, {m1} after them ({len(bd.replicas)} decoder, tables "
+              f"shared), {m2} after the decode (+{m2 - m0} bytes: the shares' scans' "
+              f"carries; the tables are {table_bytes}); wall {t_mesh:.4f}s a call "
+              f"(GMM + decode + copy + traceback) beside {entry[b][2]:.4f}s on one device, "
+              f"replicas on one card, not a scaling number | {card}", flush=True)
+        del bd, got, again
+    return {"launches_mesh": launches[1], "gmm_launches_mesh": launches[0],
+            "mesh_bytes_growth": growth}
+
+
+def mesh_plain(card, dec, sc):
+    """[mesh 20k], the plain route over a mesh of two replicas on the card:
+    one sentence's (T, G) scores twice, shares of 1 + 1, each equal to
+    `decode_scores(use_fused=False)`."""
+    from juicer_tpu_torch.decoder import fused_scan
+    from juicer_tpu_torch.parallel.mesh import BatchDecoder
+
+    want = dec.decode_scores(sc, use_fused=False)
+    fused_scan.counter.launches = 0
+    t0 = time.perf_counter()
+    got = BatchDecoder(dec, mesh=(dec.device, dec.device), use_fused=False).decode_scores_batch(
+        sc[None].expand(2, -1, -1))
+    t_mesh = time.perf_counter() - t0
+    if fused_scan.counter.launches or not all(
+            same_result(r, want) and r.n_frames == want.n_frames for r in got):
+        raise RuntimeError("mesh 20k plain: the mesh's plain route differs from "
+                           "decode_scores(use_fused=False)")
+    print(f"[mesh 20k] plain route (use_fused=False), 2 replicas on {dec.device}, the parity "
+          f"sentence twice ({sc.shape[0]} frames, shares 1 + 1): equal to "
+          f"decode_scores(use_fused=False), frame_step launches 0; {t_mesh:.3f}s | {card}",
+          flush=True)
+
+
 def phase_20k(card, dev, at_2k, phase_done):
     """[20k]: the reference bench's own task on the card (see the module
     docstring). Returns the kernels line's 20k fields."""
@@ -1090,7 +1274,7 @@ def phase_20k(card, dev, at_2k, phase_done):
     from juicer_tpu_torch.harness.profile_decode import plain_loop_profile
     from juicer_tpu_torch.ops import gmm_cuda
     from juicer_tpu_torch.ops.gmm import make_gmm_scorer
-    from juicer_tpu_torch.parallel.batch import BatchDecoder
+    from juicer_tpu_torch.parallel.mesh import BatchDecoder
 
     p = wsj_task.WSJ_POINT
     B = p["batch"]
@@ -1224,10 +1408,13 @@ def phase_20k(card, dev, at_2k, phase_done):
         entry[b] = (launches, b * Tmax / t_entry, t_entry)
         del got, again
     phase_done("20k BatchDecoder")
+    mesh = mesh_20k(card, dec, scorer, {B: (x, lengths, Tmax), B2: (x2, lengths2, Tmax)},
+                    plain_results, entry, utts, labels, markers, table_bytes)
+    phase_done("mesh 20k")
 
     # ---- times: the kernel a wave, device-only and entry-point rates -------
     fs_ms = cuda_ms(lambda: fs(scores_tbg), 3)
-    fs2 = bd._fs[B2]
+    fs2 = bd._fs[dec.device, B2]
     scores2_tbg = scorer(x2).view(B2, Tmax, G).transpose(0, 1).contiguous()
     fs_ms2 = cuda_ms(lambda: fs2(scores2_tbg), 3)
     del scores2_tbg
@@ -1302,6 +1489,8 @@ def phase_20k(card, dev, at_2k, phase_done):
     if not ok_words:
         raise RuntimeError("20k parity: the sentence's words are not its transcript")
     phase_done("20k parity")
+    mesh_plain(card, dec, sc_card)
+    phase_done("mesh 20k plain")
     lattice_phase("20k", art, cfg, scorer, torch.as_tensor(xs), card, against_cpu=False)
     phase_done("20k lattice")
     audio = audio_library(task, dec, [f.shape[0] for _, f in utts] * 2, dev, card)
@@ -1316,11 +1505,14 @@ def phase_20k(card, dev, at_2k, phase_done):
             "ms_20k": gmm16["ms"], "ms_20k_b132": gmm132["ms"], "ms_20k_repeats": repeats,
             "bound_ms_20k": gmm16["bound_ms"], "bound_ms_20k_b132": gmm132["bound_ms"],
             "max_abs_err_20k": max(gmm16["err"], gmm132["err"]),
-            "launches_20k": entry[B][0][0], "launches_20k_b132": entry[B2][0][0]},
+            "launches_20k": entry[B][0][0], "launches_20k_b132": entry[B2][0][0],
+            "launches_mesh": mesh["gmm_launches_mesh"]},
         "frame_step": {
             "ms_20k": fs_ms, "ms_20k_b132": fs_ms2, "bound_ms_20k": bound,
             "plain_ms_20k": t_plain * 1e3,
-            "launches_20k": entry[B][0][1], "launches_20k_b132": entry[B2][0][1]},
+            "launches_20k": entry[B][0][1], "launches_20k_b132": entry[B2][0][1],
+            "launches_mesh": mesh["launches_mesh"],
+            "mesh_bytes_growth": mesh["mesh_bytes_growth"]},
     }
 
 
@@ -1337,7 +1529,7 @@ def phase_otf(card, dev, static, phase_done):
     from juicer_tpu_torch.harness.profile_decode import plain_loop_profile
     from juicer_tpu_torch.ops import gmm_cuda
     from juicer_tpu_torch.ops.gmm import make_gmm_scorer
-    from juicer_tpu_torch.parallel.batch import BatchDecoder
+    from juicer_tpu_torch.parallel.mesh import BatchDecoder
 
     p = wsj_task.OTF_POINT
     B = p["n_utts"]  # one wave of the distinct utterances
@@ -2499,7 +2691,7 @@ def audio_library(task, dec, lengths, dev, card):
     from juicer_tpu_torch.harness import frontend, wsj_task
     from juicer_tpu_torch.ops import gmm_cuda
     from juicer_tpu_torch.ops.gmm import make_gmm_scorer
-    from juicer_tpu_torch.parallel.batch import BatchDecoder
+    from juicer_tpu_torch.parallel.mesh import BatchDecoder
 
     models = task.models
     t0 = time.perf_counter()

@@ -20,8 +20,11 @@ against; nothing here imports it, or JAX. The port's slices so far:
     persistent hand-written CUDA kernel (`csrc/frame_step.cu`, the
     counterpart of `juicer_tpu/decoder/pallas_scan.py`), on the CPU the
     plain frame loop of `decoder.core`;
-  - `parallel.batch`: single-device batch decoding with padded lengths,
-    through the fused scan where it applies;
+  - `parallel.mesh`: batch decoding with padded lengths, on one device or
+    split over a mesh of devices (`make_mesh`, one replica of the
+    decoder a device), through the fused scan where it applies;
+    `parallel.multihost_demo`: the corpus split over processes, its
+    statistics summed with a `torch.distributed` collective;
   - `decoder.autotune`: the budget autotuner (`autotune_budgets`), through
     the fused scan on the card;
   - `decoder.stream`: the streaming decoder with partial results, one

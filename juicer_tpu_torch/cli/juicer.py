@@ -535,7 +535,7 @@ def run(argv=None) -> RunReport:
 
     batch_fn = None
     if args.batchSize > 1 and not lattice_mode and not args.refCore:
-        from ..parallel.batch import BatchDecoder
+        from ..parallel.mesh import BatchDecoder
 
         routes = {True: BatchDecoder(dec, use_fused=True),
                   False: BatchDecoder(dec, use_fused=False)}

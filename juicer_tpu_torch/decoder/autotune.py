@@ -30,7 +30,6 @@ from typing import Optional, Sequence
 
 import torch
 
-from ..parallel.batch import BatchDecoder
 from .core import TorchDecoder, TorchDecoderConfig, check_use_fused
 from .fused_scan import why_not_covered
 
@@ -63,6 +62,9 @@ def autotune_budgets(
     `g_network` (on-the-fly composition) the budgets are (arc, G state)
     slots and their candidates; the kernel does not cover such a decoder,
     so on the card only `use_fused=False` tunes it."""
+    # imported here: `parallel` imports this package
+    from ..parallel.mesh import BatchDecoder
+
     check_use_fused(use_fused)
     base = cfg or TorchDecoderConfig()
     probe = dataclasses.replace(base, emit_diagnostics=True)

@@ -357,8 +357,11 @@ class FusedDecodeScan:
                     threads=self.threads,
                     rec_cap=T * K, hmm_smem=int(d["hmm_words"] > 0))
         ints = (ctypes.c_int * len(_INTS))(*[vals[k] for k in _INTS])
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.jtpu_frame_step(ptrs, ints, flts, stream)
+        # the kernel sets its shared-memory opt-in on the current device:
+        # make that the device whose stream it is launched on
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.jtpu_frame_step(ptrs, ints, flts, stream)
         if rc != 0:
             raise RuntimeError(f"frame_step: launch failed (code {rc})")
         counter.launches += 1

@@ -38,6 +38,14 @@ class EditDistance:
             self.n_sent_correct += 1
         return ins, dele, sub
 
+    def add(self, other: "EditDistance") -> None:
+        self.n_ref += other.n_ref
+        self.n_ins += other.n_ins
+        self.n_del += other.n_del
+        self.n_sub += other.n_sub
+        self.n_sent += other.n_sent
+        self.n_sent_correct += other.n_sent_correct
+
     @property
     def n_correct(self) -> int:
         return self.n_ref - self.n_del - self.n_sub

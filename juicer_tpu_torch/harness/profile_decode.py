@@ -58,7 +58,7 @@ from torch.profiler import ProfilerActivity, profile
 from ..decoder.core import TorchDecoder, host_batch
 from ..decoder import fused_scan
 from ..decoder.fused_scan import FusedDecodeScan
-from ..parallel.batch import BatchDecoder
+from ..parallel.mesh import BatchDecoder
 from ..ops.gmm import make_gmm_scorer
 from . import wsj_task
 
@@ -188,7 +188,7 @@ def main() -> None:
         if args.otf:
             carry, ys, rec0 = dec.run(scores)
         else:
-            fs = bd._fs[B]
+            fs = bd._fs[dec.device, B]
             carry, ys = fs(scores.transpose(0, 1).contiguous())
             rec0 = fs.rec0
         torch.cuda.synchronize()

@@ -84,7 +84,7 @@ def pack_params(params: FlatGmmParams):
 def gmm_logsumexp(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
                   n_gmms: int) -> torch.Tensor:
     """(T, D) float32 CUDA features -> (T, n_gmms) log-likelihoods, by the
-    kernel, on the current stream. Raises on a tensor it does not take."""
+    kernel, on the current stream of their device. Raises on a tensor it does not take."""
     for name, t in (("x", x), ("W", W), ("b", b)):
         if t.device.type != "cuda":
             raise ValueError(f"gmm_logsumexp: {name} is on {t.device}, not a CUDA device")
@@ -111,9 +111,12 @@ def gmm_logsumexp(x: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
         raise ValueError("gmm_logsumexp: too many frames for one launch")
     out = torch.empty((T, n_gmms), dtype=torch.float32, device=x.device)
     lib = _get_lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.jtpu_gmm_logsumexp(x.data_ptr(), W.data_ptr(), b.data_ptr(),
-                                out.data_ptr(), T, D, n_gmms, G_pad, C_pad, stream)
+    # the kernel sets its shared-memory opt-in on the current device: make
+    # that the device whose stream it is launched on
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.jtpu_gmm_logsumexp(x.data_ptr(), W.data_ptr(), b.data_ptr(),
+                                    out.data_ptr(), T, D, n_gmms, G_pad, C_pad, stream)
     if rc != 0:
         raise RuntimeError(f"gmm_logsumexp: launch failed (cudaError {rc})")
     counter.launches += 1

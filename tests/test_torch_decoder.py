@@ -34,7 +34,7 @@ from juicer_tpu_torch.decoder import (DecoderArtifact, DecoderNetwork,
 from juicer_tpu_torch.decoder.otf import GNetwork
 from juicer_tpu_torch.fst import LOG as PORT_LOG
 from juicer_tpu_torch.fst import Fst as PortFst
-from juicer_tpu_torch.parallel.batch import BatchDecoder
+from juicer_tpu_torch.parallel.mesh import BatchDecoder
 
 from test_decoder import make_models, scores_matrix
 from test_fuzz_parity import random_case

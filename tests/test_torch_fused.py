@@ -38,7 +38,7 @@ from juicer_tpu_torch.decoder.fused_scan import (REC_NAMES, YS_NAMES, FusedDecod
                                                  fused_eligible, max_scan_T,
                                                  state_differences)
 from juicer_tpu_torch.harness import wsj_task
-from juicer_tpu_torch.parallel.batch import BatchDecoder
+from juicer_tpu_torch.parallel.mesh import BatchDecoder
 
 # `_one_torch_thread` is autouse: these CPU tests run torch on one thread too
 from test_torch_decoder import _one_torch_thread, carry_across  # noqa: F401
@@ -225,7 +225,7 @@ def test_batch_decoder_fused_route_equals_plain(synth, use_fused):
     btg = np.ascontiguousarray(scores.transpose(1, 0, 2))
     bd = BatchDecoder(pdec, use_fused=use_fused)
     got = bd.decode_scores_batch(btg, lens)
-    assert B in bd._fs  # the fused route ran
+    assert (pdec.device, B) in bd._fs  # the fused route ran
     plain = BatchDecoder(pdec, use_fused=False)
     want = plain.decode_scores_batch(btg, lens)
     assert not plain._fs
@@ -273,9 +273,9 @@ def test_batch_decoder_auto_on_ineligible_decoder(synth):
     pdec.K, pdec.E = K, E
     # an eligible decoder, a batch beyond one scan's frame numbers
     with pytest.raises(ValueError, match="frames"):
-        BatchDecoder(pdec, use_fused=True)._fused_ok(max_scan_T(pdec) + 1)
+        BatchDecoder(pdec, use_fused=True)._fused_ok(pdec, max_scan_T(pdec) + 1)
     bd = BatchDecoder(pdec)
-    assert bd._fused_ok(max_scan_T(pdec) + 1) is False and bd._fused_ok(8) is True
+    assert bd._fused_ok(pdec, max_scan_T(pdec) + 1) is False and bd._fused_ok(pdec, 8) is True
     got = bd.decode_scores_batch(btg)
     assert [r.words for r in got] == [r.words for r in want]
 

@@ -10,6 +10,7 @@ Without a card every test skips.
 """
 
 import dataclasses
+import gc
 import itertools
 import os
 
@@ -35,7 +36,7 @@ from juicer_tpu_torch.fst import LOG, Fst
 from juicer_tpu_torch.harness import wsj_task
 from juicer_tpu_torch.ops import gmm_cuda
 from juicer_tpu_torch.ops.gmm import gmm_scores_dense, make_gmm_scorer
-from juicer_tpu_torch.parallel.batch import BatchDecoder
+from juicer_tpu_torch.parallel.mesh import BatchDecoder, make_mesh
 
 NEG = -1e30
 
@@ -408,6 +409,65 @@ def test_a_card_full_of_utterances_equals_the_small_batch(card):
     for u in range(132):
         m = int(n[u % 16])
         assert torch.equal(y132["records"][u, :m], y16["records"][u % 16, :m]), u
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_fused", [True, False])
+@pytest.mark.parametrize("n", [2, 3])
+def test_mesh_on_one_card_equals_single_device(card, n, use_fused):
+    """A mesh of n replicas on one card: shares of 16 utterances (8 + 8,
+    6 + 5 + 5) decode bit for bit as the single-device batch, with one
+    kernel launch a share, and without a second copy of the tables."""
+    art, G = _fuzz_artifact(seed=3)
+    cfg = TorchDecoderConfig(max_insts=256, expand_budget=2048, final_budget=128,
+                             **FUZZ_PRUNING[3])
+    dec = TorchDecoder(art, cfg, device=card)
+    scores = _fuzz_scores(7, 60, 16, G, card).transpose(0, 1)
+    lengths = [60 - (b % 5) * 7 for b in range(16)]
+    want = BatchDecoder(dec, use_fused=use_fused).decode_scores_batch(scores, lengths)
+    # tensors of earlier tests that only the cycle collector frees would
+    # otherwise leave during the measurement
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(card)
+    bd = BatchDecoder(dec, mesh=(card,) * n, use_fused=use_fused)
+    assert list(bd.replicas.values()) == [dec]
+    assert torch.cuda.memory_allocated(card) <= before  # no replica, no second copy
+    n0 = fused_scan.counter.launches
+    got = bd.decode_scores_batch(scores, lengths)
+    assert fused_scan.counter.launches - n0 == (n if use_fused else 0)
+    assert got == want and any(r.words for r in got)
+
+
+@pytest.mark.gpu
+def test_mesh_over_distinct_cards(card):
+    """With two or more cards: a mesh over cuda:0 and cuda:1 equals the
+    single-device decode, and each kernel launched on cuda:1 while cuda:0
+    is the current device equals its plain version (the launch must run
+    on the tensors' device)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    art, G = _fuzz_artifact(seed=3)
+    cfg = TorchDecoderConfig(max_insts=256, expand_budget=2048, final_budget=128,
+                             **FUZZ_PRUNING[3])
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    dec = TorchDecoder(art, cfg, device=d0)
+    scores = _fuzz_scores(7, 60, 16, G, d0).transpose(0, 1)
+    want = BatchDecoder(dec).decode_scores_batch(scores)
+    bd = BatchDecoder(dec, mesh=make_mesh(2))
+    assert set(bd.replicas) == {d0, d1}
+    assert bd.decode_scores_batch(scores) == want
+    with torch.cuda.device(d0):
+        dec1 = bd.replicas[d1]
+        _assert_kernel_equals_plain(dec1, _fuzz_scores(8, 60, 3, G, d1))
+        rng = np.random.default_rng(1)
+        params, _ = _random_params(rng, 39, 141, 8)
+        scorer = make_gmm_scorer(params, device=d1)
+        x = torch.as_tensor(rng.normal(size=(300, 39)).astype(np.float32), device=d1)
+        got = scorer(x)
+        plain = gmm_scores_dense(x, scorer.V, scorer.M, scorer.b, scorer.mask)
+        assert got.device == d1 and torch.cuda.current_device() == 0
+        assert float((got - plain).abs().max()) <= 1e-3
 
 
 @pytest.mark.gpu

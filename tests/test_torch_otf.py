@@ -52,7 +52,7 @@ from juicer_tpu_torch.decoder.otf import GNetwork
 from juicer_tpu_torch.fst import LOG, Fst
 from juicer_tpu_torch.harness import wsj_task
 from juicer_tpu_torch.lexicon import Lexicon as TorchLexicon
-from juicer_tpu_torch.parallel.batch import BatchDecoder
+from juicer_tpu_torch.parallel.mesh import BatchDecoder
 
 from test_decoder import make_models, scores_matrix
 from test_fuzz_parity import random_case, random_g

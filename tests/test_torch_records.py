@@ -32,7 +32,7 @@ from juicer_tpu_torch.decoder.fused_scan import (REC_NAMES, SNAP_NAMES, YS_NAMES
                                                  FusedDecodeScan, compact_records,
                                                  concat_records, expand_records,
                                                  state_differences)
-from juicer_tpu_torch.parallel.batch import BatchDecoder
+from juicer_tpu_torch.parallel.mesh import BatchDecoder
 
 from test_decoder import scores_matrix
 from test_fuzz_parity import random_case

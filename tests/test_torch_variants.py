@@ -25,7 +25,7 @@ from juicer_tpu.decoder.tpu_core import TpuDecoder, TpuDecoderConfig
 
 from juicer_tpu_torch.decoder import TorchDecoder, TorchDecoderConfig, core, fused_scan
 from juicer_tpu_torch.decoder.fused_scan import compact_records, expand_records
-from juicer_tpu_torch.parallel.batch import BatchDecoder
+from juicer_tpu_torch.parallel.mesh import BatchDecoder
 
 from test_decoder import scores_matrix
 from test_fuzz_parity import CONFIG_ROWS, random_case
