@@ -166,6 +166,38 @@ Phases (any failure raises and exits non-zero before the result line):
        - lattice: that sentence with `gen_lattice=True` as in [lattice];
        - stream: that sentence through `dec.stream(use_fused=False)` in
          chunks of 100 frames, `finish()` equal to the whole decode;
+  [wsj bench 20k] at the end of [20k], on its task and artifact (no second
+     build): `harness/wsj_bench`'s main path (`run`) at `WSJ_POINT`'s beams,
+     the budgets tuned from K=1024 / E=1408 over the 8 seed-11 utterances
+     of ~1000 frames: the tuned K and E and every utterance's words equal
+     [20k]'s, overflow 0/8, dead 0/8, accuracy 1; `steady_bench` at B=8
+     and B=16 on the kernel route, overflow 0; the float32 engine against
+     the oracle `RefDecoder` on the two short seed-12 utterances
+     (reported), then `--parity-only`: the float64 engine (the plain loop)
+     against the oracle, words exact, scores within 1e-6 (its own oracle
+     decodes, as the script's); launch counts zeroed before and read
+     after;
+  [wsj sweep 20k] after it: `harness/wsj_sweep` with `SWEEP_EASY` (rungs
+     70,50,500 and 60,40,300 on the tracked models, tuned from K=1024 /
+     E=1408: each must certify on the kernel route: overflow 0, dead 0,
+     the bench wave's overflow 0; accuracy reported) and `SWEEP_HARD`
+     (100,75,1200, free text, decode-side mismatch 1.5, the JAX sweep's
+     start K=2048 / E=4096, 4 utterances of ~300 frames and a bench at
+     B=4: its route and reason printed, expected the plain loop past the
+     kernel's shared memory); one line a rung with
+     K, E, accuracy, errors, peak, overflow, dead, steady frames/s and
+     route; the seconds of each sweep;
+  [wsj otf 20k] inside [otf]: its budgets are `harness/wsj_otf.tune`'s
+     (the route named), its main path's accuracy is `wsj_otf`'s, the
+     oracle `RefOtfDecoder` on one short held-out utterance (seed 12, ~150
+     frames) must give the decoder's words, and `wsj_otf`'s steady bench
+     (`steady_bench(g_network=)`) at B=8 on the main path's scores: the
+     plain loop, overflow 0 in the timed wave;
+  [bench otf] last: `harness/bench_otf --quick` on the card (the word-loop
+     task composed on the fly, with and without pushing, B=8 x 128 frames,
+     the plain loop): each distinct utterance certified, no frame_step
+     launch; its frames/s are printed as a check that it runs (bound by
+     the host at this size), not as a throughput;
   [toolchain 2k] after the 2k tables are released: the 2k CLG rebuilt on
      the host by the port's offline toolchain from the task's phones.lst,
      lex.dict and lm.arpa (`wsj_task.build_task`: `GramGen(NGRAM)`,
@@ -290,7 +322,10 @@ Phases (any failure raises and exits non-zero before the result line):
      exactly, weights within the text's three decimals;
   8. result: a `kernels` JSON line (both kernels, with the 20k fields, the
      OTF path's launches, the CLI phases' launches, the mesh's
-     (`launches_mesh`) and the gloo ranks' (`launches_gloo`)), the seconds of
+     (`launches_mesh`), the gloo ranks' (`launches_gloo`) and the tools'
+     (`launches_wsj_bench`, `launches_wsj_sweep`, `launches_wsj_otf`,
+     `launches_bench_otf`; frame_step also the steady benches' frames/s
+     and the sweep's routes)), the seconds of
      each phase, the card line, and last {"ok": true, "device":
      {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -318,13 +353,6 @@ AUDIO_SEED = 21  # [cli audio 20k]: the audio and the MLLR transforms
 LOOP_SEED, LOOP_FRAMES = 13, 300  # [cli loop audio 2k]'s audio
 FRONT_ATOL = 1e-4  # the batched front end on the card against `mfcc` on the CPU
 PARAM_TOL = 1e-12  # adapted float64 parameters, card against CPU, relative above 1
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -512,7 +540,7 @@ def main() -> int:
         from juicer_tpu_torch.decoder.core import TorchDecoder, host_batch
         from juicer_tpu_torch.decoder.fused_scan import (
             FusedDecodeScan, compact_records, concat_records)
-        from juicer_tpu_torch.harness import wsj_task
+        from juicer_tpu_torch.harness import card_line, wsj_task
         from juicer_tpu_torch.ops import gmm_cuda
         from juicer_tpu_torch.ops.gmm import make_gmm_scorer
         from juicer_tpu_torch.parallel.mesh import BatchDecoder
@@ -851,7 +879,9 @@ def main() -> int:
     gc.collect()
     cliotf, G = phase_cli_otf(card, dev, cli_lib, phase_done)
     phase_gramgen_20k(card, G, phase_done)
-    cli = {k: {**cli2k[k], **cli20[k], **cliotf[k]} for k in ("gmm_logsumexp", "frame_step")}
+    botf = phase_bench_otf(card, phase_done)
+    cli = {k: {**cli2k[k], **cli20[k], **cliotf[k], **botf[k]}
+           for k in ("gmm_logsumexp", "frame_step")}
 
     # ---- 8. result ------------------------------------------------------
     print(json.dumps({"kernels": [{
@@ -1495,6 +1525,11 @@ def phase_20k(card, dev, at_2k, phase_done):
     phase_done("20k lattice")
     audio = audio_library(task, dec, [f.shape[0] for _, f in utts] * 2, dev, card)
     phase_done("20k audio")
+    del dec, fs
+    gc.collect()
+    torch.cuda.empty_cache()
+    tools = [phase_wsj_bench_20k(card, task, tuned, plain_results, phase_done),
+             phase_wsj_sweep_20k(card, task, phase_done)]
 
     static["entry_fps"] = entry[B][1]
     return {
@@ -1506,13 +1541,15 @@ def phase_20k(card, dev, at_2k, phase_done):
             "bound_ms_20k": gmm16["bound_ms"], "bound_ms_20k_b132": gmm132["bound_ms"],
             "max_abs_err_20k": max(gmm16["err"], gmm132["err"]),
             "launches_20k": entry[B][0][0], "launches_20k_b132": entry[B2][0][0],
-            "launches_mesh": mesh["gmm_launches_mesh"]},
+            "launches_mesh": mesh["gmm_launches_mesh"],
+            **tools[0]["gmm_logsumexp"], **tools[1]["gmm_logsumexp"]},
         "frame_step": {
             "ms_20k": fs_ms, "ms_20k_b132": fs_ms2, "bound_ms_20k": bound,
             "plain_ms_20k": t_plain * 1e3,
             "launches_20k": entry[B][0][1], "launches_20k_b132": entry[B2][0][1],
             "launches_mesh": mesh["launches_mesh"],
-            "mesh_bytes_growth": mesh["mesh_bytes_growth"]},
+            "mesh_bytes_growth": mesh["mesh_bytes_growth"],
+            **tools[0]["frame_step"], **tools[1]["frame_step"]},
     }
 
 
@@ -1523,9 +1560,9 @@ def phase_otf(card, dev, static, phase_done):
     import numpy as np
     import torch
 
-    from juicer_tpu_torch.decoder import autotune_budgets, fused_scan
+    from juicer_tpu_torch.decoder import fused_scan
     from juicer_tpu_torch.decoder.core import TorchDecoder, host_batch, host_planes_diff
-    from juicer_tpu_torch.harness import wsj_task
+    from juicer_tpu_torch.harness import wsj_bench, wsj_otf, wsj_task
     from juicer_tpu_torch.harness.profile_decode import plain_loop_profile
     from juicer_tpu_torch.ops import gmm_cuda
     from juicer_tpu_torch.ops.gmm import make_gmm_scorer
@@ -1583,8 +1620,9 @@ def phase_otf(card, dev, static, phase_done):
 
     samples = [scorer(torch.as_tensor(f, device=dev)) for _, f in utts]
     t0 = time.perf_counter()
-    tuned = autotune_budgets(art, samples, cfg=cfg, margin=p["margin"], device="cuda",
-                             use_fused=False, verbose=True, g_network=g)
+    # [wsj otf 20k]: the tuner of `harness/wsj_otf` (margin 1.4, the route
+    # named: the plain loop, since no kernel covers a G)
+    tuned = wsj_otf.tune(art, samples, cfg, g, dev)
     t_tune = time.perf_counter() - t0
     print(f"[otf] autotune_budgets (g_network, margin {p['margin']}, start K={p['K']} "
           f"E={p['E']} F={cfg.final_budget}, plain loop on the card, {len(samples)} "
@@ -1621,7 +1659,39 @@ def phase_otf(card, dev, static, phase_done):
     for i, (a, r) in enumerate(zip(again, results)):
         if not same_result(a, r):
             raise RuntimeError(f"[otf] the timed wave differs for utterance {i}")
+    # [wsj otf 20k]: the accuracy of the main path's wave (the wave
+    # `wsj_otf.decode_batch` decodes, not decoded again) and `wsj_otf`'s
+    # oracle check, `RefOtfDecoder` on one short held-out utterance (seed
+    # 12, ~150 frames: `wsj_otf --parity 1`)
+    ed = wsj_bench.accuracy(results, utts, labels, markers)
+    _, x_par = wsj_task.sample_utterances(task.cache, models, n_utts=1, target_frames=150,
+                                          seed=p["seed"] + 1)[0]
+    n0 = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    t0 = time.perf_counter()
+    n_exact = wsj_otf.parity(dec, task.net, g, models, [scorer(torch.as_tensor(x_par, device=dev))])
+    t_par = time.perf_counter() - t0
+    par_launches = (gmm_cuda.counter.launches - n0[0], fused_scan.counter.launches - n0[1])
+    if n_exact != 1 or par_launches[1] or ed.accuracy != 1.0:
+        raise RuntimeError(f"[wsj otf 20k] oracle parity {n_exact}/1, frame_step launches "
+                           f"{par_launches[1]}, accuracy {ed.accuracy}")
+    print(f"[wsj otf 20k] wsj_otf.tune (route {wsj_bench.route_of(dec)[0]}) and the main "
+          f"path's accuracy {ed.accuracy:.4f} ({ed.n_ref} words); RefOtfDecoder on the "
+          f"{x_par.shape[0]}-frame held-out utterance: words exact ({t_par:.1f}s, launches "
+          f"gmm_logsumexp {par_launches[0]}, frame_step {par_launches[1]}) | {card}", flush=True)
     scores = scorer(x).view(B, Tmax, G)
+    # [wsj otf 20k]: `wsj_otf`'s steady bench (`steady_bench(g_network=)`)
+    # on the main path's scores: the plain loop with the G, overflow read
+    # from the timed wave
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    sb = wsj_bench.steady_bench(art, tuned, scores, [B], g_network=g, device=dev)[B]
+    sb_launches = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    if (sb["overflow"] or sb_launches != (0, 0)
+            or not sb["route"].startswith("plain loop: on-the-fly composition")):
+        raise RuntimeError(f"[wsj otf 20k] steady bench {sb}, launches {sb_launches}")
+    print(f"[wsj otf 20k] steady_bench(g_network=) B={B} x {Tmax}: {sb['fps']:.1f} frames/s "
+          f"(first wave {sb['compile_s']}s, overflow 0/{B}, route {sb['route']}; launches "
+          f"gmm_logsumexp 0, frame_step 0: the scores are given) | {card}", flush=True)
     prof = plain_loop_profile(dec, scores)
     ms_frame, fps = t_entry * 1e3 / Tmax, B * Tmax / t_entry
     print(f"[otf] main path: BatchDecoder(use_fused=False), B={B} x {Tmax} frames at K="
@@ -1740,12 +1810,174 @@ def phase_otf(card, dev, static, phase_done):
     return {
         "cli": dict(utts=utts, results=results, markers=markers, tuned=tuned),
         "gmm_logsumexp": {"launches_otf": launches[0], "ms_otf": gmm8["ms"],
-                          "max_abs_err_otf": gmm8["err"]},
-        "frame_step": {"launches_otf": launches[1], "otf_plain_ms_frame": ms_frame,
+                          "max_abs_err_otf": gmm8["err"], "launches_wsj_otf": par_launches[0]},
+        "frame_step": {"launches_otf": launches[1], "launches_wsj_otf": par_launches[1],
+                       "wsj_otf_steady_fps": sb["fps"], "otf_plain_ms_frame": ms_frame,
                        "otf_launches_per_frame": prof["launches_per_frame"],
                        "otf_plain_kernel_ms_frame": prof["kernel_ms"],
                        "otf_plain_idle": prof["idle"], "otf_lattice_ms_frame": lat["ms"]},
     }
+
+
+# ---- the reference-scale tools of harness/ ----------------------------------
+# [wsj sweep 20k]'s rungs: two on the tracked models, tuned from the bench's
+# budgets, and one hard rung (free text, decode-side mismatch 1.5, the JAX
+# sweep's default budgets) expected past the kernel's shared memory. At the
+# full 8 x 1000 frames the hard rung took 82.5 and 105.5 s of plain loop (69
+# s of it tuning: three probes up to K=8192); past 90 s it runs on 4
+# utterances of ~300 frames
+SWEEP_EASY = ["--settings", "70,50,500;60,40,300", "--K", "1024", "--E", "1408",
+              "--batches", "8"]
+SWEEP_HARD = ["--settings", "100,75,1200", "--free-text", "--mismatch", "1.5",
+              "--batch", "4", "--frames", "300", "--batches", "4"]
+
+
+def phase_wsj_bench_20k(card, task, tuned, want, phase_done):
+    """[wsj bench 20k]: `harness/wsj_bench`'s main path on [20k]'s task and
+    artifact at `WSJ_POINT`'s beams, tuned from its budgets over the 8
+    seed-11 utterances: the tuned K and E equal [20k]'s (`tuned`), every
+    utterance's words equal [20k]'s results (`want`) and the transcript;
+    overflow 0/8, dead 0/8; the steady bench at B=8 and B=16 on the kernel
+    route, overflow 0; the float32 engine's parity with the oracle on the
+    two short utterances reported, then `--parity-only`: the float64
+    engine's words exact and scores within 1e-6. Returns the kernels
+    line's fields."""
+    from juicer_tpu_torch.decoder import fused_scan
+    from juicer_tpu_torch.harness import wsj_bench, wsj_task
+    from juicer_tpu_torch.ops import gmm_cuda
+
+    p = wsj_task.WSJ_POINT
+    argv = ["--beam", str(p["beam"]), "--end-beam", str(p["end_beam"]), "--maxhyps",
+            str(p["maxhyps"]), "--K", str(p["K"]), "--E", str(p["E"]), "--batch",
+            str(p["n_utts"]), "--frames", str(p["frames"])]
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    t0 = time.perf_counter()
+    out = wsj_bench.run(wsj_bench.parse_args(argv), task.net, task.models, task.artifact,
+                        task.cache, bench_sizes=[8, 16])
+    t_main = time.perf_counter() - t0
+    launches = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    got, bench, res = out["tuned"], out["bench"], out["results"]
+    if (got.max_insts, got.expand_budget) != (tuned.max_insts, tuned.expand_budget):
+        raise RuntimeError(f"[wsj bench 20k] tuned K={got.max_insts} E={got.expand_budget}, "
+                           f"[20k] K={tuned.max_insts} E={tuned.expand_budget}")
+    for i, (r, w) in enumerate(zip(res, want)):
+        if r.words != w.words:
+            raise RuntimeError(f"[wsj bench 20k] utterance {i}'s words differ from [20k]'s")
+    n_ov, dead = sum(r.overflow for r in res), sum(r.empty for r in res)
+    if out["route"] != "frame_step" or n_ov or dead or out["accuracy"].accuracy != 1.0:
+        raise RuntimeError(f"[wsj bench 20k] route {out['route']}, overflow {n_ov}, dead "
+                           f"{dead}, accuracy {out['accuracy'].accuracy}")
+    for b, rec in bench.items():
+        if rec["overflow"] or rec["route"] != "frame_step":
+            raise RuntimeError(f"[wsj bench 20k] steady B={b}: {rec}")
+    n_f32 = sum(out["parity_exact"])
+    print(f"[wsj bench 20k] wsj_bench.run at WSJ_POINT's beams, tuned from K={p['K']} "
+          f"E={p['E']}: K={got.max_insts} E={got.expand_budget} (= [20k]'s), route "
+          f"{out['route']}; {len(res)} utterances: words = [20k]'s, overflow {n_ov}/{len(res)}, "
+          f"dead {dead}/{len(res)}, accuracy {out['accuracy'].accuracy:.4f}; steady bench "
+          f"B=8 {bench[8]['fps']:.1f} and B=16 {bench[16]['fps']:.1f} frames/s (overflow "
+          f"0, first waves {bench[8]['compile_s']} / {bench[16]['compile_s']} s); oracle "
+          f"{sum(t for _, t in out['oracles']):.1f}s for 2 utterances, the float32 engine's "
+          f"words equal its on {n_f32} of 2 (reported; float32 sums may flip a near-tie); "
+          f"launches gmm_logsumexp "
+          f"{launches[0]}, frame_step {launches[1]}; {t_main:.1f}s | {card}", flush=True)
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    t0 = time.perf_counter()
+    wsj_bench.run(wsj_bench.parse_args(argv + ["--parity-only"]), task.net, task.models,
+                  task.artifact, task.cache)
+    f64_launches = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    if f64_launches[1]:
+        raise RuntimeError("[wsj bench 20k] the float64 parity launched frame_step")
+    print(f"[wsj bench 20k] --parity-only: the float64 engine (plain loop on the card) "
+          f"equals the oracle on 2 utterances (words exact, scores within 1e-6); "
+          f"{time.perf_counter() - t0:.1f}s | {card}", flush=True)
+    phase_done("wsj bench 20k")
+    return {"gmm_logsumexp": {"launches_wsj_bench": launches[0] + f64_launches[0]},
+            "frame_step": {"launches_wsj_bench": launches[1], "wsj_bench_fps_b8":
+                           bench[8]["fps"], "wsj_bench_fps_b16": bench[16]["fps"]}}
+
+
+def phase_wsj_sweep_20k(card, task, phase_done):
+    """[wsj sweep 20k]: `harness/wsj_sweep` on [20k]'s task and artifact, one
+    row a rung with its route: `SWEEP_EASY`'s two rungs on the tracked
+    models must certify on the kernel route (overflow 0, dead 0, the bench
+    wave's overflow 0; accuracy reported); `SWEEP_HARD`'s rung prints its
+    route and reason (expected: the plain loop, past the kernel's shared
+    memory). Returns the kernels line's fields."""
+    from juicer_tpu_torch.decoder import fused_scan
+    from juicer_tpu_torch.harness import wsj_sweep
+    from juicer_tpu_torch.ops import gmm_cuda
+
+    launches = [0, 0]
+    rows = {}
+    for what, argv in (("easy", SWEEP_EASY), ("hard", SWEEP_HARD)):
+        gmm_cuda.counter.launches = 0
+        fused_scan.counter.launches = 0
+        t0 = time.perf_counter()
+        last = wsj_sweep.sweep(wsj_sweep.parse_args(argv), task.net, task.artifact,
+                               task.cache)
+        n = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+        launches[0] += n[0]
+        launches[1] += n[1]
+        for row in last["rows"]:
+            spec = f"{row['beam']:g},{row['end_beam']:g},{row['maxhyps']}"
+            rows[spec] = row
+            if "error" in row:
+                print(f"[wsj sweep 20k] {spec}: FAILED ({row['error']}); route {row['route']}",
+                      flush=True)
+            else:
+                (bs, b), = row["bench"].items()
+                print(f"[wsj sweep 20k] {spec} ({what}: free text {last['free_text']}, "
+                      f"mismatch {last['mismatch']}): K={row['K']} E={row['E']}, accuracy "
+                      f"{row['accuracy']:.4f} ({row['errors']} errors in {row['n_words']} "
+                      f"words), peak {row['peak_active']}, overflow {row['overflow']}, dead "
+                      f"{row['dead']}, steady B={bs} {b['fps']:.1f} frames/s (overflow "
+                      f"{b['overflow']}, first wave {b['compile_s']}s); route {row['route']} "
+                      f"| {card}", flush=True)
+            if what == "easy" and ("error" in row or row["route"] != "frame_step"
+                                   or row["overflow"] or row["dead"]
+                                   or any(b["overflow"] for b in row["bench"].values())):
+                raise RuntimeError(f"[wsj sweep 20k] {spec} did not certify on the kernel "
+                                   f"route: {row}")
+        print(f"[wsj sweep 20k] {what}: {time.perf_counter() - t0:.1f}s, launches "
+              f"gmm_logsumexp {n[0]}, frame_step {n[1]} | {card}", flush=True)
+        phase_done(f"wsj sweep 20k {what}")
+    return {"gmm_logsumexp": {"launches_wsj_sweep": launches[0]},
+            "frame_step": {"launches_wsj_sweep": launches[1],
+                           "wsj_sweep_routes": {k: r["route"] for k, r in rows.items()}}}
+
+
+def phase_bench_otf(card, phase_done):
+    """[bench otf]: `harness/bench_otf --quick` on the card: the word-loop
+    task composed on the fly, with and without pushing, each certified on
+    its distinct utterances (no overflow, words found); the plain loop (no
+    frame_step launch). Returns the kernels line's fields."""
+    from juicer_tpu_torch.decoder import fused_scan
+    from juicer_tpu_torch.harness import bench_otf
+    from juicer_tpu_torch.ops import gmm_cuda
+
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    t0 = time.perf_counter()
+    out = bench_otf.run(quick=True, device="cuda")
+    n = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    if n[1] or not out["route"].startswith("plain loop: on-the-fly composition"):
+        raise RuntimeError(f"[bench otf] route {out['route']}, frame_step launches {n[1]}")
+    for name in ("otf", "otf (pushing)"):
+        fps, certified, results = out[name]
+        if not certified:
+            raise RuntimeError(f"[bench otf] {name}: not certified")
+        print(f"[bench otf] {name}: {fps:.1f} frames/s (--quick: B=8 x 128 frames of a "
+              f"30-word loop, GMM kernel + plain loop; a check that it runs, bound by the "
+              f"host, not a throughput), {len(results)} distinct utterances certified | "
+              f"{card}", flush=True)
+    print(f"[bench otf] route {out['route']}; launches gmm_logsumexp {n[0]}, frame_step "
+          f"{n[1]}; {time.perf_counter() - t0:.1f}s | {card}", flush=True)
+    phase_done("bench otf")
+    return {"gmm_logsumexp": {"launches_bench_otf": n[0]},
+            "frame_step": {"launches_bench_otf": n[1]}}
 
 
 # ---- the decoder CLI: its input files, written by the smoke -------------------

@@ -13,11 +13,12 @@ JAX tuner, which decodes one sample at a time. Here the samples of a
 probe are one padded wave of `BatchDecoder` (the last frame repeated),
 each result read at the sample's length; a sample whose wave result
 overflows is decoded again alone, since the overflow flag also covers
-the padding. Each result is thus the sample's own decode. What decodes
-the samples follows `BatchDecoder`'s rule
+the padding. Each result is thus the sample's own decode (`decode_each`,
+which the reference-scale tools of `harness/` decode with too). What
+decodes the samples follows `BatchDecoder`'s rule
 (`use_fused`): on a CUDA decoder "auto" and True decode through the
-frame-step kernel and raise `ValueError` with the reason when a probe
-lies outside its scope (a doubled probe soon needs more shared memory
+frame-step kernel and raise `ProbeOutOfScope` (a `ValueError`) with
+the reason when a probe lies outside its scope (a doubled probe soon needs more shared memory
 than a block has); only `use_fused=False` takes the plain frame loop
 `TorchDecoder.run`, the counterpart of the JAX tuner's XLA decoder. A CPU
 decoder always runs the plain loop.
@@ -34,8 +35,46 @@ from .core import TorchDecoder, TorchDecoderConfig, check_use_fused
 from .fused_scan import why_not_covered
 
 
+class BudgetsNotFound(RuntimeError):
+    """No probe within `max_rounds` doublings decodes every sample without
+    overflow."""
+
+
+class ProbeOutOfScope(ValueError):
+    """A probe the tuner was asked to decode through the frame-step kernel
+    lies outside the kernel's scope (`why_not_covered`)."""
+
+
 def _round_up(x: int, m: int) -> int:
     return max(m, ((int(x) + m - 1) // m) * m)
+
+
+def pad_batch(scores: Sequence) -> torch.Tensor:
+    """(B, Tmax, n_gmms) of (T_i, n_gmms) score tensors, each edge-padded
+    to the longest (its last frame repeated)."""
+    n_frames = max(int(s.shape[0]) for s in scores)
+    return torch.stack([torch.cat([s, s[-1:].expand(n_frames - s.shape[0], -1)])
+                        for s in scores])
+
+
+def decode_each(dec: TorchDecoder, score_samples: Sequence, use_fused="auto") -> list:
+    """Each (T_i, n_gmms) sample's own decode, as `decode_scores` gives it:
+    the samples go as one padded `BatchDecoder` wave (the last frame
+    repeated; on a CUDA decoder through the route `use_fused` names, on a
+    CPU decoder the plain loop), each result read at the sample's length;
+    a sample whose wave result overflows is decoded again alone, since the
+    overflow flag also covers the padding."""
+    # imported here: `parallel` imports this package
+    from ..parallel.mesh import BatchDecoder
+
+    lengths = [int(s.shape[0]) for s in score_samples]
+    n_frames = max(lengths)
+    sc = [dec.scores_tensor(s) for s in score_samples]
+    wave = pad_batch(sc)
+    route = use_fused if dec.device.type == "cuda" else False
+    results = BatchDecoder(dec, use_fused=route).decode_scores_batch(wave, lengths)
+    return [dec.decode_scores(s, use_fused=use_fused) if r.overflow and len(s) < n_frames
+            else r for s, r in zip(sc, results)]
 
 
 def autotune_budgets(
@@ -62,14 +101,10 @@ def autotune_budgets(
     `g_network` (on-the-fly composition) the budgets are (arc, G state)
     slots and their candidates; the kernel does not cover such a decoder,
     so on the card only `use_fused=False` tunes it."""
-    # imported here: `parallel` imports this package
-    from ..parallel.mesh import BatchDecoder
-
     check_use_fused(use_fused)
     base = cfg or TorchDecoderConfig()
     probe = dataclasses.replace(base, emit_diagnostics=True)
-    lengths = [int(s.shape[0]) for s in score_samples]
-    n_frames = max(lengths)
+    n_frames = max(int(s.shape[0]) for s in score_samples)
 
     def decode_all(c):
         dec = TorchDecoder(artifact, c, device=device, g_network=g_network)
@@ -77,17 +112,11 @@ def autotune_budgets(
             # refuse before any decode when the kernel would not cover it
             why = why_not_covered(dec, n_frames)
             if why is not None:
-                raise ValueError(
+                raise ProbeOutOfScope(
                     f"autotune: the probe K={c.max_insts}, E={c.expand_budget}, "
                     f"F={c.final_budget} lies outside the fused scan's scope ({why}); "
                     f"pass use_fused=False for the plain frame loop")
-        sc = [dec.scores_tensor(s) for s in score_samples]
-        wave = torch.stack([torch.cat([s, s[-1:].expand(n_frames - len(s), -1)]) for s in sc])
-        route = use_fused if dec.device.type == "cuda" else False
-        results = BatchDecoder(dec, use_fused=route).decode_scores_batch(wave, lengths)
-        return dec, [dec.decode_scores(s, use_fused=use_fused)
-                     if r.overflow and len(s) < n_frames else r
-                     for s, r in zip(sc, results)]
+        return dec, decode_each(dec, score_samples, use_fused)
 
     ref_results = None
     for _round in range(max_rounds):
@@ -110,7 +139,7 @@ def autotune_budgets(
             final_budget=probe.final_budget * 2,
         )
     if ref_results is None:
-        raise RuntimeError(
+        raise BudgetsNotFound(
             f"autotune: still overflowing at max_insts={probe.max_insts}, "
             f"expand_budget={probe.expand_budget} after {max_rounds} doublings"
         )

@@ -48,7 +48,6 @@ import argparse
 import ctypes
 import json
 import os
-import subprocess
 import time
 
 import torch
@@ -60,7 +59,7 @@ from ..decoder import fused_scan
 from ..decoder.fused_scan import FusedDecodeScan
 from ..parallel.mesh import BatchDecoder
 from ..ops.gmm import make_gmm_scorer
-from . import wsj_task
+from . import card_line, wsj_task
 
 # the marks of the profiling build of csrc/frame_step.cu, in its order
 PHASES = ("top", "A", "B_scan", "B_rest", "C", "D_scan", "D_rest", "E", "F",
@@ -132,9 +131,7 @@ def main() -> None:
         ap.error("--fused: the frame-step kernel searches a static network, not a G")
     if args.budgets and not args.otf:
         ap.error("--budgets needs --otf")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
+    card = card_line()
     if args.otf:
         task = wsj_task.load_otf_task(args.task)
         p = wsj_task.OTF_POINT

@@ -32,7 +32,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 
 PEAK_F32_FLOPS = 67e12
@@ -59,14 +58,13 @@ def main() -> int:
     from juicer_tpu_torch import _cuda_build
     from juicer_tpu_torch.am.models import AcousticModelSet
     from juicer_tpu_torch.convert import gmm_params_from_numpy
+    from juicer_tpu_torch.harness import card_line
     from juicer_tpu_torch.ops import gmm_cuda
     from juicer_tpu_torch.ops.gmm import gmm_scores_dense, make_gmm_scorer
 
     report = _cuda_build.build_all(("gmm_logsumexp",)).get("gmm_logsumexp", "")
     regs = [ln.strip() for ln in report.splitlines() if "registers" in ln or "spill" in ln]
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     models = AcousticModelSet.load_npz(
         os.path.join(root, "scripts", "_wsj_cache_2k", "models.npz"))
     params = models.flat_params()

@@ -7,15 +7,19 @@ copies of what the reference bench drives them with: the operating point
 `WSJ_POINT` (`bench.py`), the on-the-fly composition script's point
 `OTF_POINT` (`scripts/wsj_otf.py`) and the utterance sampler
 `sample_utterances` (`scripts/wsj_bench.py`), which random-walks the
-task's bigram and synthesises features from the models, so every
-utterance has a known transcript. `sample_audio` makes wav-front-end
+task's bigram (or, with `free_text`, draws the words uniformly) and
+synthesises features from the models, so every utterance has a known
+transcript. `sample_audio` makes wav-front-end
 input the same way: audio of a sampled sentence whose MFCC features
 follow the models' means, with exactly the frame counts asked for.
 
 The decode artifact is derived from the network and models. By default
 it is read from this package's `_cache/<task>_artifact.npz`, or built and
 written there uncompressed; `cache=False` builds it in memory and reads
-and writes no file. `load_otf_task` builds the on-the-fly composition
+and writes no file (`cached_artifact`, which the reference-scale tools of
+`harness/` share). The port reads the tracked task directories and never
+writes into them: what it derives from one goes to `writable_dir`.
+`load_otf_task` builds the on-the-fly composition
 pair in memory: the artifact of CL (`cl.npz`) and G from `lm.arpa`.
 
 `build_task` rebuilds a task's networks from its `phones.lst`, `lex.dict`
@@ -98,12 +102,53 @@ def load_task(name: str = "2k", verbose: bool = True, cache: bool = True) -> Wsj
     and writes it there; cache=False builds it in memory and reads and
     writes no file (for a caller that reads the artifact once)."""
     cache_dir = task_dir(name)
-    costs = {}
     t0 = time.perf_counter()
     net = DecoderNetwork.load_npz(os.path.join(cache_dir, "clg.npz"))
     models = AcousticModelSet.load_npz(os.path.join(cache_dir, "models.npz"))
-    costs["network_s"] = time.perf_counter() - t0
-    path = os.path.join(ARTIFACT_CACHE, f"{name}_artifact.npz")
+    costs = {"network_s": time.perf_counter() - t0}
+    art, art_costs = cached_artifact(cache_dir, net, models, cache)
+    costs.update(art_costs)
+    costs["peak_rss_bytes"] = peak_rss_bytes()
+    if verbose:
+        steps = ", ".join(f"{k[:-2]} {v:.1f}s" for k, v in costs.items() if k.endswith("_s"))
+        print(f"[task] {name}: {net.n_arcs} arcs; {art}; {steps}; peak host RSS "
+              f"{costs['peak_rss_bytes'] / 2**30:.1f} GiB", flush=True)
+    return WsjTask(name, cache_dir, net, models, art, costs)
+
+
+def under_scripts(cache_dir: str) -> bool:
+    """Whether a task directory lies under the checkout's `scripts/` (the
+    tracked tasks), which the port reads and never writes to."""
+    scripts = os.path.join(ROOT, "scripts")
+    return os.path.commonpath([os.path.abspath(cache_dir), scripts]) == scripts
+
+
+def writable_dir(cache_dir: str) -> str:
+    """Where files derived from the task in `cache_dir` are written: that
+    directory, or for a task under `scripts/` `_cache/<its name>`."""
+    cache_dir = os.path.abspath(cache_dir)
+    if under_scripts(cache_dir):
+        return os.path.join(ARTIFACT_CACHE, os.path.basename(cache_dir))
+    return cache_dir
+
+
+def artifact_file(cache_dir: str) -> str:
+    """The decode artifact's cache of the task in `cache_dir`:
+    `_cache/<name>_artifact.npz` for a tracked `scripts/_wsj_cache_<name>`,
+    else `artifact.npz` beside the task's network."""
+    if under_scripts(cache_dir):
+        name = os.path.basename(os.path.abspath(cache_dir)).replace("_wsj_cache_", "")
+        return os.path.join(ARTIFACT_CACHE, f"{name}_artifact.npz")
+    return os.path.join(cache_dir, "artifact.npz")
+
+
+def cached_artifact(cache_dir: str, net: DecoderNetwork, models: AcousticModelSet,
+                    cache: bool = True):
+    """(artifact, {step: seconds}): read from `artifact_file(cache_dir)`, or
+    built and, with cache=True, written there uncompressed; cache=False
+    builds it in memory and reads and writes no file."""
+    costs = {}
+    path = artifact_file(cache_dir)
     t0 = time.perf_counter()
     if cache and os.path.exists(path):
         art = DecoderArtifact.load_npz(path, net, models)
@@ -113,17 +158,12 @@ def load_task(name: str = "2k", verbose: bool = True, cache: bool = True) -> Wsj
         costs["build_s"] = time.perf_counter() - t0
         if cache:
             t0 = time.perf_counter()
-            os.makedirs(ARTIFACT_CACHE, exist_ok=True)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
             tmp = f"{path}.{os.getpid()}.tmp.npz"
             art.save_npz(tmp)
             os.replace(tmp, path)
             costs["save_s"] = time.perf_counter() - t0
-    costs["peak_rss_bytes"] = peak_rss_bytes()
-    if verbose:
-        steps = ", ".join(f"{k[:-2]} {v:.1f}s" for k, v in costs.items() if k.endswith("_s"))
-        print(f"[task] {name}: {net.n_arcs} arcs; {art}; {steps}; peak host RSS "
-              f"{costs['peak_rss_bytes'] / 2**30:.1f} GiB", flush=True)
-    return WsjTask(name, cache_dir, net, models, art, costs)
+    return art, costs
 
 
 @dataclass
@@ -333,10 +373,18 @@ class _Sentences:
         n_words_total = len(self.prons) - 2
         self.SB, self.SE = n_words_total, n_words_total + 1
 
-    def sample_sentence(self, rng, frames_of):
+    def sample_sentence(self, rng, frames_of, target_frames, free_text=False):
         """ONE sentence <s> w... </s> (the grammar has no sentence loop):
-        its words and the sum of frames_of(w)."""
+        its words and the sum of frames_of(w). A bigram walk, or with
+        free_text words drawn uniformly until 0.9x the target frames
+        (decodable: G backs off to the unigram for any pair)."""
         words, w, frames_est = [], self.SB, 0
+        if free_text:
+            while frames_est < target_frames * 0.9:
+                w = int(rng.integers(self.SB))
+                words.append(w)
+                frames_est += frames_of(w)
+            return words, frames_est
         while True:
             ids = self.bz[f"ids_{w}"]
             p = 10.0 ** self.bz[f"logp_{w}"]
@@ -347,12 +395,12 @@ class _Sentences:
             words.append(w)
             frames_est += frames_of(w)
 
-    def sample_close(self, rng, frames_of, target_frames):
+    def sample_close(self, rng, frames_of, target_frames, free_text=False):
         """The first of up to 300 sentences within 0.6-1.5x the target
         frames, else the closest non-empty one."""
         best = None
         for _try in range(300):
-            words, frames_est = self.sample_sentence(rng, frames_of)
+            words, frames_est = self.sample_sentence(rng, frames_of, target_frames, free_text)
             if not words:
                 continue
             err = abs(frames_est - target_frames)
@@ -369,10 +417,12 @@ class _Sentences:
 
 
 def sample_utterances(cache, models, n_utts, target_frames, seed,
-                      frames_per_state=3):
+                      frames_per_state=3, free_text=False):
     """Random-walk the bigram, synthesise features from the models; a copy
-    of `scripts/wsj_bench.py:sample_utterances` (LM-sampled text). Returns
-    [(word ids, (T, D) float32 features)]."""
+    of `scripts/wsj_bench.py:sample_utterances`. `free_text=True` draws the
+    words uniformly instead: LM-likely transcripts make the LM an ally of
+    the truth, free text puts it in tension with the acoustics, where
+    pruning costs words. Returns [(word ids, (T, D) float32 features)]."""
     rng = np.random.default_rng(seed)
     task = _Sentences(cache, models)
 
@@ -382,7 +432,7 @@ def sample_utterances(cache, models, n_utts, target_frames, seed,
 
     utts = []
     for _ in range(n_utts):
-        words = task.sample_close(rng, frames_of, target_frames)
+        words = task.sample_close(rng, frames_of, target_frames, free_text)
         # features: sil + words + sil
         frames = []
         for p in task.phone_seq(words):

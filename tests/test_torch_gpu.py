@@ -1216,3 +1216,65 @@ def test_toolchain_cli_task_on_the_card_equals_the_cpu(card, cli_task, tmp_path)
             assert launches == (len(CLI_UTTS), len(CLI_UTTS)), launches
     assert texts["cuda"] == texts["cpu"]
     assert any(ln.startswith("Word accuracy = 100.00%") for ln in texts["cuda"])
+
+
+# ---- the reference-scale tools (harness/wsj_bench.py, wsj_sweep.py) ---------
+
+
+@pytest.mark.gpu
+def test_steady_bench_on_the_kernel_route(card):
+    """`wsj_bench.steady_bench` on the 2k task at `WSJ_POINT`: route
+    frame_step, overflow 0, one launch of the GMM kernel for the scores of
+    the wave and one of the frame-step kernel a wave (two waves: the first
+    and the timed one); the benched wave's words equal the entry point's."""
+    from juicer_tpu_torch.harness import wsj_bench
+
+    task = wsj_task.load_task("2k", verbose=False)
+    utts = wsj_task.sample_utterances(task.cache, task.models, 2, 300, seed=11)
+    scorer = make_gmm_scorer(task.models.flat_params(), device=card)
+    cfg = wsj_task.decoder_config()
+    Tmax = max(f.shape[0] for _, f in utts)
+    feats = torch.stack([torch.as_tensor(f, device=card)[
+        torch.arange(Tmax, device=card).clamp(max=f.shape[0] - 1)] for _, f in utts])
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    db = scorer(feats.reshape(-1, feats.shape[-1])).view(len(utts), Tmax, -1)
+    got = wsj_bench.steady_bench(task.artifact, cfg, db, [2], device=card)
+    assert (gmm_cuda.counter.launches, fused_scan.counter.launches) == (1, 2)
+    assert got[2]["route"] == "frame_step" and got[2]["overflow"] == 0 and got[2]["fps"] > 0
+    dec = TorchDecoder(task.artifact, cfg, device=card)
+    labels, markers = wsj_task.word_labels(task.cache)
+    for r, (words, _) in zip(BatchDecoder(dec).decode_scores_batch(
+            db, [f.shape[0] for _, f in utts]), utts):
+        assert [w for w in r.words if w not in markers] == [labels[w] for w in words]
+
+
+@pytest.mark.gpu
+def test_sweep_rung_past_shared_memory_takes_the_plain_loop(card):
+    """A rung whose budgets need more shared memory than a block has
+    (free text on confusable, mismatched models at 60/40/300: the CPU
+    tunes K=1536, E=1664 on these two utterances) names the plain loop and
+    `why_not_fused`'s reason in its row and its bench records, decodes
+    through the plain loop only (no frame_step launch), and tuning it
+    through the kernel raises `ProbeOutOfScope` with the reason rather
+    than giving way."""
+    from juicer_tpu_torch.decoder.autotune import ProbeOutOfScope
+    from juicer_tpu_torch.harness import wsj_sweep
+
+    task = wsj_task.load_task("2k", verbose=False)
+    args = wsj_sweep.parse_args(["--words", "2000", "--batch", "2", "--frames", "150",
+                                 "--settings", "60,40,300", "--center-scale", "0.8",
+                                 "--free-text", "--mismatch", "1.5", "--batches", "2"])
+    inp = wsj_sweep.prepare(args, task.net, task.artifact, task.cache)
+    dec = TorchDecoder(task.artifact, TorchDecoderConfig(max_insts=2048, expand_budget=4096),
+                       device=card)
+    why = fused_scan.why_not_fused(dec)
+    assert why is not None and "shared memory" in why
+    with pytest.raises(ProbeOutOfScope, match="shared memory"):
+        autotune_budgets(task.artifact, inp["scores"], dec.cfg, device=card)
+    fused_scan.counter.launches = 0
+    row = wsj_sweep.rung(args, "60,40,300", task.net, task.artifact, inp, "card")
+    assert fused_scan.counter.launches == 0
+    assert "error" not in row and row["overflow"] == 0
+    assert row["route"].startswith("plain loop: ") and "shared memory" in row["route"]
+    assert row["bench"]["2"]["route"] == row["route"] and row["bench"]["2"]["overflow"] == 0
