@@ -204,7 +204,11 @@ Phases (any failure raises and exits non-zero before the result line):
      `LexGen` with aux phones, the monophone `CDGen`, `build_clg`, each
      stage's states, arcs and seconds printed), held to clg.npz bit for bit
      (every array and scalar; a difference names the array and its first
-     index); [cli 2k] writes its network text from it;
+     index); [cli 2k] writes its network text from it. The build is host
+     work only: it runs in a child process (`python -m
+     juicer_tpu_torch.harness.wsj_task --build 2k --networks clg --out`)
+     started with the smoke, beside the card phases before this one, and
+     the network it writes is held to clg.npz again here;
   [cli 2k] the decoder CLI (`juicer_tpu_torch.cli.juicer`, run in this
      process through `run`, which `main` is with an exit code) on the 2k
      task. The smoke writes the CLI's
@@ -246,7 +250,8 @@ Phases (any failure raises and exits non-zero before the result line):
      to end: `jtpu-gramgen-torch -gramType ngram`, `jtpu-lexgen-torch
      -silMonophone sil -pauseMonophone sp -outputAuxPhones`,
      `jtpu-cdgen-torch -cdType monophone -lexInSymsFName` and
-     `jtpu-build-wfst-torch` (their `main`s, in this process) on the 2k
+     `jtpu-build-wfst-torch` (`python -m`, one child process each, in
+     turn, started with the smoke, beside the card phases) on the 2k
      files; G, L, C and final.fsm read back with the JAX tools' counts
      (final.fsm 178,593 states and 1,605,301 arcs: the CLI route's CLG is
      not clg.npz's, as its C carries the aux self-loops twice and the text
@@ -320,12 +325,49 @@ Phases (any failure raises and exits non-zero before the result line):
      lex.dict and lm.arpa: its G read back from the text equals [cli
      otf]'s `arpa_grammar` (the G of [otf]) arc for arc, labels and states
      exactly, weights within the text's three decimals;
-  8. result: a `kernels` JSON line (both kernels, with the 20k fields, the
-     OTF path's launches, the CLI phases' launches, the mesh's
-     (`launches_mesh`), the gloo ranks' (`launches_gloo`) and the tools'
-     (`launches_wsj_bench`, `launches_wsj_sweep`, `launches_wsj_otf`,
-     `launches_bench_otf`; frame_step also the steady benches' frames/s
-     and the sweep's routes)), the seconds of
+  [scale 1M] after [bench otf]: `harness/scale_bench` at its full size: the
+     random CLG-shaped network of 1,000,000 arcs, `make_models(2000)` (6,000
+     GMMs of 8 components, D=39) and the artifact by the native closure
+     (seconds, closure entries, largest fan-out, the tables' bytes on the
+     card); B=1 at the script's defaults K=8192 / E=32768 (`decode_scores`
+     twice, the plain loop, its reason printed, no frame_step launch);
+     `--batch 8` at K=768 / E=1024 through `frame_step` (first and steady
+     wave, two launches, overflow reported: the budgets bind by design),
+     the same wave held bit for bit to the plain loop (`hold_to_plain`),
+     the kernel's ms against `frame_step_bound`; its first utterance
+     through `decode_scores` (one launch) equal to the plain loop's; K=1024 / E=1408 refused by
+     `why_not_fused` at G=6,000 (shared memory); `gmm_logsumexp` at G=6,000
+     on 8 x 500 frames of N(0, 1) features against the plain scorer, as in
+     3, beside [gmm] B=16's G=141 reading;
+  [pipeline scale] `harness/pipeline_scale` at 200 and 1000 words (host):
+     each machine's arcs equal `PIPELINE_ARCS`, each stage's seconds;
+  [profile step] `harness/profile_step` at B=16 x 200 frames, one timed
+     iteration: the full wave on the plain loop and through one frame_step
+     launch (best finals equal bit for bit; launches 0 and 2), the three
+     ablations on the plain loop, the sort calls a frame step;
+  [profile otf step] `harness/profile_otf_step` on [otf]'s pair (kept from
+     that phase, not built again), 8 utterances of ~200 frames, one timed
+     wave a line (full, no_g_advance, static_cl): the plain loop on every
+     line, one GMM launch an utterance;
+  [pallas probe] `harness/pallas_probe`: the nine probes through the three
+     kernels of `csrc/probe_patterns.cu`, each equal to its plain version
+     (exactly for D-I, within 1e-5 relative for A-C); the launches of each
+     kernel over the tool's run; per probe kernel, plain and library ms and
+     the bound;
+  [graft entry] `graft_entry.entry` on the card (one launch of each kernel)
+     against `entry(device="cpu")` on a synthesised utterance, best finals
+     within 1e-3; `dryrun_multichip(2)` over two replicas on the card;
+  8. result: a `kernels` JSON line (three kernels: gmm_logsumexp and
+     frame_step with the 20k fields, the OTF path's launches, the CLI
+     phases' launches, the mesh's (`launches_mesh`), the gloo ranks'
+     (`launches_gloo`) and the tools' (`launches_wsj_bench`,
+     `launches_wsj_sweep`, `launches_wsj_otf`, `launches_bench_otf`,
+     `launches_scale_b1`, `launches_scale_b8`, `launches_profile_step`,
+     `launches_profile_otf_step`, `launches_graft_entry`,
+     `launches_graft_dryrun`; gmm_logsumexp also the G=6,000 reading,
+     frame_step the steady benches' frames/s, the sweep's routes and the
+     G=6,000 wave's ms and bound), and probe_patterns (its numbers summed
+     over the nine probes, each probe's under "probes")), the seconds of
      each phase, the card line, and last {"ok": true, "device":
      {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -353,6 +395,87 @@ AUDIO_SEED = 21  # [cli audio 20k]: the audio and the MLLR transforms
 LOOP_SEED, LOOP_FRAMES = 13, 300  # [cli loop audio 2k]'s audio
 FRONT_ATOL = 1e-4  # the batched front end on the card against `mfcc` on the CPU
 PARAM_TOL = 1e-12  # adapted float64 parameters, card against CPU, relative above 1
+
+
+CHILDREN = []  # the child processes `run_module` starts; `clean_up` ends any left
+TEMP_DIRS = []  # directories `clean_up` removes
+
+
+def run_module(argv, timeout: float):
+    """`python -m argv` from the repo's root in a child process: (exit code,
+    its standard output and error, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", *argv], cwd=ROOT, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    CHILDREN.append(proc)
+    out, _ = proc.communicate(timeout=timeout)
+    return proc.returncode, out, time.perf_counter() - t0
+
+
+def clean_up():
+    """Kill the child processes still running and remove the temporary
+    directories."""
+    import shutil
+
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for d in TEMP_DIRS:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def start_host_builds():
+    """Start the two 2k CLG builds, host work only, in child processes now,
+    so that they run beside the card phases before the two phases that
+    wait for them: [toolchain 2k]'s `wsj_task --build 2k --networks clg`,
+    and [toolchain cli 2k]'s `jtpu-gramgen-torch`, `jtpu-lexgen-torch`,
+    `jtpu-cdgen-torch` and `jtpu-build-wfst-torch` in turn. Both write into
+    a temporary directory. Returns (that directory, the future of the
+    first build's `run_module` result, the future of the tools' list of
+    (tool, exit code, output, seconds), which ends at a failing tool)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from juicer_tpu_torch.harness import wsj_task
+
+    cache = wsj_task.task_dir("2k")
+    tools = tempfile.mkdtemp(prefix="smoke_tools_")
+    TEMP_DIRS.append(tools)
+
+    def j(name):
+        return os.path.join(tools, name)
+
+    def outs(prefix):
+        return ["-fsmFName", j(f"{prefix}.fsm"), "-inSymsFName", j(f"{prefix}.insyms"),
+                "-outSymsFName", j(f"{prefix}.outsyms")]
+
+    marks = ["-sentStartWord", "<s>", "-sentEndWord", "</s>"]
+    phones = ["-monoListFName", os.path.join(cache, "phones.lst"), "-silMonophone", "sil",
+              "-pauseMonophone", "sp"]
+    steps = [("gramgen", ["-lexFName", os.path.join(cache, "lex.dict"), *marks, "-gramType",
+                          "ngram", "-lmFName", os.path.join(cache, "lm.arpa"), *outs("g")]),
+             ("lexgen", [*phones, "-lexFName", os.path.join(cache, "lex.dict"), *marks,
+                         "-outputAuxPhones", *outs("l")]),
+             ("cdgen", ["-cdType", "monophone", *phones, "-lexInSymsFName", j("l.insyms"),
+                        *outs("c")]),
+             ("build-wfst", [j("g.fsm"), j("l.fsm"), j("c.fsm")])]
+
+    def cli_tools():
+        done = []
+        for name, argv in steps:
+            done.append((name, *run_module(
+                [f"juicer_tpu_torch.cli.{name.replace('-', '_')}", *argv], 900)))
+            if done[-1][1] != 0:
+                break
+        return done
+
+    pool = ThreadPoolExecutor(max_workers=2)
+    clg = pool.submit(run_module, ["juicer_tpu_torch.harness.wsj_task", "--build", "2k",
+                                   "--networks", "clg", "--out", tools], 900)
+    cli = pool.submit(cli_tools)
+    pool.shutdown(wait=False)
+    return tools, clg, cli
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -563,6 +686,8 @@ def main() -> int:
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| {kind} | devices {torch.cuda.device_count()}", flush=True)
     dev = torch.device("cuda", 0)
+
+    host_builds = start_host_builds()
 
     # ---- 2. build -----------------------------------------------------
     t0 = time.perf_counter()
@@ -858,7 +983,8 @@ def main() -> int:
     del task, art, dec, bd, fs, scores, scores_tbg, x, feats, sc_card, plain_results
     gc.collect()
     torch.cuda.empty_cache()
-    cli_lib["clg"] = phase_toolchain_2k(card, phase_done)
+    cli_lib["clg"] = phase_toolchain_2k(card, host_builds, phase_done)
+    cli_lib["host_builds"] = host_builds
     cli2k = phase_cli_2k(card, dev, cli_lib, phase_done)
     k20 = phase_20k(card, dev, at_2k, phase_done)
     # release the static 20k task (its host artifact and 5.73 GB of tables)
@@ -874,13 +1000,22 @@ def main() -> int:
     cl20 = phase_toolchain_20k(card, phase_done)
     otf = phase_otf(card, dev, k20.pop("static"), phase_done)
     cli_lib = otf.pop("cli")
+    otf_pair = otf.pop("pair")
     cli_lib["cl"] = cl20
     del cl20
     gc.collect()
     cliotf, G = phase_cli_otf(card, dev, cli_lib, phase_done)
     phase_gramgen_20k(card, G, phase_done)
     botf = phase_bench_otf(card, phase_done)
-    cli = {k: {**cli2k[k], **cli20[k], **cliotf[k], **botf[k]}
+    scale = phase_scale_1m(card, dev, gmm16, phase_done)
+    phase_pipeline_scale(card, phase_done)
+    pstep = phase_profile_step(card, phase_done)
+    potf = phase_profile_otf_step(card, dev, otf_pair, phase_done)
+    del otf_pair
+    probe = phase_pallas_probe(card, dev, phase_done)
+    graft = phase_graft_entry(card, dev, phase_done)
+    cli = {k: {**cli2k[k], **cli20[k], **cliotf[k], **botf[k], **scale[k], **pstep[k],
+               **potf[k], **graft[k]}
            for k in ("gmm_logsumexp", "frame_step")}
 
     # ---- 8. result ------------------------------------------------------
@@ -907,7 +1042,7 @@ def main() -> int:
         "launches_b132": launches2[1],
         **k20["frame_step"], **otf["frame_step"], **cli["frame_step"],
         "launches_gloo": gloo["frame_step"],
-    }]}))
+    }, probe]}))
     print("[time] phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; total {sum(phase_s.values()):.1f}", flush=True)
     print(f"[card] {card}")
@@ -1674,7 +1809,7 @@ def phase_otf(card, dev, static, phase_done):
     if n_exact != 1 or par_launches[1] or ed.accuracy != 1.0:
         raise RuntimeError(f"[wsj otf 20k] oracle parity {n_exact}/1, frame_step launches "
                            f"{par_launches[1]}, accuracy {ed.accuracy}")
-    print(f"[wsj otf 20k] wsj_otf.tune (route {wsj_bench.route_of(dec)[0]}) and the main "
+    print(f"[wsj otf 20k] wsj_otf.tune (route {fused_scan.route_of(dec)[0]}) and the main "
           f"path's accuracy {ed.accuracy:.4f} ({ed.n_ref} words); RefOtfDecoder on the "
           f"{x_par.shape[0]}-frame held-out utterance: words exact ({t_par:.1f}s, launches "
           f"gmm_logsumexp {par_launches[0]}, frame_step {par_launches[1]}) | {card}", flush=True)
@@ -1809,6 +1944,8 @@ def phase_otf(card, dev, static, phase_done):
     phase_done("otf stream")
     return {
         "cli": dict(utts=utts, results=results, markers=markers, tuned=tuned),
+        # the 20k pair, for [profile otf step]
+        "pair": (art, g, models, task.cache),
         "gmm_logsumexp": {"launches_otf": launches[0], "ms_otf": gmm8["ms"],
                           "max_abs_err_otf": gmm8["err"], "launches_wsj_otf": par_launches[0]},
         "frame_step": {"launches_otf": launches[1], "launches_wsj_otf": par_launches[1],
@@ -1978,6 +2115,386 @@ def phase_bench_otf(card, phase_done):
     phase_done("bench otf")
     return {"gmm_logsumexp": {"launches_bench_otf": n[0]},
             "frame_step": {"launches_bench_otf": n[1]}}
+
+
+# ---- the repo's last tools: scale_bench, pipeline_scale, the two step
+# ablations, the Mosaic probe's patterns and the graft entry ------------------
+# pipeline_scale's arcs at 200 and 1000 words (L, G, L o G, det, min), the JAX
+# script's and the port's alike (tests/test_torch_pipeline_scale.py)
+PIPELINE_ARCS = {200: (1165, 1000, 3125, 12293, 12013),
+                 1000: (5960, 5000, 15869, 102981, 100796)}
+SCALE_KERNEL_KE = (768, 1024)  # at G=6,000: fits a block's shared memory
+SCALE_PLAIN_KE = (1024, 1408)  # the bench's budgets: past it at G=6,000
+SCALE_B = 8
+
+
+def phase_scale_1m(card, dev, gmm141, phase_done):
+    """[scale 1M]: `harness/scale_bench` at its 1,000,000 arcs and 6,000
+    GMMs (see the module docstring). `gmm141` is [gmm] B=16's record (G=141),
+    printed beside the G=6,000 reading. Returns the kernels line's fields."""
+    import numpy as np
+    import torch
+
+    from juicer_tpu_torch.decoder import fused_scan
+    from juicer_tpu_torch.decoder.core import TorchDecoder, host_batch
+    from juicer_tpu_torch.decoder.fused_scan import FusedDecodeScan
+    from juicer_tpu_torch.harness import scale_bench
+    from juicer_tpu_torch.ops import gmm_cuda
+    from juicer_tpu_torch.ops.gmm import make_gmm_scorer
+
+    net, models, art, secs = scale_bench.build()
+    ex = art.expansion
+    G = models.n_gmms
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    TorchDecoder(art, scale_bench.decoder_config(), device=dev)
+    torch.cuda.synchronize()
+    table_bytes = torch.cuda.memory_allocated() - m0
+    print(f"[scale 1M] network {net.n_states} states / {net.n_arcs} arcs "
+          f"{secs['network_s']:.1f}s, models {models.n_hmms} HMMs / {G} GMMs "
+          f"{secs['models_s']:.1f}s, artifact {art.n_hmm_arcs} HMM arcs, {len(ex.arc)} closure "
+          f"entries, largest fan-out {int(np.diff(ex.row_ptr).max())}, "
+          f"{secs['artifact_s']:.1f}s; tables on the card {table_bytes} bytes | {card}",
+          flush=True)
+    phase_done("scale 1M build")
+
+    # B=1 at the script's defaults (K=8192 / E=32768): the plain loop
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    b1 = scale_bench.run(scale_bench.parse_args([]), (net, models, art))
+    n_b1 = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    if not b1["route"].startswith("plain loop: ") or n_b1 != (0, 0):
+        raise RuntimeError(f"[scale 1M] B=1 at K=8192 / E=32768: route {b1['route']}, "
+                           f"launches {n_b1}; expected the plain loop, (0, 0)")
+    s = b1["single"]
+    print(f"[scale 1M] B=1 K={b1['decoder'].K} E={b1['decoder'].E}: route {b1['route']}; "
+          f"{len(s['result'].words)} words, overflow {s['result'].overflow}; first call "
+          f"{s['first_s']:.2f}s, steady {s['steady_s']:.2f}s = "
+          f"{scale_bench.FRAMES / s['steady_s']:.1f} frames/s; launches gmm_logsumexp "
+          f"{n_b1[0]}, frame_step {n_b1[1]} | {card}", flush=True)
+    del b1, s
+    phase_done("scale 1M B=1")
+
+    # --batch 8 at K=768 / E=1024 through the kernel, then held to the plain loop
+    K, E = SCALE_KERNEL_KE
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    b8 = scale_bench.run(scale_bench.parse_args(
+        [str(net.n_arcs), str(K), str(E), "--batch", str(SCALE_B)]), (net, models, art))
+    n_b8 = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    if b8["route"] != "frame_step" or n_b8 != (0, 2):
+        raise RuntimeError(f"[scale 1M] --batch {SCALE_B} at K={K} / E={E}: route "
+                           f"{b8['route']}, launches {n_b8}; expected frame_step, (0, 2)")
+    dec, w = b8["decoder"], b8["batch"]
+    T = scale_bench.FRAMES
+    scores = dec.scores_tensor(scale_bench.score_batch(SCALE_B, G))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_state = dec.run(scores)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    host = host_batch(*plain_state)
+    plain_results = [dec.traceback(host, b, T) for b in range(SCALE_B)]
+    del host
+    fs = FusedDecodeScan(dec, SCALE_B)
+    scores_tbg = scores.transpose(0, 1).contiguous()
+    fused_state, float_err = hold_to_plain("scale 1M", dec, fs, scores_tbg, plain_state,
+                                           plain_results, [T] * SCALE_B)
+    n_cand, n_active, n_rec = wave_counts(fused_state[1])
+    del plain_state, fused_state
+    fs_ms = cuda_ms(lambda: fs(scores_tbg), 3)
+    bound, bound_by, nbytes, ops, _ = frame_step_bound(dec, SCALE_B, T, scores_tbg.numel(),
+                                                       n_cand, n_active, n_rec)
+    need = fused_scan.smem_bytes(**fs.dims)
+    print(f"[scale 1M] --batch {SCALE_B} K={dec.K} E={dec.E} (G={G}: {need} bytes of shared "
+          f"memory a block of {fused_scan.SMEM_LIMIT}): route {b8['route']}, launches "
+          f"gmm_logsumexp {n_b8[0]}, frame_step {n_b8[1]}; first wave {w['first_s']:.3f}s, "
+          f"steady {w['steady_s']:.4f}s = {SCALE_B * T / w['steady_s']:.1f} frames/s/card, "
+          f"overflow {int(w['overflow'].sum())}/{SCALE_B} (the budgets bind by design); the "
+          f"kernel equals the plain loop bit for bit on that wave (records, snapshots, carry, "
+          f"words; max |float diff| {float_err}) | {card}", flush=True)
+    print(f"[scale 1M] frame_step {fs_ms:.3f} ms a wave of {SCALE_B} x {T} "
+          f"({fs_ms * 1e3 / T:.2f} us a frame), plain loop {plain_ms:.1f} ms, bound "
+          f"{bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G operations; "
+          f"{n_cand} candidates, {n_active} active slot-frames, {n_rec} records) | {card}",
+          flush=True)
+    # one utterance at these budgets: decode_scores through the kernel (one
+    # launch) against decode_scores on the plain loop
+    sc1 = scores[0]
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    r_kernel = dec.decode_scores(sc1)
+    n_one = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    r_plain = dec.decode_scores(sc1, use_fused=False)
+    if n_one != (0, 1) or not same_result(r_kernel, r_plain):
+        raise RuntimeError(f"[scale 1M] B=1 at K={K} / E={E}: launches {n_one}, kernel words "
+                           f"{r_kernel.words} score {r_kernel.score} vs plain {r_plain.words} "
+                           f"{r_plain.score}")
+    print(f"[scale 1M] B=1 K={dec.K} E={dec.E}: decode_scores through frame_step (one launch) "
+          f"equals the plain loop: {len(r_kernel.words)} words, score {r_kernel.score:.4f}, "
+          f"dead {r_kernel.empty}, overflow {r_kernel.overflow} | {card}", flush=True)
+    del scores, scores_tbg, sc1, fs, b8, dec
+
+    K2, E2 = SCALE_PLAIN_KE
+    wide = TorchDecoder(art, scale_bench.decoder_config(K2, E2), device=dev)
+    why = fused_scan.why_not_fused(wide)
+    if why is None or "shared memory" not in why:
+        raise RuntimeError(f"[scale 1M] K={K2} / E={E2} at G={G}: why_not_fused {why!r}")
+    print(f"[scale 1M] K={K2} / E={E2} at G={G} takes the plain loop: {why}", flush=True)
+    del wide
+    phase_done("scale 1M B=8")
+
+    # the GMM kernel at G=6,000 on 8 x 500 frames of features
+    scorer = make_gmm_scorer(models.flat_params(), device="cuda")
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.normal(size=(SCALE_B * T, 39)).astype(np.float32), device=dev)
+    g6k = gmm_phase(scorer, x, f"scale G={G} B={SCALE_B}", card)
+    print(f"[scale 1M] gmm_logsumexp at G={G}: {g6k['ms']:.4f} ms for {SCALE_B * T} frames, "
+          f"{100 * g6k['bound_ms'] / g6k['ms']:.1f} % of its bound, library "
+          f"{g6k['library_ms']:.4f} ms; at G=141 ([gmm] B=16, 23,328 frames) "
+          f"{gmm141['ms']:.4f} ms, {100 * gmm141['bound_ms'] / gmm141['ms']:.1f} % of its "
+          f"bound | {card}", flush=True)
+    del scorer, x, art, net, models
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("scale 1M gmm")
+    return {"gmm_logsumexp": {"launches_scale_b1": n_b1[0], "launches_scale_b8": n_b8[0],
+                              "max_abs_err_g6000": g6k["err"], "ms_g6000": g6k["ms"],
+                              "plain_ms_g6000": g6k["plain_ms"],
+                              "bound_ms_g6000": g6k["bound_ms"],
+                              "library_ms_g6000": g6k["library_ms"]},
+            "frame_step": {"launches_scale_b1": n_b1[1], "launches_scale_b8": n_b8[1],
+                           "ms_scale_b8": fs_ms, "plain_ms_scale_b8": plain_ms,
+                           "bound_ms_scale_b8": bound, "bound_by_scale_b8": bound_by,
+                           "max_abs_err_scale_b8": float_err}}
+
+
+def phase_pipeline_scale(card, phase_done):
+    """[pipeline scale]: `harness/pipeline_scale` at 200 and 1000 words on
+    the host; every machine's arcs equal `PIPELINE_ARCS`."""
+    import tempfile
+
+    from juicer_tpu_torch.harness import pipeline_scale
+
+    for n_words, want in PIPELINE_ARCS.items():
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            out = pipeline_scale.run_size(tmp, n_words)
+        m = out["machines"]
+        got = tuple(m[k].num_arcs for k in ("L", "G", "LG", "det", "min"))
+        if got != want:
+            raise RuntimeError(f"[pipeline scale] {n_words} words: arcs {got}, expected {want}")
+        print(f"[pipeline scale] {n_words} words: L, G, L o G, det, min arcs {got} (expected); "
+              f"stages " + ", ".join(f"{k} {v:.2f}s" for k, v in out["seconds"].items())
+              + f"; {time.perf_counter() - t0:.1f}s in all (host) | {card}", flush=True)
+    phase_done("pipeline scale")
+
+
+def phase_profile_step(card, phase_done):
+    """[profile step]: `harness/profile_step` cut to B=16 x 200 frames and
+    one timed iteration: the full line on both routes (the kernel's best
+    finals equal the plain loop's bit for bit; two frame_step launches, the
+    warm-up and the timed one) and the three ablations on the plain loop.
+    Returns the kernels line's fields."""
+    import numpy as np
+
+    from juicer_tpu_torch.decoder import fused_scan
+    from juicer_tpu_torch.harness import profile_step
+    from juicer_tpu_torch.ops import gmm_cuda
+
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    out = profile_step.run(profile_step.parse_args(["16", "--frames", "200", "--iters", "1"]))
+    n = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    if n != (0, 2) or out["full (frame_step)"]["route"] != "frame_step":
+        raise RuntimeError(f"[profile step] launches {n}, expected (0, 2)")
+    if not np.array_equal(out["full"]["best_final"], out["full (frame_step)"]["best_final"]):
+        raise RuntimeError("[profile step] the kernel's best finals differ from the plain loop's")
+    print(f"[profile step] B=16 x 200: plain loop {out['full']['s'] * 1e3:.1f} ms, frame_step "
+          f"{out['full (frame_step)']['s'] * 1e3:.1f} ms a wave (best finals equal bit for "
+          f"bit); " + ", ".join(f"{label} {out[label]['s'] * 1e3:.1f} ms"
+                                for label, _ in profile_step.ABLATIONS)
+          + f"; {out['sorts']} sort calls a frame step; launches gmm_logsumexp {n[0]}, "
+          f"frame_step {n[1]} | {card}", flush=True)
+    phase_done("profile step")
+    return {"gmm_logsumexp": {"launches_profile_step": n[0]},
+            "frame_step": {"launches_profile_step": n[1]}}
+
+
+def phase_profile_otf_step(card, dev, pair, phase_done):
+    """[profile otf step]: `harness/profile_otf_step` on [otf]'s 20k pair
+    (`pair` = artifact, G, models, task directory), cut to 8 utterances of
+    ~200 frames and one timed wave a line: every line the plain loop (no
+    frame_step launch), the GMM kernel once an utterance. Returns the
+    kernels line's fields."""
+    from juicer_tpu_torch.decoder import fused_scan
+    from juicer_tpu_torch.harness import profile_otf_step
+    from juicer_tpu_torch.ops import gmm_cuda
+
+    art, g, models, cache = pair
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    db = profile_otf_step.batch_scores(cache, models, 8, dev, frames=200)
+    out = profile_otf_step.profile(art, g, db, waves=1, card=card)
+    n = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    if n != (8, 0) or any(not out[k]["route"].startswith("plain loop: ") for k in out):
+        raise RuntimeError(f"[profile otf step] launches {n} (expected (8, 0)), routes "
+                           f"{[out[k]['route'] for k in out]}")
+    print(f"[profile otf step] B=8 x {db.shape[1]} frames, K=2176 / E=3840: " + ", ".join(
+        f"{k} {out[k]['fps']:.1f} frames/s (overflow {out[k]['overflow']})" for k in out)
+        + f"; launches gmm_logsumexp {n[0]}, frame_step {n[1]} | {card}", flush=True)
+    phase_done("profile otf step")
+    return {"gmm_logsumexp": {"launches_profile_otf_step": n[0]},
+            "frame_step": {"launches_profile_otf_step": n[1]}}
+
+
+def probe_bound(rec):
+    """(bound ms, bound_by, library call) of one probe of
+    `harness/pallas_probe` on its own inputs: each input byte the pattern
+    needs read once (for a gather, the table's distinct rows it reads), each
+    output byte written once. The library call is one PyTorch call of the
+    same function: `torch.matmul`, `index_select` after the cast of the
+    float indices, or the slice's `clone`."""
+    import types
+
+    import torch
+
+    from juicer_tpu_torch.harness import pallas_probe
+
+    # the probe's kernel call and its arguments, caught on the plain versions
+    seen = []
+
+    def spy(op):
+        def call(*args):
+            seen.append((op, args))
+            return getattr(pallas_probe.PLAIN, op)(*args)
+        return call
+
+    pallas_probe.PROBES[rec["name"]][2](
+        types.SimpleNamespace(**{op: spy(op) for op in ("product", "gather", "extract")}),
+        rec["inputs"])
+    (op, args), = seen
+    ops = 0.0
+    if op == "product":
+        x, t = args
+        nbytes = 4.0 * (x.numel() + t.numel() + x.shape[0] * t.shape[1])
+        ops = 2.0 * x.shape[0] * x.shape[1] * t.shape[1]
+        lib = lambda: torch.matmul(x, t)  # noqa: E731
+    elif op == "gather":
+        idx, tab = args
+        nbytes = 4.0 * (idx.numel() + int(idx.unique().numel()) * tab.shape[1]
+                        + idx.numel() * tab.shape[1])
+        lib = lambda: torch.index_select(tab, 0, idx.long())  # noqa: E731
+    else:
+        x, r0, n, c0, m = args
+        nbytes = 8.0 * n * m
+        lib = lambda: x[r0:r0 + n, c0:c0 + m].clone()  # noqa: E731
+    t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes", lib
+
+
+def phase_pallas_probe(card, dev, phase_done):
+    """[pallas probe]: `harness/pallas_probe` on the card, all nine probes:
+    each kernel equal to its plain version (exactly for D-I, within 1e-5
+    relative for A-C); the launches of each of the three kernels counted over
+    the tool's run (the probes' first calls and the tool's own timing); per
+    probe the bound and one PyTorch call of the same function
+    (`probe_bound`), all timed as device time by `pallas_probe.device_ms`
+    (the host takes longer to issue a call than these kernels run), each
+    with the timer it took. Returns
+    the kernels line's `probe_patterns` entry."""
+    from juicer_tpu_torch.harness import pallas_probe
+    from juicer_tpu_torch.ops import probe_cuda
+
+    for c in probe_cuda.counters.values():
+        c.launches = 0
+    records = pallas_probe.run(dev, card=card)
+    launches = {k: c.launches for k, c in probe_cuda.counters.items()}
+    calls = {k: sum(r["calls"] for r in records if r["kernel"] == k) for k in launches}
+    failed = [r["name"] for r in records if not r["ok"]]
+    if failed or len(records) != 9 or not all(launches.values()) or launches != calls:
+        raise RuntimeError(f"[pallas probe] failed {failed}, launches {launches}, "
+                           f"wrapper calls {calls}")
+    probes = []
+    for r in records:
+        bound, bound_by, lib = probe_bound(r)
+        lib_ms, lib_timer = pallas_probe.device_ms(lib)
+        timers = {"kernel": r["timer"], "plain": r["plain_timer"], "library": lib_timer}
+        probes.append({"name": r["name"], "kernel": r["kernel"], "max_abs_err": r["err"],
+                       "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound,
+                       "bound_by": bound_by, "library_ms": lib_ms, "timers": timers,
+                       "events_ms": r["events_ms"], "plain_events_ms": r["plain_events_ms"]})
+        print(f"[pallas probe] {r['name']} ({r['kernel']}): device time a call: kernel "
+              f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library {lib_ms:.5f} ms "
+              f"(timers {timers}); "
+              f"bound {bound:.3e} ms "
+              f"({bound_by}); a call in a stream (host-issue bound): kernel "
+              f"{r['events_ms']:.4f} ms, plain {r['plain_events_ms']:.4f} ms | {card}",
+              flush=True)
+    per_probe = {r["name"]: r["calls"] for r in records}
+    print(f"[pallas probe] 9 of 9 PASS; launches {launches}, one a wrapper call: {per_probe} "
+          f"calls a probe (its first call and the tool's two timings) | {card}", flush=True)
+    phase_done("pallas probe")
+    return {"name": "probe_patterns", "route": "cuda",
+            "source": "juicer_tpu_torch/csrc/probe_patterns.cu",
+            "replaces": "scripts/pallas_probe.py:30",
+            "launches": sum(launches.values()), "launches_by_kernel": launches,
+            "max_abs_err": max(p["max_abs_err"] for p in probes),
+            # the nine probes one after another (each probe's own is in "probes")
+            "ms": sum(p["ms"] for p in probes), "plain_ms": sum(p["plain_ms"] for p in probes),
+            "bound_ms": sum(p["bound_ms"] for p in probes), "bound_by": "bytes",
+            "library_ms": sum(p["library_ms"] for p in probes), "probes": probes}
+
+
+def phase_graft_entry(card, dev, phase_done):
+    """[graft entry]: `graft_entry.entry` on the card (one launch of each
+    kernel) against `entry(device="cpu")` on the same features, best finals
+    within 1e-3; `dryrun_multichip` over two replicas on the card, every
+    check passing. Returns the kernels line's fields."""
+    import numpy as np
+    import torch
+
+    from juicer_tpu_torch import graft_entry
+    from juicer_tpu_torch.decoder import fused_scan
+    from juicer_tpu_torch.ops import gmm_cuda
+    from juicer_tpu_torch.utils.synth import make_synth_task
+
+    fn, (example,) = graft_entry.entry(dev)
+    cpu_fn, _ = graft_entry.entry("cpu")
+    f = make_synth_task(n_words=30, n_phones=16, vec_size=20, seed=0).synth_utterance(
+        ["w3", "w17"], np.random.default_rng(5))[:50]
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    got = float(fn(torch.as_tensor(f, device=dev)))
+    n_entry = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    want = float(cpu_fn(torch.as_tensor(f)))
+    ex_card, ex_cpu = float(fn(example)), float(cpu_fn(example.cpu()))
+    if n_entry != (1, 1) or not (got > -1e29 and abs(got - want) <= graft_entry.SCORE_TOL):
+        raise RuntimeError(f"[graft entry] card {got} vs cpu {want}, launches {n_entry}")
+    if not (abs(ex_card - ex_cpu) <= graft_entry.SCORE_TOL or max(ex_card, ex_cpu) < -1e29):
+        raise RuntimeError(f"[graft entry] example: card {ex_card} vs cpu {ex_cpu}")
+    print(f"[graft entry] entry: {len(f)} frames, best final {got:.4f} on the card, {want:.4f} "
+          f"on the CPU (|diff| {abs(got - want):.2e}, tol {graft_entry.SCORE_TOL}); the "
+          f"example {ex_card:.4f} / {ex_cpu:.4f}; launches gmm_logsumexp {n_entry[0]}, "
+          f"frame_step {n_entry[1]} | {card}", flush=True)
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    t0 = time.perf_counter()
+    out = graft_entry.dryrun_multichip(2, device=dev, mesh=(dev, dev))
+    n_dry = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    # gmm_logsumexp: the batch's scores and the WSJ-budget batch's; frame_step:
+    # 4 single-device truths, 2 shares of the fused route, 2 gathered finals
+    if n_dry != (2, 8):
+        raise RuntimeError(f"[graft entry] dryrun_multichip launches {n_dry}, expected (2, 8)")
+    print(f"[graft entry] dryrun_multichip(2) over (cuda:0, cuda:0): {len(out['plain'])} "
+          f"utterances, routes {out['routes']}, mean best final {out['mean_best_final']:.3f}; "
+          f"launches gmm_logsumexp {n_dry[0]}, frame_step {n_dry[1]}; "
+          f"{time.perf_counter() - t0:.1f}s | {card}", flush=True)
+    phase_done("graft entry")
+    return {"gmm_logsumexp": {"launches_graft_entry": n_entry[0],
+                              "launches_graft_dryrun": n_dry[0]},
+            "frame_step": {"launches_graft_entry": n_entry[1],
+                           "launches_graft_dryrun": n_dry[1]}}
 
 
 # ---- the decoder CLI: its input files, written by the smoke -------------------
@@ -2296,7 +2813,8 @@ def phase_cli_2k(card, dev, lib, phase_done):
         phase_done("cli 2k")
         launches_d = phase_cli_ref_2k(card, argv_b + point, td, sent_a, lib, phase_done)
         phase_cli_loop_audio_2k(card, base + point, out_syms, lib["loop"], phase_done)
-        tool = phase_toolchain_cli_2k(card, td, base, point, utts, phase_done)
+        tool = phase_toolchain_cli_2k(card, td, base, point, utts, lib["host_builds"],
+                                      phase_done)
     return {"gmm_logsumexp": {"launches_cli_2k": launches_a[0],
                               "launches_cli_2k_lattice": launches_b[0],
                               "launches_cli_ref_2k": launches_d[0],
@@ -2642,22 +3160,32 @@ def phase_toolchain_20k(card, phase_done):
     return cl
 
 
-def phase_toolchain_2k(card, phase_done):
+def phase_toolchain_2k(card, host_builds, phase_done):
     """[toolchain 2k]: the 2k CLG rebuilt by the port's offline toolchain
     from `phones.lst`, `lex.dict` and `lm.arpa` (`wsj_task.build_task`'s
     CLG half: `GramGen(NGRAM)`, `LexGen`, the monophone `CDGen`,
     `build_clg(verbose=True)`, which prints each stage's states, arcs and
-    seconds) and held to clg.npz bit for bit. Returns the network, which
-    [cli 2k] writes as its CLG text."""
+    seconds) in the child process `start_host_builds` started, which holds
+    it to clg.npz bit for bit; its lines are printed here, and the network
+    it wrote is held to clg.npz again in this process. Returns the
+    network, which [cli 2k] writes as its CLG text."""
+    from juicer_tpu_torch.decoder.network import DecoderNetwork
     from juicer_tpu_torch.harness import wsj_task
 
+    tools, build, _ = host_builds
     t0 = time.perf_counter()
-    out = wsj_task.build_task("2k", networks=("clg",), verbose=True)
-    net = out["clg"]
-    print(f"[toolchain 2k] CLG rebuilt on the host in {time.perf_counter() - t0:.1f}s: "
-          f"{net.n_states} states, {net.n_arcs} arcs, equal to clg.npz bit for bit (every "
-          f"array; {', '.join(wsj_task.NETWORK_SCALARS)}); peak host RSS "
-          f"{wsj_task.peak_rss_bytes() / 2**30:.2f} GiB | {card}", flush=True)
+    rc, out, seconds = build.result()
+    waited = time.perf_counter() - t0
+    print(out.rstrip(), flush=True)
+    if rc != 0:
+        raise RuntimeError(f"[toolchain 2k] wsj_task --build 2k exited {rc}")
+    net = DecoderNetwork.load_npz(os.path.join(tools, "clg.npz"))
+    wsj_task.require_same_network("[toolchain 2k] clg", net, DecoderNetwork.load_npz(
+        os.path.join(wsj_task.task_dir("2k"), "clg.npz")))
+    print(f"[toolchain 2k] CLG rebuilt on the host in {seconds:.1f}s, in a child process "
+          f"started with the smoke (waited for {waited:.1f}s here): {net.n_states} states, "
+          f"{net.n_arcs} arcs, equal to clg.npz bit for bit (every array; "
+          f"{', '.join(wsj_task.NETWORK_SCALARS)}) there and here | {card}", flush=True)
     phase_done("toolchain 2k")
     return net
 
@@ -2671,18 +3199,20 @@ TOOLCHAIN_CLI_2K = {"g.fsm": (2004, 123026), "l.fsm": (11195, 13195), "c.fsm": (
                     "final.fsm": (178593, 1605301)}
 
 
-def phase_toolchain_cli_2k(card, td, base, point, utts, phase_done):
-    """[toolchain cli 2k]: the users' entry points end to end, in [cli 2k]'s
-    directory td (its MMF, lexicon, features, input list and references):
+def phase_toolchain_cli_2k(card, td, base, point, utts, host_builds, phase_done):
+    """[toolchain cli 2k]: the users' entry points end to end:
     `jtpu-gramgen-torch`, `jtpu-lexgen-torch`, `jtpu-cdgen-torch` and
-    `jtpu-build-wfst-torch` (their `main`s, in this process) on the 2k
-    files, then `jtpu-juicer-torch` on final.fsm and final.{in,out}syms at
-    `WSJ_POINT`, one utterance a launch. Certified: overflow 0, dead 0, the
-    words of every utterance equal its transcript, route `frame_step
-    kernel`, one launch of each kernel an utterance. Then
-    `jtpu-genwfstseqs-torch` on final.fsm, `jtpu-hmmgen-torch` and
-    `jtpu-untie-torch` on the MMF (a tied list of four logical names), their
-    outputs read back. Returns the decode's launches."""
+    `jtpu-build-wfst-torch` on the 2k files (each `python -m` in a child
+    process, in turn, started with the smoke by `start_host_builds`, into
+    its directory), then `jtpu-juicer-torch` on final.fsm and
+    final.{in,out}syms at `WSJ_POINT`, one utterance a launch, in [cli
+    2k]'s directory td (its MMF, lexicon, features, input list and
+    references). Certified: overflow 0, dead 0, the words of every
+    utterance equal its transcript, route `frame_step kernel`, one launch
+    of each kernel an utterance. Then `jtpu-genwfstseqs-torch` on
+    final.fsm, `jtpu-hmmgen-torch` and `jtpu-untie-torch` on the MMF (a
+    tied list of four logical names), their outputs read back. Returns the
+    decode's launches."""
     import contextlib
     import io
     import math
@@ -2690,44 +3220,37 @@ def phase_toolchain_cli_2k(card, td, base, point, utts, phase_done):
     import numpy as np
 
     from juicer_tpu_torch.am.models import AcousticModelSet
-    from juicer_tpu_torch.cli import build_wfst, cdgen, genwfstseqs, gramgen, hmmgen, lexgen
-    from juicer_tpu_torch.cli import untie
+    from juicer_tpu_torch.cli import genwfstseqs, hmmgen, untie
     from juicer_tpu_torch.fst import read_fsm, read_symbols
-    from juicer_tpu_torch.harness import wsj_task
 
-    cache = wsj_task.task_dir("2k")
+    tools, _, built = host_builds
 
     def j(name):
         return os.path.join(td, name)
+
+    def in_tools(name):
+        return os.path.join(tools, name)
 
     def outs(prefix):
         return ["-fsmFName", j(f"{prefix}.fsm"), "-inSymsFName", j(f"{prefix}.insyms"),
                 "-outSymsFName", j(f"{prefix}.outsyms")]
 
-    marks = ["-sentStartWord", "<s>", "-sentEndWord", "</s>"]
-    phones = ["-monoListFName", os.path.join(cache, "phones.lst"), "-silMonophone", "sil",
-              "-pauseMonophone", "sp"]
-    steps = [("gramgen", gramgen.main, ["-lexFName", os.path.join(cache, "lex.dict"), *marks,
-                                         "-gramType", "ngram", "-lmFName",
-                                         os.path.join(cache, "lm.arpa"), *outs("g")]),
-             ("lexgen", lexgen.main, [*phones, "-lexFName", os.path.join(cache, "lex.dict"),
-                                       *marks, "-outputAuxPhones", *outs("l")]),
-             ("cdgen", cdgen.main, ["-cdType", "monophone", *phones, "-lexInSymsFName",
-                                     j("l.insyms"), *outs("c")]),
-             ("build-wfst", build_wfst.main, [j("g.fsm"), j("l.fsm"), j("c.fsm")])]
+    t0 = time.perf_counter()
+    done = built.result()
+    waited = time.perf_counter() - t0
     tool_s = {}
-    for name, main, argv in steps:
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()) as said:
-            rc = main(argv)
-        tool_s[name] = time.perf_counter() - t0
+    for name, rc, said, seconds in done:
+        tool_s[name] = seconds
         if rc != 0:
-            raise RuntimeError(f"[toolchain cli 2k] jtpu-{name}-torch exited {rc}")
-        print(f"[toolchain cli 2k] jtpu-{name}-torch ({tool_s[name]:.1f}s): "
-              f"{said.getvalue().strip()}", flush=True)
+            raise RuntimeError(f"[toolchain cli 2k] jtpu-{name}-torch exited {rc}: "
+                               f"{said[-2000:]}")
+        print(f"[toolchain cli 2k] jtpu-{name}-torch ({seconds:.1f}s, a child process): "
+              f"{said.strip()}", flush=True)
+    print(f"[toolchain cli 2k] the tools ran beside the earlier phases; waited for "
+          f"{waited:.1f}s here", flush=True)
     counts = {}
     for f, want in TOOLCHAIN_CLI_2K.items():
-        m = read_fsm(j(f))
+        m = read_fsm(in_tools(f))
         counts[f] = (m.num_states, m.num_arcs)
         if counts[f] != want:
             raise RuntimeError(f"[toolchain cli 2k] {f}: {counts[f]} states and arcs, the JAX "
@@ -2736,8 +3259,8 @@ def phase_toolchain_cli_2k(card, td, base, point, utts, phase_done):
     gc.collect()
 
     # the decode, one utterance a launch
-    final = ["-fsmFName", j("final.fsm"), "-inSymsFName", j("final.insyms"), "-outSymsFName",
-             j("final.outsyms")]
+    final = ["-fsmFName", in_tools("final.fsm"), "-inSymsFName", in_tools("final.insyms"),
+             "-outSymsFName", in_tools("final.outsyms")]
     argv = [a for a in base]
     for flag, value in zip(final[::2], final[1::2]):
         argv[argv.index(flag) + 1] = value
@@ -2746,7 +3269,7 @@ def phase_toolchain_cli_2k(card, td, base, point, utts, phase_done):
         argv + point + ["-batchSize", "1", "-refFName", j("refs.txt"), "-removeSentMarks",
                         "-outputFormat", "verbose", "-outputFName", out])
     acc, rt = verbose_summary(out)
-    out_syms = read_symbols(j("final.outsyms"))
+    out_syms = read_symbols(in_tools("final.outsyms"))
     dead = sum(1 for ur in report.results if not ur.words or not math.isfinite(ur.total_score))
     wrong = [i for i, (ur, (words, _)) in enumerate(zip(report.results, utts))
              if [out_syms[w.index + 1] for w in ur.words] != [f"w{w}" for w in words]]
@@ -2770,7 +3293,7 @@ def phase_toolchain_cli_2k(card, td, base, point, utts, phase_done):
     # genwfstseqs on the network, hmmgen and untie on the models
     with contextlib.redirect_stdout(io.StringIO()) as said:
         rc = genwfstseqs.main([*final, "-nSeqs", "5", "-seed", "0"])
-    in_syms = set(read_symbols(j("final.insyms")))
+    in_syms = set(read_symbols(in_tools("final.insyms")))
     seqs = said.getvalue().splitlines()
     if rc != 0 or len(seqs) != 5 or not all(
             set(ln.split(" : ")[0].split()) <= in_syms for ln in seqs):
@@ -3045,4 +3568,7 @@ def phase_cli_audio_20k(card, base, td, lib, markers, phase_done):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        clean_up()

@@ -19,7 +19,7 @@ import threading
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
-SOURCES = ("gmm_logsumexp", "frame_step")
+SOURCES = ("gmm_logsumexp", "frame_step", "probe_patterns")
 # frame_step is held bit for bit to its plain version: no contraction of a
 # multiply and an add into one rounding, should a later edit bring a multiply
 EXTRA_FLAGS = {"frame_step": ["-fmad=false"]}
@@ -31,6 +31,14 @@ VARIANTS = {"frame_step_clocks": ("frame_step", ["-DJTPU_FS_CLOCKS"])}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+
+
+class LaunchCounter:
+    """Launch count of one kernel: its wrapper adds one a launch, and
+    nowhere else."""
+
+    def __init__(self):
+        self.launches = 0
 
 
 def _nvcc() -> str:

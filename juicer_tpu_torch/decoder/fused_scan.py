@@ -41,7 +41,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .._cuda_build import load
+from .._cuda_build import LaunchCounter, load
 from .core import (BF_FIELDS, REC_FIELDS, REC_WORDS, RECORD_WORDS, TorchDecoder,
                    float_view, host_batch, written_records)
 
@@ -73,15 +73,7 @@ _N_PTR = len(_TABLES) + 1 + 9 + 15 + len(YS_NAMES)
 # build with cycle counters here before the first launch
 LIB_NAME = "frame_step"
 
-
-class _Counter:
-    """Launch count of the kernel: one per launch, nowhere else."""
-
-    def __init__(self):
-        self.launches = 0
-
-
-counter = _Counter()
+counter = LaunchCounter()
 _lib = None
 
 
@@ -253,6 +245,14 @@ def fused_eligible(dec: TorchDecoder) -> bool:
     return why_not_fused(dec) is None
 
 
+def route_of(dec: TorchDecoder):
+    """(route, use_fused) of a decoder: ("frame_step", True) where the
+    kernel covers it, else ("plain loop: <why_not_fused>", False). On a
+    CPU decoder the kernel's route runs its plain version."""
+    why = why_not_fused(dec)
+    return ("frame_step", True) if why is None else (f"plain loop: {why}", False)
+
+
 def _check(name, t, device, dtype, shape):
     if t.device != device:
         raise ValueError(f"frame_step: {name} is on {t.device}, the decoder on {device}")
@@ -387,6 +387,19 @@ class FusedDecodeScan:
             carry, ys, _ = self._plain.run(scores.transpose(0, 1), carry=carry, t0=t0)
             return carry, compact_records(ys, t0)
         return self._launch(scores, carry, t0)
+
+
+def device_wave(dec: TorchDecoder, dbs: torch.Tensor):
+    """A function running one wave of the (B, T, n_gmms) scores `dbs`
+    through the decoder's device route, with no copy to the host and no
+    traceback: one launch of the frame-step kernel where `route_of` picks
+    it, else the plain frame loop `TorchDecoder.run`. It returns the
+    wave's carry."""
+    _, fused = route_of(dec)
+    if fused:
+        fs = FusedDecodeScan(dec, dbs.shape[0])
+        return lambda: fs(dbs.transpose(0, 1).contiguous())[0]
+    return lambda: dec.run(dbs)[0]
 
 
 def assemble_results(dec: TorchDecoder, fs: FusedDecodeScan, carry, ys, lengths):

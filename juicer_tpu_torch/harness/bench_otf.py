@@ -35,12 +35,13 @@ from .. import resolve_device
 from ..compile import CDGen, CDPhoneLookup, CDType, GramGen, GramType, LexGen
 from ..decoder.artifact import DecoderArtifact
 from ..decoder.core import TorchDecoder, TorchDecoderConfig
+from ..decoder.fused_scan import route_of
 from ..decoder.network import DecoderNetwork
 from ..decoder.otf import GNetwork
 from ..fst import algos
 from ..utils import synth
 from . import card_line
-from .wsj_bench import route_of, synchronize
+from .wsj_bench import synchronize
 
 QUICK = dict(n_words=30, n_phones=16, vec=20, B=8, T=128, iters=2)
 FULL = dict(n_words=200, n_phones=40, vec=39, B=128, T=1000, iters=5)

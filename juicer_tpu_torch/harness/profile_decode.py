@@ -66,25 +66,33 @@ PHASES = ("top", "A", "B_scan", "B_rest", "C", "D_scan", "D_rest", "E", "F",
           "G_records", "G_rest")
 
 
-def profile_run(run, n_frames: int):
+def profile_run(run, n_frames: int, attempts: int = 3):
     """Profile `run()`, a call that decodes `n_frames` frames on the card:
     once to warm up, once under `torch.profiler` (CPU and CUDA
     activities), then once on the host clock alone, since the profiler
-    slows the host. Both timed runs decode the same frames. Returns the
-    numbers a frame step (`wall_ms` without the profiler, `profiled_wall_ms`,
-    `kernel_ms` of device kernel time, `launches_per_frame`, and `idle`,
-    the device's idle share 1 - kernel time / wall time) and the profile."""
+    slows the host. Both timed runs decode the same frames. A profiler
+    session now and then records no device activity at all: the profiled
+    run is then repeated, `attempts` sessions in all, before this raises.
+    Returns the numbers a frame step (`wall_ms` without the profiler,
+    `profiled_wall_ms`, `kernel_ms` of device kernel time,
+    `launches_per_frame`, and `idle`, the device's idle share 1 - kernel
+    time / wall time) and the profile."""
     run()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    profiled_wall = time.perf_counter() - t0
-    # device-side events only (an aten op and its kernel both carry the
-    # kernel's time in key_averages)
-    kernel_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == DeviceType.CUDA)
+    for _ in range(attempts):
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        profiled_wall = time.perf_counter() - t0
+        # device-side events only (an aten op and its kernel both carry the
+        # kernel's time in key_averages)
+        kernel_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                        if e.device_type == DeviceType.CUDA)
+        if kernel_us > 0:
+            break
+    else:
+        raise RuntimeError(f"torch.profiler recorded no device time in {attempts} sessions")
     launches = sum(e.count for e in prof.key_averages() if e.key in (
         "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
     torch.cuda.synchronize()

@@ -86,7 +86,7 @@ from ..am.mmf import MmfDef, MmfHmm, MmfMixture, MmfState, MmfTransMat
 from ..am.models import AcousticModelSet
 from ..decoder.autotune import autotune_budgets, decode_each, pad_batch
 from ..decoder.core import TorchDecoder, TorchDecoderConfig
-from ..decoder.fused_scan import FusedDecodeScan, why_not_fused
+from ..decoder.fused_scan import device_wave, route_of
 from ..decoder.network import DecoderNetwork
 from . import card_line, wsj_task
 from .editdist import EditDistance
@@ -296,17 +296,23 @@ def default_cache(n_words: int) -> str:
     return os.path.join(wsj_task.ARTIFACT_CACHE, f"_wsj_cache_{name}")
 
 
-def route_of(dec: TorchDecoder):
-    """(route, use_fused) of a decoder: ("frame_step", True) where the
-    kernel covers it, else ("plain loop: <why_not_fused>", False). On a
-    CPU decoder the kernel's route runs its plain version."""
-    why = why_not_fused(dec)
-    return ("frame_step", True) if why is None else (f"plain loop: {why}", False)
-
-
 def score_utterances(scorer, utts, device):
     """One scorer call (one GMM launch on the card) an utterance."""
     return [scorer(torch.as_tensor(f, device=device)) for _, f in utts]
+
+
+def first_and_steady(wave, device):
+    """Run `wave` once, synchronise, then once more on the host clock.
+    Returns (the second wave's carry, the first wave's seconds, the second
+    wave's seconds)."""
+    t0 = time.perf_counter()
+    wave()
+    synchronize(device)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    carry = wave()
+    synchronize(device)
+    return carry, first_s, time.perf_counter() - t0
 
 
 def steady_bench(art, cfg, db, batch_sizes, g_network=None, device="cuda"):
@@ -314,36 +320,19 @@ def steady_bench(art, cfg, db, batch_sizes, g_network=None, device="cuda"):
     (B, T, n_gmms) score batch; each batch size tiles it. Each size runs
     one wave (its seconds are "compile_s"), synchronises, then times a
     second wave, whose own output gives the overflow count, so an
-    uncertified row cannot pass silently. The wave is the decoder's device
-    route with no copy to the host and no traceback: one launch of the
-    frame-step kernel, or the plain frame loop `TorchDecoder.run` where the
-    kernel does not cover the decoder (a G, float64, ...). Returns
-    {B: {"fps", "overflow", "compile_s", "route"}}."""
+    uncertified row cannot pass silently. The wave is `device_wave`: the
+    decoder's device route (the frame-step kernel, or the plain frame loop
+    where the kernel does not cover the decoder: a G, float64, ...).
+    Returns {B: {"fps", "overflow", "compile_s", "route"}}."""
     fast = TorchDecoder(art, dataclasses.replace(cfg, emit_diagnostics=False),
                         device=device, g_network=g_network)
-    route, fused = route_of(fast)
+    route, _ = route_of(fast)
     db = fast.scores_tensor(db)
     B, Tmax = db.shape[0], db.shape[1]
     out = {}
     for Bs in batch_sizes:
         dbs = db[torch.arange(Bs, device=db.device) % B]
-        if fused:
-            fs = FusedDecodeScan(fast, Bs)
-
-            def wave():
-                return fs(dbs.transpose(0, 1).contiguous())[0]
-        else:
-            def wave():
-                return fast.run(dbs)[0]
-
-        t0 = time.perf_counter()
-        wave()
-        synchronize(fast.device)
-        compile_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        carry = wave()
-        synchronize(fast.device)
-        dt = time.perf_counter() - t0
+        carry, compile_s, dt = first_and_steady(device_wave(fast, dbs), fast.device)
         out[Bs] = {"fps": round(Bs * Tmax / dt, 1),
                    "overflow": int(carry["overflow"].sum()),
                    "compile_s": round(compile_s, 3), "route": route}

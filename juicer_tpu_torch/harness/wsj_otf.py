@@ -45,11 +45,12 @@ from ..compile import arpa_grammar
 from ..decoder.artifact import DecoderArtifact
 from ..decoder.autotune import autotune_budgets, decode_each, pad_batch
 from ..decoder.core import TorchDecoder, TorchDecoderConfig
+from ..decoder.fused_scan import route_of
 from ..decoder.network import DecoderNetwork
 from ..decoder.otf import GNetwork
 from . import card_line, wsj_task
-from .wsj_bench import (accuracy, default_cache, ensure_task, oracle, route_of,
-                        score_utterances, steady_bench)
+from .wsj_bench import (accuracy, default_cache, ensure_task, oracle, score_utterances,
+                        steady_bench)
 
 
 def ensure_cl(cache):

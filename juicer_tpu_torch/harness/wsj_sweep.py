@@ -53,9 +53,10 @@ from .. import resolve_device
 from ..decoder.autotune import (BudgetsNotFound, ProbeOutOfScope, autotune_budgets,
                                 decode_each, pad_batch)
 from ..decoder.core import TorchDecoder, TorchDecoderConfig
+from ..decoder.fused_scan import route_of
 from . import card_line, wsj_task
 from .wsj_bench import (accuracy, default_cache, ensure_artifact, ensure_models, ensure_task,
-                        mismatch_models, oracle, route_of, score_utterances, steady_bench)
+                        mismatch_models, oracle, score_utterances, steady_bench)
 
 
 def parse_args(argv=None):

@@ -28,11 +28,12 @@ the tracked `cl.npz` and `clg.npz` (`scripts/wsj_otf.py`'s `ensure_cl`
 and `scripts/wsj_bench.py`'s `ensure_task`), and holds each to its file
 bit for bit. Run as
 
-    python -m juicer_tpu_torch.harness.wsj_task --build 20k
+    python -m juicer_tpu_torch.harness.wsj_task --build 20k [--networks clg] [--out DIR]
 
-it rebuilds CL, then CLG, prints each stage's states, arcs and seconds
-and the peak host RSS, and exits non-zero on a difference, naming the
-array and its first differing index.
+it rebuilds CL, then CLG (or the networks named), prints each stage's
+states, arcs and seconds and the peak host RSS, and exits non-zero on a
+difference, naming the array and its first differing index; with
+`--out`, each network held to its file is written to DIR/<network>.npz.
 """
 
 from __future__ import annotations
@@ -515,13 +516,18 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Rebuild a task's networks with the port's "
                                  "toolchain and hold them to the tracked npz files.")
     ap.add_argument("--build", required=True, help="task name: 2k or 20k")
+    ap.add_argument("--networks", nargs="+", default=["cl", "clg"], choices=("cl", "clg"))
+    ap.add_argument("--out", help="write each network to OUT/<network>.npz")
     args = ap.parse_args(argv)
     t0 = time.perf_counter()
     try:
-        build_task(args.build)
+        out = build_task(args.build, networks=args.networks)
     except RuntimeError as e:
         print(f"[build {args.build}] FAILED: {e}", flush=True)
         return 1
+    if args.out:
+        for which in args.networks:
+            out[which].save_npz(os.path.join(args.out, f"{which}.npz"))
     print(f"[build {args.build}] done in {time.perf_counter() - t0:.1f}s; peak host RSS "
           f"{peak_rss_bytes() / 2**30:.2f} GiB", flush=True)
     return 0

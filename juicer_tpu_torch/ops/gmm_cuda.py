@@ -17,7 +17,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .._cuda_build import load
+from .._cuda_build import LaunchCounter, load
 from ..am.models import FlatGmmParams
 
 NEG = -1e30
@@ -27,14 +27,7 @@ MAX_DIM = 192    # feature sizes the kernel takes (the widest the card tests che
 MAX_COMPS = 32   # components a GMM may have (likewise)
 
 
-class _Counter:
-    """Launch count of the kernel: one per launch, nowhere else."""
-
-    def __init__(self):
-        self.launches = 0
-
-
-counter = _Counter()
+counter = LaunchCounter()
 _lib = None
 
 

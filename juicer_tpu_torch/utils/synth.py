@@ -5,6 +5,9 @@ seed gives the same lexicon, models, network and features. It builds a full toy/
 lexicon over a phone inventory, word-loop grammar, monophone context
 dependency, random diagonal-GMM HMMs, composed CLG, and feature synthesis
 by sampling the generative model (so decodes have a known answer).
+
+`make_models` is the port's copy of the JAX package's test helper
+(`tests/test_decoder.py`), which `scale_bench` uses for its 6,000 GMMs.
 """
 
 from __future__ import annotations
@@ -19,6 +22,39 @@ from ..compile import CDGen, CDPhoneLookup, CDType, GramGen, GramType, LexGen, b
 from ..decoder.artifact import DecoderArtifact
 from ..decoder.network import DecoderNetwork
 from ..lexicon import Lexicon, PhoneSet, Vocabulary
+
+
+def make_models(n_hmms, n_emit=3, dim=4, n_comps=2, seed=0, tee_probs=None) -> AcousticModelSet:
+    """`n_hmms` left-to-right HMMs of `n_emit` emitting states, each state a
+    GMM of `n_comps` equal-weight diagonal components with standard-normal
+    means and variances |N(0, 1)| + 0.5; self-loop and forward probability
+    0.5, and with `tee_probs[h]` > 0 a tee from entry to exit. The random
+    numbers are drawn in the JAX helper's order, so the same seed gives the
+    same parameters."""
+    rng = np.random.default_rng(seed)
+    d = MmfDef()
+    d.global_opts.vec_size = dim
+    n = n_emit + 2
+    for h in range(n_hmms):
+        probs = np.zeros((n, n))
+        probs[0, 1] = 1.0
+        tee = tee_probs[h] if tee_probs else 0.0
+        if tee > 0:
+            probs[0, 1] = 1.0 - tee
+            probs[0, n - 1] = tee
+        for i in range(1, n - 1):
+            probs[i, i] = 0.5
+            probs[i, i + 1] = 0.5
+        states = [
+            MmfState(mixtures=[
+                MmfMixture(1.0 / n_comps, rng.normal(size=dim),
+                           np.abs(rng.normal(size=dim)) + 0.5)
+                for _ in range(n_comps)
+            ])
+            for _ in range(n_emit)
+        ]
+        d.hmms.append(MmfHmm(f"hmm{h}", n, states, MmfTransMat(None, n, probs)))
+    return AcousticModelSet.from_def(d)
 
 
 @dataclass

@@ -1278,3 +1278,159 @@ def test_sweep_rung_past_shared_memory_takes_the_plain_loop(card):
     assert "error" not in row and row["overflow"] == 0
     assert row["route"].startswith("plain loop: ") and "shared memory" in row["route"]
     assert row["bench"]["2"]["route"] == row["route"] and row["bench"]["2"]["overflow"] == 0
+
+
+# ---- the last tools: the probe kernels, scale_bench, profile_step, graft ----
+
+
+def _probe_counts():
+    from juicer_tpu_torch.ops import probe_cuda
+
+    return {k: c.launches for k, c in probe_cuda.counters.items()}
+
+
+@pytest.mark.gpu
+def test_probe_patterns_match_plain(card):
+    """All nine probes of `harness/pallas_probe` on the card: each kernel
+    equals its plain version (exactly for D-I, within 1e-5 relative for
+    A-C), one launch a call of each."""
+    from juicer_tpu_torch.harness import pallas_probe
+
+    before = _probe_counts()
+    records = pallas_probe.run(card)
+    assert len(records) == 9 and all(r["ok"] for r in records), [
+        (r["name"], r["err"]) for r in records if not r["ok"]]
+    after = _probe_counts()
+    # each probe: its first call, one plain-version comparison (no launch)
+    # and two timings of 51 calls each (a warm-up and 50), more where a
+    # profiler session recorded nothing and `device_ms` timed again
+    for name in after:
+        calls = [r["calls"] for r in records if r["kernel"] == name]
+        assert all(c >= 103 for c in calls), (name, calls)
+        assert after[name] - before[name] == sum(calls), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,Kd,N", [(1, 1, 1), (17, 3, 5), (2048, 128, 16), (4099, 64, 40)])
+def test_probe_product_edges(card, R, Kd, N):
+    """Rows past a block's 16, odd depths and widths: within 1e-5 relative
+    (and 1e-6 absolute for sums near 0) of the plain version."""
+    from juicer_tpu_torch.ops import probe_cuda
+
+    rng = np.random.default_rng([R, Kd, N])
+    x = torch.as_tensor(rng.normal(size=(R, Kd)).astype(np.float32), device=card)
+    t = torch.as_tensor(rng.normal(size=(Kd, N)).astype(np.float32), device=card)
+    got = probe_cuda.product(x, t)
+    want = probe_cuda.product_plain(x.double(), t.double())
+    assert ((got.double() - want).abs() <= 1e-5 * want.abs() + 1e-6 * Kd).all()
+
+
+@pytest.mark.gpu
+def test_probe_gather_and_extract_edges(card):
+    """Indices that match no one-hot column give zero rows; any block of
+    rows and columns is copied exactly."""
+    from juicer_tpu_torch.ops import probe_cuda
+
+    rng = np.random.default_rng(3)
+    tab = torch.as_tensor(rng.random((37, 7)).astype(np.float32), device=card)
+    idx = torch.tensor([0.0, 36.0, 2.5, -1.0, 37.0, float("nan"), 5.0] * 40, device=card)
+    assert torch.equal(probe_cuda.gather(idx, tab), probe_cuda.gather_plain(idx, tab))
+    x = torch.as_tensor(rng.random((300, 19)).astype(np.float32), device=card)
+    for args in ((0, 300, 0, 19), (7, 1, 18, 1), (299, 1, 0, 19), (13, 200, 4, 9)):
+        assert torch.equal(probe_cuda.extract(x, *args), probe_cuda.extract_plain(x, *args))
+
+
+@pytest.mark.gpu
+def test_probe_kernels_refuse_bad_input(card):
+    from juicer_tpu_torch.ops import probe_cuda
+
+    x = torch.zeros((8, 4), device=card)
+    with pytest.raises(ValueError, match="float32"):
+        probe_cuda.product(x.double(), torch.zeros((4, 2), device=card, dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        probe_cuda.product(x.t(), torch.zeros((8, 2), device=card))
+    with pytest.raises(ValueError, match="shared memory"):
+        probe_cuda.product(torch.zeros((2, 4096), device=card), torch.zeros((4096, 4),
+                                                                              device=card))
+    with pytest.raises(ValueError, match="not inside"):
+        probe_cuda.extract(x, 4, 5, 0, 4)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        probe_cuda.gather(torch.zeros(4, device=card), torch.zeros((4, 2)))
+
+
+@pytest.fixture(scope="module")
+def scale_small():
+    """`scale_bench`'s network kind at 20,000 arcs with its 2,000 models
+    (6,000 GMMs of 8 components, D=39)."""
+    from juicer_tpu_torch.harness import scale_bench
+
+    _, models, art, _ = scale_bench.build(20_000)
+    return models, art
+
+
+@pytest.mark.gpu
+def test_frame_step_at_6000_gmms_equals_plain(card, scale_small):
+    """K=768 / E=1024 at G=6,000 fits a block (two frames of scores take 48
+    KB of it): the kernel equals the plain loop bit for bit on a B=2 wave
+    of the script's scores; K=1024 / E=1408 does not fit, and
+    `why_not_fused` says so."""
+    from juicer_tpu_torch.harness import scale_bench
+
+    models, art = scale_small
+    dec = TorchDecoder(art, scale_bench.decoder_config(768, 1024), device=card)
+    assert fused_scan.why_not_fused(dec) is None
+    big = TorchDecoder(art, scale_bench.decoder_config(1024, 1408), device=card)
+    assert "shared memory" in fused_scan.why_not_fused(big)
+    sc = dec.scores_tensor(scale_bench.score_batch(2, models.n_gmms, T=60))
+    fs = FusedDecodeScan(dec, 2)
+    got = fs(sc.transpose(0, 1).contiguous())
+    carry, ys, _ = dec.run(sc)
+    assert state_differences(got, (carry, compact_records(ys))) == []
+
+
+@pytest.mark.gpu
+def test_gmm_kernel_at_6000_gmms_matches_plain(card, scale_small):
+    models, _ = scale_small
+    scorer = make_gmm_scorer(models.flat_params(), device=card)
+    x = torch.as_tensor(np.random.default_rng(4).normal(size=(999, 39)).astype(np.float32),
+                        device=card)
+    got = scorer(x)
+    want = gmm_scores_dense(x, scorer.V, scorer.M, scorer.b, scorer.mask)
+    assert got.shape == (999, 6000) and float((got - want).abs().max()) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_profile_step_on_the_card_restores_its_stubs(card):
+    from juicer_tpu_torch.harness import profile_step
+
+    task, dec = profile_step.build(card)
+    sc = dec.scores_tensor(profile_step.score_batch(2, 20, task.models.n_gmms))
+    before = dec.run(sc)[0]["best_final"]["score"]
+    fused_scan.counter.launches = 0
+    out = profile_step.profile(dec, sc, iters=1)
+    assert fused_scan.counter.launches == 2  # the frame_step line: warm-up, one timed
+    assert np.array_equal(out["full"]["best_final"], out["full (frame_step)"]["best_final"])
+    assert torch.equal(dec.run(sc)[0]["best_final"]["score"], before)
+    assert not {"_merge_and_insert", "_expand", "_final_rows", "_best_final"} & set(vars(dec))
+
+
+@pytest.mark.gpu
+def test_graft_entry_on_the_card_equals_the_cpu(card):
+    """`entry`'s step on the card (one launch of each kernel) gives the CPU
+    step's best final within 1e-3; `dryrun_multichip` over two replicas on
+    the card passes its checks."""
+    from juicer_tpu_torch import graft_entry
+    from juicer_tpu_torch.utils.synth import make_synth_task
+
+    fn, _ = graft_entry.entry(card)
+    cpu_fn, _ = graft_entry.entry("cpu")
+    f = make_synth_task(n_words=30, n_phones=16, vec_size=20, seed=0).synth_utterance(
+        ["w3", "w17"], np.random.default_rng(5))[:50]
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    got = float(fn(torch.as_tensor(f, device=card)))
+    assert (gmm_cuda.counter.launches, fused_scan.counter.launches) == (1, 1)
+    want = float(cpu_fn(torch.as_tensor(f)))
+    assert got > -1e29 and abs(got - want) <= 1e-3
+    out = graft_entry.dryrun_multichip(2, device=card, mesh=(card, card))
+    assert len(out["fused"]) == 16 and out["routes"]["fused"] == "frame_step"
