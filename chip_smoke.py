@@ -2349,15 +2349,10 @@ def phase_profile_otf_step(card, dev, pair, phase_done):
 
 
 def probe_bound(rec):
-    """(bound ms, bound_by, library call) of one probe of
-    `harness/pallas_probe` on its own inputs: each input byte the pattern
-    needs read once (for a gather, the table's distinct rows it reads), each
-    output byte written once. The library call is one PyTorch call of the
-    same function: `torch.matmul`, `index_select` after the cast of the
-    float indices, or the slice's `clone`."""
+    """(bound ms, bound_by) of one probe of `harness/pallas_probe` on its
+    own inputs: each input byte the pattern needs read once (for a gather,
+    the table's distinct rows it reads), each output byte written once."""
     import types
-
-    import torch
 
     from juicer_tpu_torch.harness import pallas_probe
 
@@ -2379,18 +2374,15 @@ def probe_bound(rec):
         x, t = args
         nbytes = 4.0 * (x.numel() + t.numel() + x.shape[0] * t.shape[1])
         ops = 2.0 * x.shape[0] * x.shape[1] * t.shape[1]
-        lib = lambda: torch.matmul(x, t)  # noqa: E731
     elif op == "gather":
         idx, tab = args
         nbytes = 4.0 * (idx.numel() + int(idx.unique().numel()) * tab.shape[1]
                         + idx.numel() * tab.shape[1])
-        lib = lambda: torch.index_select(tab, 0, idx.long())  # noqa: E731
     else:
         x, r0, n, c0, m = args
         nbytes = 8.0 * n * m
-        lib = lambda: x[r0:r0 + n, c0:c0 + m].clone()  # noqa: E731
     t_ops, t_bytes = ops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes", lib
+    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes"
 
 
 def phase_pallas_probe(card, dev, phase_done):
@@ -2398,11 +2390,16 @@ def phase_pallas_probe(card, dev, phase_done):
     each kernel equal to its plain version (exactly for D-I, within 1e-5
     relative for A-C); the launches of each of the three kernels counted over
     the tool's run (the probes' first calls and the tool's own timing); per
-    probe the bound and one PyTorch call of the same function
-    (`probe_bound`), all timed as device time by `pallas_probe.device_ms`
-    (the host takes longer to issue a call than these kernels run), each
-    with the timer it took. Returns
-    the kernels line's `probe_patterns` entry."""
+    probe the bound (`probe_bound`) beside the tool's device times a call
+    (the host takes longer to issue a call than these kernels run): the
+    kernel, one PyTorch call of the same function (`pallas_probe.LIBRARY`:
+    `torch.matmul`, `index_select` after the cast of the float indices, the
+    slice's `clone`) and the two yardsticks, the floor (a kernel that does
+    nothing) and one float read and written, all four in one profiler
+    session since a session's device times can read ~2.8x those of the
+    next; the plain version's in a session of its own; each with the timer
+    it took. Each product probe's kernel beside `torch.matmul` on a line of
+    its own. Returns the kernels line's `probe_patterns` entry."""
     from juicer_tpu_torch.harness import pallas_probe
     from juicer_tpu_torch.ops import probe_cuda
 
@@ -2417,20 +2414,26 @@ def phase_pallas_probe(card, dev, phase_done):
                            f"wrapper calls {calls}")
     probes = []
     for r in records:
-        bound, bound_by, lib = probe_bound(r)
-        lib_ms, lib_timer = pallas_probe.device_ms(lib)
-        timers = {"kernel": r["timer"], "plain": r["plain_timer"], "library": lib_timer}
+        bound, bound_by = probe_bound(r)
+        timers = {"kernel, library, yardsticks": r["timer"], "plain": r["plain_timer"]}
         probes.append({"name": r["name"], "kernel": r["kernel"], "max_abs_err": r["err"],
                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": bound,
-                       "bound_by": bound_by, "library_ms": lib_ms, "timers": timers,
-                       "events_ms": r["events_ms"], "plain_events_ms": r["plain_events_ms"]})
+                       "bound_by": bound_by, "library_ms": r["library_ms"],
+                       "floor_ms": r["floor_ms"], "one_float_ms": r["one_float_ms"],
+                       "timers": timers, "events_ms": r["events_ms"],
+                       "plain_events_ms": r["plain_events_ms"]})
         print(f"[pallas probe] {r['name']} ({r['kernel']}): device time a call: kernel "
-              f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f} ms, library {lib_ms:.5f} ms "
-              f"(timers {timers}); "
-              f"bound {bound:.3e} ms "
+              f"{r['ms']:.5f} ms, library {r['library_ms']:.5f} ms, floor {r['floor_ms']:.5f} "
+              f"ms, one float {r['one_float_ms']:.5f} ms (one session); plain "
+              f"{r['plain_ms']:.5f} ms (alone; timers {timers}); bound {bound:.3e} ms "
               f"({bound_by}); a call in a stream (host-issue bound): kernel "
               f"{r['events_ms']:.4f} ms, plain {r['plain_events_ms']:.4f} ms | {card}",
               flush=True)
+    print("[pallas probe] probe_product against torch.matmul, device time a call in one "
+          "session: " + "; ".join(
+              f"{p['name'][0]} {p['ms']:.5f} / {p['library_ms']:.5f} ms "
+              f"({p['ms'] / p['library_ms']:.2f}x)"
+              for p in probes if p["kernel"] == "probe_product") + f" | {card}", flush=True)
     per_probe = {r["name"]: r["calls"] for r in records}
     print(f"[pallas probe] 9 of 9 PASS; launches {launches}, one a wrapper call: {per_probe} "
           f"calls a probe (its first call and the tool's two timings) | {card}", flush=True)
@@ -2443,7 +2446,8 @@ def phase_pallas_probe(card, dev, phase_done):
             # the nine probes one after another (each probe's own is in "probes")
             "ms": sum(p["ms"] for p in probes), "plain_ms": sum(p["plain_ms"] for p in probes),
             "bound_ms": sum(p["bound_ms"] for p in probes), "bound_by": "bytes",
-            "library_ms": sum(p["library_ms"] for p in probes), "probes": probes}
+            "library_ms": sum(p["library_ms"] for p in probes),
+            "floor_ms": sum(p["floor_ms"] for p in probes), "probes": probes}
 
 
 def phase_graft_entry(card, dev, phase_done):

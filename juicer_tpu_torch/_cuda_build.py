@@ -56,8 +56,7 @@ def _source(name: str) -> tuple[str, list[str]]:
     return os.path.join(CSRC, f"{src}.cu"), [*EXTRA_FLAGS.get(src, ()), *flags]
 
 
-def _cmd(name: str, out: str) -> list[str]:
-    src, flags = _source(name)
+def _cmd(src: str, flags: list[str], out: str) -> list[str]:
     return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
             *flags, "-o", out, src]
@@ -82,7 +81,7 @@ def build_all(names=SOURCES) -> dict[str, str]:
         if _stale(name):
             tmp = f"{_lib_path(name)}.{os.getpid()}.tmp"
             procs[name] = (tmp, subprocess.Popen(
-                _cmd(name, tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                _cmd(*_source(name), tmp), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
     reports = {}
     failed = []

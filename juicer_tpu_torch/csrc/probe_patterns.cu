@@ -6,28 +6,69 @@
 // probes compute, not how Mosaic computes it:
 //
 //   probe_product  (probes A, B, C) out (R, N) = x (R, Kd) @ t (Kd, N) in
-//                  full float32: fmaf over k in ascending order on the CUDA
-//                  cores, no TF32 (as the GMM kernel, for the same reason:
-//                  a product in fewer bits moves Viterbi ties). A, B and C
-//                  differ only in the output's layout (2-D, reshaped to 3-D,
-//                  a batched dot_general); the caller views the output.
+//                  full float32: fmaf on the CUDA cores, no TF32 (as the GMM
+//                  kernel, for the same reason: a product in fewer bits moves
+//                  Viterbi ties). A, B and C differ only in the output's
+//                  layout (2-D, reshaped to 3-D, a batched dot_general); the
+//                  caller views the output.
 //   probe_gather   (probes E, I) out[r, :] = tab[int(idx[r]), :] where
 //                  idx[r] is an integer-valued float in [0, n_rows), else a
 //                  row of zeros: what the one-hot (== iota) matmul computes.
-//                  The one-hot product is the TPU's way to gather; here a
-//                  thread reads the row by index. I's 512-row chunks are a
-//                  Mosaic workaround and are not carried over.
+//                  The one-hot product is the TPU's way to gather; here the
+//                  row is read by index. I's 512-row chunks are a Mosaic
+//                  workaround and are not carried over.
 //   probe_extract  (probes D, F, G, H) a strided copy: rows row0..row0+n_rows
 //                  and columns col0..col0+n_cols of a row-major matrix of
 //                  `row_stride` columns (a column, or a range of rows).
+//   probe_empty    a kernel that does nothing: the yardstick of the card's
+//                  fixed cost for a launch, timed beside every probe.
+//   probe_touch    one thread reads one float and writes it: that cost and
+//                  one trip to memory with its write-back, the shortest
+//                  chain a kernel that reads its input can have. Timed
+//                  beside every probe too; like probe_empty it replaces
+//                  nothing and lies on no path.
 //
-// What bounds them on an H100: bytes. The product does 2*R*Kd*N operations
-// on 4*(R*Kd + Kd*N + R*N) bytes (16 operations a float of x at N=16), far
-// below the ~20 operations a byte where the float32 CUDA cores would bound
-// it; the gather and the copy do none. At the probe's sizes (1 MB at most)
-// every kernel is a few microseconds of launch and latency: each block
-// stages what it reads once (the product: the whole of t and its 16 rows of
-// x in shared memory) and every thread writes neighbouring addresses.
+// What bounds them on an H100: bytes, and at the probe's sizes (1.2 MB at
+// most) the latency of a trip to memory on top of the fixed cost of a
+// launch (`probe_empty`'s time). The product does 2*R*Kd*N operations on
+// 4*(R*Kd + Kd*N + R*N) bytes (16 operations a float of x at N=16): 0.35 us
+// of bytes at the probe's (2048, 128) x (128, 16), 0.13 us of float32 FMA
+// issue. Kernels this small wait on latency, so the designs cut dependent
+// steps and the L2 traffic that grows with the grid:
+//
+// probe_product:
+//   - a block is 4 warps and takes 32 rows a pass (64 blocks at R=2048:
+//     more blocks stage t more often and read slower); 8 lanes of a warp
+//     share 2 rows, lane j taking k = j, j+8, j+16, ...: each x load is one
+//     32-byte sector a row, needs no alignment and no staging, and the
+//     first pass's are issued before t is staged;
+//   - t is staged once a block, zero-padded to round_up(Kd, 8) rows and
+//     round_up(N, 16) + 4 columns, by 16-byte loads where N % 4 == 0 and t
+//     is 16-byte aligned, by floats otherwise; a thread issues 8 loads
+//     before it stores any (cp.async staging measured slower). The row
+//     stride is an odd number of 16-byte units, so the 8 lanes of a row
+//     read 8 distinct bank groups, and the 4 row groups of a warp share
+//     each read (a broadcast);
+//   - a lane keeps 16 independent partial sums a row (one an output
+//     column), 8 FMAs a 16-byte shared read; passes over k that end inside
+//     Kd run without a guard, so their shared reads can be issued ahead.
+//     The 8 lanes of a row then halve their sums three times by shuffles (a
+//     reduce-scatter: 8 + 4 + 2 shuffles, not 16 full reductions), leaving
+//     lane j columns 2j and 2j+1;
+//   - N > 16 is taken 16 columns a pass, Kd > 128 128 a pass. The sum runs
+//     in another order than ascending k; the arithmetic stays float32 fmaf.
+//   Shared memory: 4 * round_up(Kd, 8) * (round_up(N, 16) + 4) bytes
+//   (10,240 at the probe); above 48 KB the block opts in, up to the 227 KB
+//   an H100 block may take.
+//
+// probe_gather: 4 lanes take a row; they read idx[r] at one address (one
+// request for a warp's 8 rows; handing it over by a shuffle measured
+// slower) and test it; the row is copied as 16-byte float4 where
+// W % 4 == 0 and both pointers are 16-byte aligned, as floats otherwise.
+// No 64-bit division. What bounds it is what is left, the dependent chain
+// index -> row -> store: two trips to memory on top of writing the output.
+// Staging a small table in shared memory while the index is in flight, to
+// cut one trip, measured no faster and was not kept.
 //
 // Plain C interface (built by `_cuda_build` with nvcc for sm_90a, loaded
 // with ctypes by `ops/probe_cuda.py`): each entry point launches on the
@@ -36,47 +77,189 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kProductRows = 16;  // rows of x a product block takes
 constexpr int kMaxBlocks = 4096;  // grid of the grid-stride kernels
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-probe_product_kernel(const float* __restrict__ x, const float* __restrict__ t,
-                     float* __restrict__ out, int R, int Kd, int N) {
-  extern __shared__ float smem[];
-  float* ts = smem;           // Kd * N: all of t
-  float* xs = smem + Kd * N;  // kProductRows * Kd: this block's rows of x
-  const int r0 = blockIdx.x * kProductRows;
-  const int rows = min(kProductRows, R - r0);
-  for (int i = threadIdx.x; i < Kd * N; i += blockDim.x) ts[i] = t[i];
-  const float* xb = x + (size_t)r0 * Kd;
-  for (int i = threadIdx.x; i < rows * Kd; i += blockDim.x) xs[i] = xb[i];
-  __syncthreads();
-  for (int o = threadIdx.x; o < rows * N; o += blockDim.x) {
-    const int r = o / N;
-    const int c = o - r * N;
-    const float* xr = xs + r * Kd;
-    float acc = 0.0f;
-    for (int k = 0; k < Kd; ++k) acc = fmaf(xr[k], ts[k * N + c], acc);
-    out[(size_t)(r0 + r) * N + c] = acc;
+// product
+constexpr int kProductWarps = 4;
+constexpr int kProductThreads = 32 * kProductWarps;
+constexpr int kRowLanes = 8;   // lanes that share a row of x
+constexpr int kGroupRows = 2;  // rows a group of kRowLanes lanes takes a pass
+constexpr int kProductRows = kProductWarps * 32 / kRowLanes * kGroupRows;  // a block a pass
+constexpr int kTileN = 16;     // output columns a pass
+constexpr int kStepsK = 16;    // k values a lane takes a pass
+constexpr int kTileK = kRowLanes * kStepsK;  // k a pass: 128
+
+// gather
+constexpr int kGatherThreads = 128;
+constexpr int kGatherLanes = 4;  // lanes a row
+
+// extract
+constexpr int kThreads = 256;
+
+__host__ __device__ inline int product_stride(int N) {
+  // floats a staged row of t: whole 16-column tiles and 4 more, an odd
+  // number of 16-byte units
+  return (N + kTileN - 1) / kTileN * kTileN + 4;
+}
+
+__host__ __device__ inline int product_k_rows(int Kd) {
+  return (Kd + kRowLanes - 1) / kRowLanes * kRowLanes;
+}
+
+size_t product_smem(int Kd, int N) {
+  return sizeof(float) * (size_t)product_k_rows(Kd) * (size_t)product_stride(N);
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// Stage t into shared memory, zero-padded to kp rows of sp floats, by
+// elements of type T: float4 where N % 4 == 0 and t is 16-byte aligned,
+// float otherwise. A thread issues 8 loads before it stores any.
+template <typename T>
+__device__ __forceinline__ void stage_t(T* __restrict__ ts, const float* __restrict__ t, int Kd,
+                                        int N, int kp, int sp) {
+  constexpr int kWidth = sizeof(T) / sizeof(float);
+  constexpr int kChunk = 8;
+  const int n = N / kWidth, s = sp / kWidth, total = kp * s;
+  for (int q0 = threadIdx.x; q0 < total; q0 += kProductThreads * kChunk) {
+    T v[kChunk];
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      const int q = q0 + c * kProductThreads, k = q / s, u = q - k * s;
+      v[c] = q < total && k < Kd && u < n
+                 ? __ldg(reinterpret_cast<const T*>(t + (size_t)k * N) + u)
+                 : T{};
+    }
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c)
+      if (q0 + c * kProductThreads < total) ts[q0 + c * kProductThreads] = v[c];
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-probe_gather_kernel(const float* __restrict__ idx, const float* __restrict__ tab,
-                    float* __restrict__ out, int R, int n_rows, int W) {
-  const long long n = (long long)R * W;
-  for (long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x; o < n;
-       o += (long long)gridDim.x * blockDim.x) {
-    const int r = (int)(o / W);
-    const int c = (int)(o - (long long)r * W);
-    const float v = idx[r];
-    float val = 0.0f;
-    // a NaN fails every comparison, as it matches no one-hot column
-    if (v >= 0.0f && v < (float)n_rows && v == floorf(v)) val = tab[(size_t)(int)v * W + c];
-    out[o] = val;
+// One step of the reduce-scatter: the lanes `off` apart swap halves of
+// their kN sums; each keeps the half its bit `upper` names, summed.
+template <int kN>
+__device__ __forceinline__ void halve(float* v, int off, bool upper) {
+#pragma unroll
+  for (int q = 0; q < kN / 2; ++q) {
+    const float send = upper ? v[q] : v[q + kN / 2];
+    const float keep = upper ? v[q + kN / 2] : v[q];
+    v[q] = keep + __shfl_xor_sync(kFull, send, off);
+  }
+}
+
+// The FMAs of one pass over k (k0..k0+127) for kGroupRows rows: t's rows
+// k0 + j + 8i from shared memory, 16 columns from c0. kGuard: the pass runs
+// past Kd, and the steps beyond it are skipped (the same in the whole block).
+template <bool kGuard>
+__device__ __forceinline__ void product_pass(const float* ts, int sp, int k0, int Kd, int j,
+                                             int c0, const float (&xk)[kGroupRows][kStepsK],
+                                             float (&acc)[kGroupRows][kTileN]) {
+#pragma unroll
+  for (int i = 0; i < kStepsK; ++i) {
+    if (kGuard && k0 + kRowLanes * i >= Kd) break;
+    const float4* tr =
+        reinterpret_cast<const float4*>(ts + (size_t)(k0 + j + kRowLanes * i) * sp + c0);
+#pragma unroll
+    for (int u = 0; u < kTileN / 4; ++u) {
+      const float4 tv = tr[u];
+#pragma unroll
+      for (int m = 0; m < kGroupRows; ++m) {
+        acc[m][4 * u + 0] = fmaf(xk[m][i], tv.x, acc[m][4 * u + 0]);
+        acc[m][4 * u + 1] = fmaf(xk[m][i], tv.y, acc[m][4 * u + 1]);
+        acc[m][4 * u + 2] = fmaf(xk[m][i], tv.z, acc[m][4 * u + 2]);
+        acc[m][4 * u + 3] = fmaf(xk[m][i], tv.w, acc[m][4 * u + 3]);
+      }
+    }
+  }
+}
+
+template <bool kVecT>
+__global__ void __launch_bounds__(kProductThreads)
+probe_product_kernel(const float* __restrict__ x, const float* __restrict__ t,
+                     float* __restrict__ out, int R, int Kd, int N) {
+  static_assert(kRowLanes == 8 && kTileN == 16, "the reduce-scatter below halves 16 by 8 lanes");
+  extern __shared__ float4 ts4[];
+  const float* ts = reinterpret_cast<const float*>(ts4);
+  const int sp = product_stride(N);
+  const int kp = product_k_rows(Kd);
+  bool staged = false;  // the same in every thread of the block
+  const int lane = threadIdx.x & 31;
+  const int j = lane & (kRowLanes - 1);
+  // this lane group's first row in a block's pass
+  const int row = ((threadIdx.x >> 5) * (32 / kRowLanes) + lane / kRowLanes) * kGroupRows;
+  for (int r0 = blockIdx.x * kProductRows; r0 < R; r0 += gridDim.x * kProductRows) {
+    for (int c0 = 0; c0 < N; c0 += kTileN) {
+      float acc[kGroupRows][kTileN] = {};
+      for (int k0 = 0; k0 < Kd; k0 += kTileK) {
+        float xk[kGroupRows][kStepsK];
+#pragma unroll
+        for (int m = 0; m < kGroupRows; ++m) {
+          const int r = r0 + row + m;
+#pragma unroll
+          for (int i = 0; i < kStepsK; ++i) {
+            const int k = k0 + j + kRowLanes * i;
+            xk[m][i] = (r < R && k < Kd) ? x[(size_t)r * Kd + k] : 0.0f;
+          }
+        }
+        if (!staged) {  // the first pass's x loads are in flight while t is staged
+          if (kVecT) stage_t(ts4, t, Kd, N, kp, sp);
+          else stage_t(reinterpret_cast<float*>(ts4), t, Kd, N, kp, sp);
+          __syncthreads();
+          staged = true;
+        }
+        if (k0 + kTileK <= Kd) product_pass<false>(ts, sp, k0, Kd, j, c0, xk, acc);
+        else product_pass<true>(ts, sp, k0, Kd, j, c0, xk, acc);
+      }
+#pragma unroll
+      for (int m = 0; m < kGroupRows; ++m) {
+        halve<16>(acc[m], 4, j & 4);
+        halve<8>(acc[m], 2, j & 2);
+        halve<4>(acc[m], 1, j & 1);
+        // lane j now holds columns c0 + 2j and c0 + 2j + 1 of row r
+        const int r = r0 + row + m, c = c0 + 2 * j;
+        if (r < R && c < N) {
+          out[(size_t)r * N + c] = acc[m][0];
+          if (c + 1 < N) out[(size_t)r * N + c + 1] = acc[m][1];
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kGatherThreads)
+probe_gather_kernel(const float* __restrict__ idx, const T* __restrict__ tab,
+                    T* __restrict__ out, int R, int n_rows, int w) {
+  constexpr int kRowsPerWarp = 32 / kGatherLanes;
+  const int lane = threadIdx.x & 31;
+  const int j = lane & (kGatherLanes - 1);
+  const int warp = (blockIdx.x * kGatherThreads + threadIdx.x) >> 5;
+  const int warps = gridDim.x * (kGatherThreads / 32);
+  for (int r0 = warp * kRowsPerWarp; r0 < R; r0 += warps * kRowsPerWarp) {
+    const int r = r0 + lane / kGatherLanes;
+    // the 4 lanes of a row read one address: one request for the warp's
+    // 8 indices
+    int src = -1;
+    if (r < R) {
+      const float v = idx[r];
+      // a NaN fails every comparison, as it matches no one-hot column
+      if (v >= 0.0f && v < (float)n_rows && v == floorf(v)) src = (int)v;
+    }
+    if (r < R) {
+      T* o = out + (size_t)r * w;
+      if (src >= 0) {
+        const T* s = tab + (size_t)src * w;
+        for (int c = j; c < w; c += kGatherLanes) o[c] = s[c];
+      } else {
+        for (int c = j; c < w; c += kGatherLanes) o[c] = T{};
+      }
+    }
   }
 }
 
@@ -92,35 +275,67 @@ probe_extract_kernel(const float* __restrict__ x, float* __restrict__ out, int n
   }
 }
 
-int grid_of(long long n) {
-  long long blocks = (n + kThreads - 1) / kThreads;
+__global__ void probe_empty_kernel() {}
+
+__global__ void probe_touch_kernel(const float* __restrict__ src, float* __restrict__ dst) {
+  if (threadIdx.x == 0) dst[0] = src[0];
+}
+
+int blocks_of(long long items, int per_block) {
+  const long long blocks = (items + per_block - 1) / per_block;
   return (int)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
+}
+
+template <bool kVecT>
+int launch_product(const float* x, const float* t, float* out, int R, int Kd, int N,
+                   cudaStream_t stream) {
+  // the opt-in to more than 48 KB is set once per instantiation, device and
+  // size
+  constexpr int kMaxDevices = 64;
+  static size_t allowed_on[kMaxDevices];
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= kMaxDevices)
+    return (int)cudaErrorInvalidDevice;
+  const size_t smem = product_smem(Kd, N);
+  size_t& allowed = allowed_on[device];
+  if (smem > 48 * 1024 && smem > allowed) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        probe_product_kernel<kVecT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (rc != cudaSuccess) return (int)rc;
+    allowed = smem;
+  }
+  probe_product_kernel<kVecT><<<blocks_of(R, kProductRows), kProductThreads, smem, stream>>>(
+      x, t, out, R, Kd, N);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// shared memory of a product block; the wrapper keeps it within the 48 KB a
-// block takes without an opt-in
-long long jtpu_probe_product_smem_bytes(int Kd, int N) {
-  return (long long)sizeof(float) * ((long long)Kd * N + (long long)kProductRows * Kd);
-}
+// shared memory of a product block (the wrapper refuses what an H100 block
+// cannot take)
+long long jtpu_probe_product_smem_bytes(int Kd, int N) { return (long long)product_smem(Kd, N); }
 
 int jtpu_probe_product(const float* x, const float* t, float* out, int R, int Kd, int N,
                        void* stream) {
   if (R <= 0 || Kd <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)jtpu_probe_product_smem_bytes(Kd, N);
-  const int blocks = (R + kProductRows - 1) / kProductRows;
-  probe_product_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(x, t, out, R, Kd, N);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  return N % 4 == 0 && aligned16(t) ? launch_product<true>(x, t, out, R, Kd, N, s)
+                                    : launch_product<false>(x, t, out, R, Kd, N, s);
 }
 
 int jtpu_probe_gather(const float* idx, const float* tab, float* out, int R, int n_rows, int W,
                       void* stream) {
   if (R <= 0 || n_rows <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  probe_gather_kernel<<<grid_of((long long)R * W), kThreads, 0, (cudaStream_t)stream>>>(
-      idx, tab, out, R, n_rows, W);
+  const int blocks = blocks_of(R, kGatherThreads / kGatherLanes);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (W % 4 == 0 && aligned16(tab) && aligned16(out))
+    probe_gather_kernel<float4><<<blocks, kGatherThreads, 0, s>>>(
+        idx, reinterpret_cast<const float4*>(tab), reinterpret_cast<float4*>(out), R, n_rows,
+        W / 4);
+  else
+    probe_gather_kernel<float><<<blocks, kGatherThreads, 0, s>>>(idx, tab, out, R, n_rows, W);
   return (int)cudaGetLastError();
 }
 
@@ -128,8 +343,18 @@ int jtpu_probe_extract(const float* x, float* out, int n_rows, int row0, int row
                        int col0, int n_cols, void* stream) {
   if (n_rows <= 0 || n_cols <= 0 || row0 < 0 || col0 < 0 || col0 + n_cols > row_stride)
     return (int)cudaErrorInvalidValue;
-  probe_extract_kernel<<<grid_of((long long)n_rows * n_cols), kThreads, 0,
+  probe_extract_kernel<<<blocks_of((long long)n_rows * n_cols, kThreads), kThreads, 0,
                          (cudaStream_t)stream>>>(x, out, n_rows, row0, row_stride, col0, n_cols);
+  return (int)cudaGetLastError();
+}
+
+int jtpu_probe_empty(void* stream) {
+  probe_empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+int jtpu_probe_touch(const float* src, float* dst, void* stream) {
+  probe_touch_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(src, dst);
   return (int)cudaGetLastError();
 }
 

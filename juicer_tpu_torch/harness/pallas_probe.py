@@ -21,13 +21,19 @@ each pattern runs through the hand-written kernels of
 One line a probe: PASS or FAIL (the kernel against its plain PyTorch
 version: exactly for D-I, within 1e-5 relative for A-C, whose sums run in
 another order), the seconds of the first call (the kernel library's nvcc
-build included on a cold start), the kernel's and the plain version's
-device time a call (the CUDA kernels' own time under `torch.profiler`,
-or, where a profiler session records no device activity three times,
-CUDA events around calls queued behind a spin kernel; the line names the
-timer) and their time a call in a stream of calls by CUDA events (which at
-these sizes is the host's time to issue a call), and `sum` of the
-output. Unlike the JAX tool, it exits 1 if any probe fails.
+build included on a cold start), device times a call (the CUDA kernels'
+own time under `torch.profiler`, or, where a profiler session records no
+device activity three times, CUDA events around calls queued behind a spin
+kernel; the line names the timer): the kernel's, one PyTorch call's of the
+same function (`LIBRARY`), and two yardsticks, the floor (a kernel that
+does nothing, `probe_cuda.empty`: no kernel of the card takes less) and
+one float read and written (`probe_cuda.touch`: the floor and one trip to
+memory), all four in one profiler session (`device_ms_split`), since a
+session's small-kernel times can read ~2.8x those of the next; the plain
+version's device time in a session of its own; their time a call in a
+stream of calls by CUDA events (which at these sizes is the host's time to
+issue a call), and `sum` of the output. Unlike the JAX tool, it exits 1 if
+any probe fails.
 
 Run as
 
@@ -61,6 +67,13 @@ KERNEL = types.SimpleNamespace(product=probe_cuda.product, gather=probe_cuda.gat
 PLAIN = types.SimpleNamespace(product=probe_cuda.product_plain,
                               gather=probe_cuda.gather_plain,
                               extract=probe_cuda.extract_plain)
+# one PyTorch call of each function (the gather's indices cast first): timed
+# beside the kernels, used nowhere else
+LIBRARY = types.SimpleNamespace(
+    product=torch.matmul,
+    gather=lambda idx, tab: torch.index_select(tab, 0, idx.long()),
+    extract=lambda x, row0, n_rows, col0, n_cols: x[row0:row0 + n_rows,
+                                                    col0:col0 + n_cols].clone())
 
 
 def inputs(device, seed=0) -> dict:
@@ -153,37 +166,70 @@ def queued_ms(fn, iters=50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=50, attempts=3) -> tuple[float, str]:
-    """(mean ms, timer) of the CUDA kernels that fn() runs over `iters`
-    calls after a warm-up: by `torch.profiler`, the kernels' own time with
-    the host's time to issue each call left out (timer "profiler"). A
-    profiler session now and then records no device activity at all; after
-    `attempts` such sessions the calls are timed by `queued_ms` instead
-    (timer "queued events": the gaps between kernels included, so no less
-    than the profiler's time)."""
+# The card's kernel names: the probe kernels and the yardsticks' (all from
+# `csrc/probe_patterns.cu`)
+PROBE_KERNEL_NAMES = ("probe_product_kernel", "probe_gather_kernel", "probe_extract_kernel")
+
+
+def is_floor(name: str) -> bool:
+    return "probe_empty_kernel" in name
+
+
+def is_touch(name: str) -> bool:
+    return "probe_touch_kernel" in name
+
+
+def is_probe(name: str) -> bool:
+    return any(k in name for k in PROBE_KERNEL_NAMES)
+
+
+def any_kernel(name: str) -> bool:
+    return True
+
+
+def device_ms_split(parts: dict, iters=50, attempts=3) -> tuple[dict, str]:
+    """({label: mean ms a call}, timer) of several functions timed in one
+    `torch.profiler` session: `parts` is an ordered {label: (fn, owns)};
+    each of `iters` rounds (after a warm-up) calls every fn in turn, and a
+    CUDA kernel counts for the first label whose owns(kernel name) holds
+    (the last part's owns should take any name). On the card, small
+    kernels read up to ~2.8x slower in some profiler sessions than in
+    others, every kernel of a session alike; so times that are compared
+    with each other are taken in one session. After `attempts` sessions
+    with no device activity each part is timed alone by `queued_ms`
+    (timer "queued events")."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    def round_():
+        for fn, _ in parts.values():
+            fn()
+
+    round_()
     torch.cuda.synchronize()
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
-                fn()
+                round_()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / iters / 1e3, "profiler"
-    return queued_ms(fn, iters), "queued events"
+        us = dict.fromkeys(parts, 0.0)
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                label = next(k for k, (_, owns) in parts.items() if owns(e.name))
+                us[label] += e.time_range.elapsed_us()
+        if sum(us.values()) > 0:
+            return {k: v / iters / 1e3 for k, v in us.items()}, "profiler"
+    return {k: queued_ms(fn, iters) for k, (fn, _) in parts.items()}, "queued events"
 
 
 def run(device="cuda", which="all", card="") -> list[dict]:
     """Every probe (or those starting with `which`), one line each.
     Returns one record a probe: {"name", "kernel", "calls" (of the kernel's
     wrapper: one launch each on the card), "ok", "err", "first_s",
-    "ms", "plain_ms" (device time a call), "timer", "plain_timer" (how
-    `device_ms` took each), "events_ms", "plain_events_ms"
+    "ms", "library_ms", "floor_ms", "one_float_ms" (device time a call,
+    taken together by `device_ms_split`; the yardsticks are
+    `probe_cuda.empty` and `probe_cuda.touch`), "timer" (how), "plain_ms",
+    "plain_timer" (the plain version alone), "events_ms", "plain_events_ms"
     (a call in a stream of calls), "sum", "inputs"} (times None on the
     CPU)."""
     device = resolve_device(device)
@@ -205,21 +251,31 @@ def run(device="cuda", which="all", card="") -> list[dict]:
             torch.cuda.synchronize(device)
         first_s = time.perf_counter() - t0
         ok, err = agree(out, fn(PLAIN, inp), exact)
-        ms = plain_ms = events_ms = plain_events_ms = timer = plain_timer = None
+        t = dict.fromkeys(("kernel", "library", "floor", "one float"))
+        plain_ms = events_ms = plain_events_ms = timer = plain_timer = None
         if device.type == "cuda":
-            (ms, timer), (plain_ms, plain_timer) = (device_ms(kernel_call),
-                                                    device_ms(lambda: fn(PLAIN, inp)))
+            src, dst = torch.zeros(1, device=device), torch.empty(1, device=device)
+            t, timer = device_ms_split({
+                "floor": (lambda: probe_cuda.empty(device), is_floor),
+                "one float": (lambda: probe_cuda.touch(src, dst), is_touch),
+                "kernel": (kernel_call, is_probe),
+                "library": (lambda fn=fn: fn(LIBRARY, inp), any_kernel)})
+            plain, plain_timer = device_ms_split({
+                "plain": (lambda fn=fn: fn(PLAIN, inp), any_kernel)})
+            plain_ms = plain["plain"]
             events_ms = cuda_ms(kernel_call)
             plain_events_ms = cuda_ms(lambda: fn(PLAIN, inp))
-        rec = dict(name=name, kernel=kernel, calls=calls, ok=ok, err=err, first_s=first_s, ms=ms,
-                   plain_ms=plain_ms, timer=timer, plain_timer=plain_timer,
-                   events_ms=events_ms, plain_events_ms=plain_events_ms,
-                   sum=float(out.sum()), inputs=inp)
+        rec = dict(name=name, kernel=kernel, calls=calls, ok=ok, err=err, first_s=first_s,
+                   ms=t["kernel"], library_ms=t["library"], floor_ms=t["floor"],
+                   one_float_ms=t["one float"], timer=timer, plain_ms=plain_ms,
+                   plain_timer=plain_timer, events_ms=events_ms,
+                   plain_events_ms=plain_events_ms, sum=float(out.sum()), inputs=inp)
         records.append(rec)
-        timing = (f"kernel {ms:.4f} ms ({timer}), plain {plain_ms:.4f} ms ({plain_timer}) on "
-                  f"the device; "
-                  f"{events_ms:.4f} / {plain_events_ms:.4f} ms a call in a stream"
-                  if ms is not None else "plain version on the CPU")
+        timing = (f"kernel {rec['ms']:.5f} ms, library {rec['library_ms']:.5f} ms, floor "
+                  f"{rec['floor_ms']:.5f} ms, one float {rec['one_float_ms']:.5f} ms on the "
+                  f"device ({timer}, one session); plain {plain_ms:.5f} ms ({plain_timer}, "
+                  f"alone); {events_ms:.4f} / {plain_events_ms:.4f} ms a call in a stream"
+                  if timer is not None else "plain version on the CPU")
         print(f"{'PASS' if ok else 'FAIL'} {name}: {first_s:.1f}s ({kernel}, max |diff| "
               f"{err:.2e}, {'exact' if exact else f'rtol {PRODUCT_RTOL}'}), {timing}, "
               f"sum={rec['sum']:.1f} | {card}", flush=True)

@@ -9,6 +9,9 @@ column or a range of rows). Each public function launches its kernel for
 CUDA tensors (or raises on a tensor it does not take) and runs its plain
 PyTorch version, `*_plain` beside it, for CPU tensors. Each kernel counts
 its launches in `counters[name].launches`, one a launch and nowhere else.
+Two yardsticks lie on no path and are not counted: `empty` launches a
+kernel that does nothing (the card's fixed cost for a launch), `touch` one
+that reads a float and writes it (that cost and one trip to memory).
 """
 
 from __future__ import annotations
@@ -20,8 +23,11 @@ import torch
 from .._cuda_build import LaunchCounter, load
 
 KERNELS = ("probe_product", "probe_gather", "probe_extract")
-# a product block stages t and its rows of x in static-size shared memory
-PRODUCT_SMEM_LIMIT = 48 * 1024
+# A product block stages all of t (`jtpu_probe_product_smem_bytes` gives its
+# layout's size); above 48 KB it opts in, up to the 227 KB an H100 block may
+# take. Every shape the first kernel took (t and 16 rows of x within 48 KB)
+# fits.
+PRODUCT_SMEM_LIMIT = 227 * 1024
 
 
 counters = {name: LaunchCounter() for name in KERNELS}
@@ -39,6 +45,10 @@ def _get_lib():
         lib.jtpu_probe_gather.argtypes = [p, p, p, i, i, i, p]
         lib.jtpu_probe_extract.restype = i
         lib.jtpu_probe_extract.argtypes = [p, p, i, i, i, i, i, p]
+        lib.jtpu_probe_empty.restype = i
+        lib.jtpu_probe_empty.argtypes = [p]
+        lib.jtpu_probe_touch.restype = i
+        lib.jtpu_probe_touch.argtypes = [p, p, p]
         lib.jtpu_probe_product_smem_bytes.restype = ctypes.c_longlong
         lib.jtpu_probe_product_smem_bytes.argtypes = [i, i]
         _lib = lib
@@ -59,14 +69,39 @@ def _check(kernel, **tensors):
         dev = t.device
 
 
-def _launch(kernel, device, fn, *args):
-    """Call the library's entry point on the current stream of `device`
-    and count the launch."""
+def _call(kernel, device, fn, *args):
+    """Call the library's entry point on the current stream of `device`."""
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{kernel}: launch failed (cudaError {rc})")
+
+
+def _launch(kernel, device, fn, *args):
+    """`_call`, and count the launch."""
+    _call(kernel, device, fn, *args)
     counters[kernel].launches += 1
+
+
+def empty(device) -> None:
+    """Launch the kernel that does nothing on the current stream of `device`
+    (a CUDA device): the floor under every probe's device time. Not counted,
+    like `touch`: they lie on no path."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"probe_empty: {device} is not a CUDA device")
+    _call("probe_empty", device, _get_lib().jtpu_probe_empty)
+
+
+def touch(src: torch.Tensor, dst: torch.Tensor) -> None:
+    """Launch the kernel that reads `src`'s first float and writes it to
+    `dst`'s first: the floor plus one trip to memory and its write-back,
+    the height of the shortest chain a probe kernel can have."""
+    _check("probe_touch", src=src, dst=dst)
+    if not (src.numel() and dst.numel()):
+        raise ValueError("probe_touch: an empty tensor")
+    _call("probe_touch", src.device, _get_lib().jtpu_probe_touch, src.data_ptr(),
+          dst.data_ptr())
 
 
 # ---- product: probes A, B, C ------------------------------------------------

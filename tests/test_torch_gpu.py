@@ -1303,7 +1303,7 @@ def test_probe_patterns_match_plain(card):
     after = _probe_counts()
     # each probe: its first call, one plain-version comparison (no launch)
     # and two timings of 51 calls each (a warm-up and 50), more where a
-    # profiler session recorded nothing and `device_ms` timed again
+    # profiler session recorded nothing and `device_ms_split` timed again
     for name in after:
         calls = [r["calls"] for r in records if r["kernel"] == name]
         assert all(c >= 103 for c in calls), (name, calls)
@@ -1356,6 +1356,116 @@ def test_probe_kernels_refuse_bad_input(card):
         probe_cuda.extract(x, 4, 5, 0, 4)
     with pytest.raises(ValueError, match="not a CUDA device"):
         probe_cuda.gather(torch.zeros(4, device=card), torch.zeros((4, 2)))
+
+
+def _shifted(a, card, by):
+    """The numpy array `a` on the card as a contiguous float32 view that
+    starts `by` floats into its buffer (by=1: data_ptr() not 16-byte
+    aligned)."""
+    buf = torch.empty(a.size + by, dtype=torch.float32, device=card)
+    view = buf[by:].view(a.shape)
+    view.copy_(torch.as_tensor(a.astype(np.float32)))
+    assert view.is_contiguous() and (view.data_ptr() % 16 == 0) == (by % 4 == 0)
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,Kd,N,x_by,t_by", [
+    (2048, 128, 16, 1, 0), (2048, 128, 16, 0, 1), (2048, 128, 16, 3, 2),
+    (33, 130, 16, 0, 0), (29, 6, 18, 0, 0), (1000, 129, 7, 0, 0), (15, 128, 33, 0, 3),
+    (17, 257, 12, 1, 0), (100, 5, 4, 0, 0),
+    (33, 700, 1, 0, 0)])  # 56,320 bytes of shared memory: the block opts in past 48 KB
+def test_probe_product_paths(card, R, Kd, N, x_by, t_by):
+    """The product on inputs that start off a 16-byte boundary (t's rows
+    then staged by plain loads), on Kd and N that are not multiples of 4
+    or of a pass's 128 / 16, and on R that is not a multiple of a block's
+    32 rows: within 1e-5 relative (and 1e-6 absolute a k) of the float64
+    plain version, as `test_probe_product_edges`."""
+    from juicer_tpu_torch.ops import probe_cuda
+
+    rng = np.random.default_rng([R, Kd, N, x_by, t_by])
+    x = _shifted(rng.normal(size=(R, Kd)), card, x_by)
+    t = _shifted(rng.normal(size=(Kd, N)), card, t_by)
+    before = probe_cuda.counters["probe_product"].launches
+    got = probe_cuda.product(x, t)
+    assert probe_cuda.counters["probe_product"].launches == before + 1
+    want = probe_cuda.product_plain(x.double(), t.double())
+    assert ((got.double() - want).abs() <= 1e-5 * want.abs() + 1e-6 * Kd).all()
+
+
+@pytest.mark.gpu
+def test_probe_product_smem_takes_every_earlier_shape(card):
+    """A product block stages t padded to whole row groups and column tiles
+    (`jtpu_probe_product_smem_bytes`), up to 227 KB: every (Kd, N) the first
+    kernel took (t and 16 rows of x within 48 KB) still fits; t of
+    (4096, 4) still does not; the probe's (128, 16) takes 10,240 bytes."""
+    from juicer_tpu_torch.ops import probe_cuda
+
+    smem = probe_cuda._get_lib().jtpu_probe_product_smem_bytes
+    for N in range(1, 12288 // 17 + 1):
+        Kd = 12288 // (N + 16)  # the most the first kernel took at this width
+        assert smem(Kd, N) <= probe_cuda.PRODUCT_SMEM_LIMIT, (Kd, N)
+    assert smem(4096, 4) > probe_cuda.PRODUCT_SMEM_LIMIT
+    assert smem(128, 16) == 4 * 128 * 20
+    assert smem(3, 5) == 4 * 8 * 20 and smem(64, 40) == 4 * 64 * 52
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,W,tab_by", [
+    (2048, 16, 0), (2048, 16, 1), (1001, 7, 0), (37, 8, 2), (33, 12, 0), (5, 1, 0),
+    (4099, 16, 0)])
+def test_probe_gather_paths(card, R, W, tab_by):
+    """The gather by float4 (W % 4 == 0, the table 16-byte aligned) and by
+    floats (W = 7, 1, or a table that starts off a 16-byte boundary), R not
+    a multiple of a block's 32 rows; indices that match no one-hot column
+    (a fraction, negative, past the table, NaN) give zero rows: exactly
+    the plain version."""
+    from juicer_tpu_torch.ops import probe_cuda
+
+    rng = np.random.default_rng([R, W, tab_by])
+    tab = _shifted(rng.random((37, W)), card, tab_by)
+    idx = rng.integers(0, 37, R).astype(np.float32)
+    odd = np.array([2.5, -1.0, 37.0, np.nan, 36.0, 0.0, -0.0, 1e9], np.float32)
+    idx[::3] = odd[np.arange(len(idx[::3])) % len(odd)]
+    idx = torch.as_tensor(idx, device=card)
+    before = probe_cuda.counters["probe_gather"].launches
+    got = probe_cuda.gather(idx, tab)
+    assert probe_cuda.counters["probe_gather"].launches == before + 1
+    assert torch.equal(got, probe_cuda.gather_plain(idx, tab))
+    assert not got[0::24].any()  # idx[0] = 2.5 and every 24th row after it
+
+
+@pytest.mark.gpu
+def test_probe_yardsticks_are_not_counted(card):
+    """The floor's kernel and the one-float kernel launch and count as no
+    probe kernel; the one-float kernel copies the float."""
+    from juicer_tpu_torch.ops import probe_cuda
+
+    before = _probe_counts()
+    src, dst = torch.full((3,), 2.5, device=card), torch.zeros(2, device=card)
+    probe_cuda.empty(card)
+    probe_cuda.touch(src, dst)
+    torch.cuda.synchronize()
+    assert _probe_counts() == before
+    assert dst.tolist() == [2.5, 0.0]
+
+
+@pytest.mark.gpu
+def test_probe_against_this_tree(card, capsys):
+    """`harness/probe_against` builds a source outside the package and
+    times it beside the package's kernels in turns with the yardsticks:
+    here this tree's own source against itself, probe E (a gather)."""
+    from juicer_tpu_torch import _cuda_build
+    from juicer_tpu_torch.harness import probe_against
+
+    src = os.path.join(_cuda_build.CSRC, "probe_patterns.cu")
+    records = probe_against.compare(src, "E")
+    assert [r["name"] for r in records] == ["E_onehot_gather_2d"]
+    rec, = records
+    assert rec["ok"] and len(rec["this"]) == len(rec["other"]) == 2
+    # each turn one profiler session: no kernel under the floor
+    assert all(0 < t["floor"] < t["kernel"] for t in rec["this"] + rec["other"])
+    assert "PASS E_onehot_gather_2d (probe_gather)" in capsys.readouterr().out
 
 
 @pytest.fixture(scope="module")

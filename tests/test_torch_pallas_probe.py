@@ -141,3 +141,35 @@ def test_probe_tool_exit_codes(monkeypatch, capsys):
                         lambda x, *a: probe_cuda.extract_plain(x, *a) + 1.0)
     assert pallas_probe.main(["D", "--cpu"]) == 1
     assert "FAIL D_minor_col_extract_3d" in capsys.readouterr().out
+
+
+# ---- the tool's host-side logic (no card needed) ---------------------------
+
+
+@pytest.mark.parametrize("name", list(pallas_probe.PROBES))
+def test_library_call_computes_the_probe(inputs, name):
+    """Each probe's one PyTorch call (`pallas_probe.LIBRARY`, timed beside
+    the kernel on the card) computes what its plain version computes:
+    exactly for D-I, within 1e-5 relative for A-C."""
+    _, exact, fn = pallas_probe.PROBES[name]
+    got, want = fn(pallas_probe.LIBRARY, inputs), fn(pallas_probe.PLAIN, inputs)
+    assert pallas_probe.agree(got, want, exact)[0]
+
+
+def test_run_records_the_floor(inputs):
+    """Each probe's record carries the library call's, the floor's and the
+    one-float yardstick's times beside the kernel's, and their timer (None
+    on the CPU, where nothing is timed)."""
+    records = pallas_probe.run("cpu", "A")
+    assert [r["name"] for r in records] == ["A_collapse_matmul_2d"]
+    rec, = records
+    assert rec["ok"] and rec["timer"] is None and rec["plain_timer"] is None
+    for key in ("ms", "library_ms", "floor_ms", "one_float_ms", "plain_ms"):
+        assert rec[key] is None, key
+
+
+def test_yardsticks_refuse_the_cpu():
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        probe_cuda.empty("cpu")
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        probe_cuda.touch(torch.zeros(1), torch.zeros(1))
