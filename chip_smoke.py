@@ -2399,7 +2399,8 @@ def phase_pallas_probe(card, dev, phase_done):
     session since a session's device times can read ~2.8x those of the
     next; the plain version's in a session of its own; each with the timer
     it took. Each product probe's kernel beside `torch.matmul` on a line of
-    its own. Returns the kernels line's `probe_patterns` entry."""
+    its own, each copy's (D, F, G, H) beside the slice's `clone` on
+    another. Returns the kernels line's `probe_patterns` entry."""
     from juicer_tpu_torch.harness import pallas_probe
     from juicer_tpu_torch.ops import probe_cuda
 
@@ -2429,11 +2430,13 @@ def phase_pallas_probe(card, dev, phase_done):
               f"({bound_by}); a call in a stream (host-issue bound): kernel "
               f"{r['events_ms']:.4f} ms, plain {r['plain_events_ms']:.4f} ms | {card}",
               flush=True)
-    print("[pallas probe] probe_product against torch.matmul, device time a call in one "
-          "session: " + "; ".join(
-              f"{p['name'][0]} {p['ms']:.5f} / {p['library_ms']:.5f} ms "
-              f"({p['ms'] / p['library_ms']:.2f}x)"
-              for p in probes if p["kernel"] == "probe_product") + f" | {card}", flush=True)
+    for kernel, library in (("probe_product", "torch.matmul"),
+                            ("probe_extract", "the slice's clone")):
+        print(f"[pallas probe] {kernel} against {library}, device time a call in one "
+              "session: " + "; ".join(
+                  f"{p['name'][0]} {p['ms']:.5f} / {p['library_ms']:.5f} ms "
+                  f"({p['ms'] / p['library_ms']:.2f}x)"
+                  for p in probes if p["kernel"] == kernel) + f" | {card}", flush=True)
     per_probe = {r["name"]: r["calls"] for r in records}
     print(f"[pallas probe] 9 of 9 PASS; launches {launches}, one a wrapper call: {per_probe} "
           f"calls a probe (its first call and the tool's two timings) | {card}", flush=True)

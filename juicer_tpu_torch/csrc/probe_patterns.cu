@@ -19,7 +19,8 @@
 //                  workaround and are not carried over.
 //   probe_extract  (probes D, F, G, H) a strided copy: rows row0..row0+n_rows
 //                  and columns col0..col0+n_cols of a row-major matrix of
-//                  `row_stride` columns (a column, or a range of rows).
+//                  `row_stride` columns: a column (D, F, G), a contiguous
+//                  range of rows (H), or any other block.
 //   probe_empty    a kernel that does nothing: the yardstick of the card's
 //                  fixed cost for a launch, timed beside every probe.
 //   probe_touch    one thread reads one float and writes it: that cost and
@@ -29,12 +30,13 @@
 //                  nothing and lies on no path.
 //
 // What bounds them on an H100: bytes, and at the probe's sizes (1.2 MB at
-// most) the latency of a trip to memory on top of the fixed cost of a
-// launch (`probe_empty`'s time). The product does 2*R*Kd*N operations on
-// 4*(R*Kd + Kd*N + R*N) bytes (16 operations a float of x at N=16): 0.35 us
-// of bytes at the probe's (2048, 128) x (128, 16), 0.13 us of float32 FMA
-// issue. Kernels this small wait on latency, so the designs cut dependent
-// steps and the L2 traffic that grows with the grid:
+// most; the copies move 8-16 KB) the latency of a trip to memory on top of
+// the fixed cost of a launch (`probe_empty`'s time). The product does
+// 2*R*Kd*N operations on 4*(R*Kd + Kd*N + R*N) bytes (16 operations a
+// float of x at N=16): 0.35 us of bytes at the probe's (2048, 128) x
+// (128, 16), 0.13 us of float32 FMA issue. Kernels this small wait on
+// latency, so the designs cut dependent steps and the L2 traffic that
+// grows with the grid:
 //
 // probe_product:
 //   - a block is 4 warps and takes 32 rows a pass (64 blocks at R=2048:
@@ -70,6 +72,29 @@
 // Staging a small table in shared memory while the index is in flight, to
 // cut one trip, measured no faster and was not kept.
 //
+// probe_extract: one read and one write an element, so what bounds it is
+// one trip to memory and the write-back, as `probe_touch`; the design cuts
+// the instructions in front of the load. The entry point picks the kernel:
+//   - a contiguous span (col0 == 0 and n_cols == row_stride, or one row;
+//     H): out[i] = src[i] by float4 where src and out are 16-byte aligned,
+//     the n % 4 floats after the last float4 copied by the first block's
+//     first threads; by floats otherwise. 256 threads a block, a float4 a
+//     thread (H: 4 blocks);
+//   - a column (n_cols == 1; D, F, G): the same kernel by floats at a
+//     stride of row_stride, a row a thread, 128 threads a block (16
+//     blocks). Each float lies in a 32-byte sector of its own (16 floats a
+//     row), which the layout forces;
+//   - any other block: a warp a row, its lanes along the columns.
+// No division on any path; offsets are 64-bit. Every kernel loops
+// grid-stride over a grid capped at kMaxBlocks, so any size is copied.
+// Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit, at the
+// probes' shapes: 256 threads a block took 0.02 us off H and added
+// 0.04-0.05 us to the column, against 128. Not kept: int offsets where the
+// extent fits in 31 bits (no faster than 64-bit ones), unsigned 32-bit
+// offsets (0.02-0.03 us slower on the column), 512 or 1,024 threads a
+// block or 2 or 4 elements a thread (loaded before any is stored), slower
+// on both; 32 or 64 threads a block, no faster.
+//
 // Plain C interface (built by `_cuda_build` with nvcc for sm_90a, loaded
 // with ctypes by `ops/probe_cuda.py`): each entry point launches on the
 // given stream and returns cudaGetLastError() of the launch; none
@@ -98,8 +123,10 @@ constexpr int kTileK = kRowLanes * kStepsK;  // k a pass: 128
 constexpr int kGatherThreads = 128;
 constexpr int kGatherLanes = 4;  // lanes a row
 
-// extract
-constexpr int kThreads = 256;
+// extract: threads a block of a contiguous span, and of a column or any
+// other block
+constexpr int kSpanThreads = 256;
+constexpr int kExtractThreads = 128;
 
 __host__ __device__ inline int product_stride(int N) {
   // floats a staged row of t: whole 16-column tiles and 4 more, an odd
@@ -263,15 +290,33 @@ probe_gather_kernel(const float* __restrict__ idx, const T* __restrict__ tab,
   }
 }
 
+// out[i] = src[i * stride] for i < n, in units of T (a span: float4 or float
+// at stride 1; a column: float at the matrix's row stride); then the `tail`
+// floats that follow a span of n float4s, one a thread of the first block.
+template <typename T, int kThreads>
 __global__ void __launch_bounds__(kThreads)
-probe_extract_kernel(const float* __restrict__ x, float* __restrict__ out, int n_rows,
-                     int row0, int row_stride, int col0, int n_cols) {
-  const long long n = (long long)n_rows * n_cols;
-  for (long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x; o < n;
-       o += (long long)gridDim.x * blockDim.x) {
-    const int r = (int)(o / n_cols);
-    const int c = (int)(o - (long long)r * n_cols);
-    out[o] = x[(size_t)(row0 + r) * row_stride + col0 + c];
+probe_extract_kernel(const T* __restrict__ src, T* __restrict__ out, long long n,
+                     long long stride, int tail) {
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += (long long)gridDim.x * kThreads)
+    out[i] = __ldg(src + i * stride);
+  if (blockIdx.x == 0 && (int)threadIdx.x < tail)
+    reinterpret_cast<float*>(out + n)[threadIdx.x] =
+        __ldg(reinterpret_cast<const float*>(src + n) + threadIdx.x);
+}
+
+// Any other block of rows and columns: a warp a row, its lanes along the
+// columns.
+__global__ void __launch_bounds__(kExtractThreads)
+probe_extract_kernel_block(const float* __restrict__ src, float* __restrict__ out, int n_rows,
+                           int row_stride, int n_cols) {
+  constexpr int kWarps = kExtractThreads / 32;
+  const int lane = threadIdx.x & 31;
+  for (long long r = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5); r < n_rows;
+       r += (long long)gridDim.x * kWarps) {
+    const float* s = src + r * row_stride;
+    float* o = out + r * n_cols;
+    for (int c = lane; c < n_cols; c += 32) o[c] = __ldg(s + c);
   }
 }
 
@@ -343,8 +388,24 @@ int jtpu_probe_extract(const float* x, float* out, int n_rows, int row0, int row
                        int col0, int n_cols, void* stream) {
   if (n_rows <= 0 || n_cols <= 0 || row0 < 0 || col0 < 0 || col0 + n_cols > row_stride)
     return (int)cudaErrorInvalidValue;
-  probe_extract_kernel<<<blocks_of((long long)n_rows * n_cols, kThreads), kThreads, 0,
-                         (cudaStream_t)stream>>>(x, out, n_rows, row0, row_stride, col0, n_cols);
+  const float* src = x + (size_t)row0 * row_stride + col0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  constexpr int kS = kSpanThreads, kT = kExtractThreads;
+  if (n_rows == 1 || n_cols == row_stride) {  // one contiguous span
+    const long long n = (long long)n_rows * n_cols;
+    if (aligned16(src) && aligned16(out))
+      probe_extract_kernel<float4, kS><<<blocks_of((n + 3) / 4, kS), kS, 0, s>>>(
+          reinterpret_cast<const float4*>(src), reinterpret_cast<float4*>(out), n / 4, 1,
+          (int)(n % 4));
+    else
+      probe_extract_kernel<float, kS><<<blocks_of(n, kS), kS, 0, s>>>(src, out, n, 1, 0);
+  } else if (n_cols == 1) {
+    probe_extract_kernel<float, kT><<<blocks_of(n_rows, kT), kT, 0, s>>>(src, out, n_rows,
+                                                                         row_stride, 0);
+  } else {
+    probe_extract_kernel_block<<<blocks_of(n_rows, kT / 32), kT, 0, s>>>(src, out, n_rows,
+                                                                          row_stride, n_cols);
+  }
   return (int)cudaGetLastError();
 }
 

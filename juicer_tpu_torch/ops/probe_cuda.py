@@ -5,13 +5,15 @@ The kernels replace the nine Pallas kernel bodies of the Mosaic probe
 C (a float32 matrix product, its output viewed 2-D or 3-D), `gather`
 probes E and I (rows of a table by integer-valued float indices: what the
 TPU's one-hot matmul computes) and `extract` probes D, F, G and H (a
-column or a range of rows). Each public function launches its kernel for
-CUDA tensors (or raises on a tensor it does not take) and runs its plain
-PyTorch version, `*_plain` beside it, for CPU tensors. Each kernel counts
-its launches in `counters[name].launches`, one a launch and nowhere else.
-Two yardsticks lie on no path and are not counted: `empty` launches a
-kernel that does nothing (the card's fixed cost for a launch), `touch` one
-that reads a float and writes it (that cost and one trip to memory).
+column, or a contiguous range of rows; the entry point picks a span, a
+column or a block copy from the arguments). Each public function launches
+one kernel for CUDA tensors (or raises on a tensor it does not take) and
+runs its plain PyTorch version, `*_plain` beside it, for CPU tensors.
+Each kernel counts its launches in `counters[name].launches`, one a
+launch and nowhere else. Two yardsticks lie on no path and are not
+counted: `empty` launches a kernel that does nothing (the card's fixed
+cost for a launch), `touch` one that reads a float and writes it (that
+cost and one trip to memory).
 """
 
 from __future__ import annotations
@@ -168,8 +170,11 @@ def extract_plain(x: torch.Tensor, row0: int, n_rows: int, col0: int,
 
 
 def extract(x: torch.Tensor, row0: int, n_rows: int, col0: int, n_cols: int) -> torch.Tensor:
-    """A block of rows and columns of the 2-D `x`: the kernel for CUDA
-    tensors, the plain version for CPU ones."""
+    """A block of rows and columns of the 2-D `x`: one launch for CUDA
+    tensors, the plain version for CPU ones. The C entry point picks the
+    kernel: a contiguous span (whole rows, or one row) by float4 where the
+    source and output are 16-byte aligned and by floats otherwise, a column
+    (n_cols == 1) a row a thread, any other block a row a warp."""
     if x.device.type == "cpu":
         return extract_plain(x, row0, n_rows, col0, n_cols)
     _check("probe_extract", x=x)

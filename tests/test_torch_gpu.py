@@ -1282,6 +1282,31 @@ def test_sweep_rung_past_shared_memory_takes_the_plain_loop(card):
 
 # ---- the last tools: the probe kernels, scale_bench, profile_step, graft ----
 
+# The blocks `probe_cuda.extract` copies, (rows, cols, row0, n_rows, col0,
+# n_cols, shift): x is (rows, cols) of float32 starting `shift` floats into
+# its buffer (`_shifted`). Held to the plain version on the card here and to
+# numpy's slicing on the CPU (`test_torch_pallas_probe.py`).
+EXTRACT_CASES = [
+    (2048, 16, 0, 256, 0, 16, 0),  # H: one contiguous span of 1,024 float4s
+    (301, 19, 0, 301, 0, 19, 0),  # a whole matrix, 5,719 floats: a tail of 3
+    (300, 19, 0, 300, 0, 19, 0),  # a whole matrix, 5,700 floats: no tail
+    (2048, 16, 0, 256, 0, 16, 1),  # a span off a 16-byte boundary: floats
+    (301, 19, 7, 50, 0, 19, 0),  # odd row0, the span off a 16-byte boundary
+    (300, 16, 7, 100, 0, 16, 0),  # odd row0, the span 16-byte aligned
+    (2048, 16, 0, 2048, 0, 1, 0),  # columns: col0 = 0,
+    (2048, 16, 0, 2048, 3, 1, 0),  # D, F and G's middle column,
+    (300, 19, 5, 290, 18, 1, 1),  # the last column,
+    (500, 1, 3, 400, 0, 1, 1),  # row_stride 1
+    (300, 19, 13, 200, 4, 9, 0),  # the general block
+    (300, 19, 7, 1, 18, 1, 0),  # one float
+    (300, 19, 299, 1, 0, 19, 0),  # one row, the last
+    (300, 19, 150, 1, 3, 11, 1),  # part of one row
+    # past kMaxBlocks blocks of threads: each kernel's grid-stride loop runs
+    (4100, 1040, 0, 4100, 0, 1040, 0),  # a span of 1,066,000 float4s, 256 a block
+    (600_000, 2, 0, 600_000, 1, 1, 0),  # a column of 600,000 rows, 128 a block
+    (20_000, 60, 0, 20_000, 1, 50, 0),  # a block of 20,000 rows, 4 rows a block
+]
+
 
 def _probe_counts():
     from juicer_tpu_torch.ops import probe_cuda
@@ -1327,17 +1352,46 @@ def test_probe_product_edges(card, R, Kd, N):
 
 @pytest.mark.gpu
 def test_probe_gather_and_extract_edges(card):
-    """Indices that match no one-hot column give zero rows; any block of
-    rows and columns is copied exactly."""
+    """Indices that match no one-hot column give zero rows. The blocks of
+    rows and columns that extract copies exactly are `EXTRACT_CASES`
+    (`test_probe_extract_cases`)."""
     from juicer_tpu_torch.ops import probe_cuda
 
     rng = np.random.default_rng(3)
     tab = torch.as_tensor(rng.random((37, 7)).astype(np.float32), device=card)
     idx = torch.tensor([0.0, 36.0, 2.5, -1.0, 37.0, float("nan"), 5.0] * 40, device=card)
     assert torch.equal(probe_cuda.gather(idx, tab), probe_cuda.gather_plain(idx, tab))
-    x = torch.as_tensor(rng.random((300, 19)).astype(np.float32), device=card)
-    for args in ((0, 300, 0, 19), (7, 1, 18, 1), (299, 1, 0, 19), (13, 200, 4, 9)):
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", EXTRACT_CASES, ids=str)
+def test_probe_extract_cases(card, case):
+    """Each of `EXTRACT_CASES` through the kernel, one launch, equal to
+    the plain version: the contiguous span by float4 with and without a
+    tail and by floats off a 16-byte boundary, columns, the general block,
+    one row, and copies whose grid-stride loops run."""
+    from juicer_tpu_torch.ops import probe_cuda
+
+    rows, cols, row0, n_rows, col0, n_cols, shift = case
+    x = _shifted(np.random.default_rng(list(case)).random((rows, cols)), card, shift)
+    before = probe_cuda.counters["probe_extract"].launches
+    got = probe_cuda.extract(x, row0, n_rows, col0, n_cols)
+    assert probe_cuda.counters["probe_extract"].launches == before + 1
+    assert torch.equal(got, probe_cuda.extract_plain(x, row0, n_rows, col0, n_cols))
+
+
+@pytest.mark.gpu
+def test_probe_extract_64bit_offsets(card):
+    """Columns whose extent passes 2^31 floats (8.6 GB), offsets past 31
+    bits: equal to the plain version."""
+    from juicer_tpu_torch.ops import probe_cuda
+
+    rows = 2 ** 27 + 8
+    x = torch.rand((rows, 16), device=card, generator=torch.Generator(card).manual_seed(0))
+    for args in ((0, rows, 15, 1), (5, rows - 5, 0, 1)):
         assert torch.equal(probe_cuda.extract(x, *args), probe_cuda.extract_plain(x, *args))
+    del x
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.gpu

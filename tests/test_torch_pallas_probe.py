@@ -3,7 +3,8 @@ driven by `harness/pallas_probe.py`) against the nine Pallas kernel bodies
 of `scripts/pallas_probe.py` (:45-99, copied here as they are), run through
 `pl.pallas_call(..., interpret=True)` on the CPU with the same numpy
 inputs: exactly for the copies and gathers D-I, within 1e-5 relative for
-the products A-C (their sums run in another order). Also: the gather's
+the products A-C (their sums run in another order). Also: the extract
+cases the card holds the kernel to, against numpy's slicing; the gather's
 rows for indices the one-hot matmul matches nothing with (fractions,
 negatives, past the table, NaN) are zeros, as the one-hot body gives; the
 tool exits 1 when a probe fails.
@@ -21,6 +22,7 @@ from juicer_tpu_torch.harness import pallas_probe
 from juicer_tpu_torch.ops import probe_cuda
 
 from test_torch_decoder import _one_torch_thread  # noqa: F401 (fixture)
+from test_torch_gpu import EXTRACT_CASES, _shifted
 
 E, CW, W = 256, 128, 16
 RTOL = 1e-5
@@ -122,6 +124,20 @@ def test_plain_version_equals_the_probe_body(inputs, name):
             np.testing.assert_allclose(got, want, rtol=RTOL, atol=0, err_msg=name)
     assert kernel in probe_cuda.KERNELS
     assert exact == (kernel != "probe_product")
+
+
+@pytest.mark.parametrize("case", EXTRACT_CASES, ids=str)
+def test_extract_cases_equal_numpy_slicing(case):
+    """The cases the card holds the extract kernel to (`EXTRACT_CASES` of
+    `test_torch_gpu.py`, each a path of the kernel), through
+    `probe_cuda.extract` on CPU tensors (the plain version), against
+    numpy's slicing of the same array."""
+    rows, cols, row0, n_rows, col0, n_cols, shift = case
+    a = np.random.default_rng(list(case)).random((rows, cols))
+    x = _shifted(a, torch.device("cpu"), shift)
+    got = probe_cuda.extract(x, row0, n_rows, col0, n_cols).numpy()
+    assert got.shape == (n_rows, n_cols) and got.dtype == np.float32
+    assert np.array_equal(got, a.astype(np.float32)[row0:row0 + n_rows, col0:col0 + n_cols])
 
 
 def test_gather_of_unmatched_indices_is_zero(inputs):
