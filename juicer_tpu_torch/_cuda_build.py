@@ -33,14 +33,6 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
-class LaunchCounter:
-    """Launch count of one kernel: its wrapper adds one a launch, and
-    nowhere else."""
-
-    def __init__(self):
-        self.launches = 0
-
-
 def _nvcc() -> str:
     path = shutil.which("nvcc")
     if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):

@@ -68,6 +68,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils import trace
 from .artifact import DecoderArtifact
 from .results import DecodeResult, WordHyp
 
@@ -1224,20 +1225,41 @@ def host_batch(carry, ys, rec0):
     overflow from the carry, the init records, the (T, B) snapshots, and
     the records: the dense planes of `run`, or of a fused scan's compact
     `ys` the running counts and only the written prefix of each
-    utterance's arena (`records` (N, 8) with `rec_offsets` (B + 1,))."""
-    carry_h = {
-        "best_final": {f: v.cpu().numpy() for f, v in carry["best_final"].items()},
-        "overflow": carry["overflow"].cpu().numpy(),
-    }
-    if "records" in ys:
-        rows, offsets = written_records(ys["records"], ys["rec_count"][-1])
-        ys_h = {k: v.cpu().numpy() for k, v in ys.items() if k != "records"}
-        ys_h["records"] = rows.cpu().numpy()
-        ys_h["rec_offsets"] = offsets.cpu().numpy()
-    else:
-        ys_h = {k: v.cpu().numpy() for k, v in ys.items()}
-    rec0_h = {k: v.cpu().numpy() for k, v in rec0.items()}
+    utterance's arena (`records` (N, 8) with `rec_offsets` (B + 1,)).
+    Traced as the span `copy` (`utils.trace`)."""
+    with trace.span("copy") as attrs:
+        carry_h = {
+            "best_final": {f: v.cpu().numpy() for f, v in carry["best_final"].items()},
+            "overflow": carry["overflow"].cpu().numpy(),
+        }
+        if "records" in ys:
+            rows, offsets = written_records(ys["records"], ys["rec_count"][-1])
+            ys_h = {k: v.cpu().numpy() for k, v in ys.items() if k != "records"}
+            ys_h["records"] = rows.cpu().numpy()
+            ys_h["rec_offsets"] = offsets.cpu().numpy()
+        else:
+            ys_h = {k: v.cpu().numpy() for k, v in ys.items()}
+        rec0_h = {k: v.cpu().numpy() for k, v in rec0.items()}
+        if attrs is not None:
+            attrs.update(copy_counts(carry_h, ys_h, rec0_h))
     return carry_h, ys_h, rec0_h
+
+
+def copy_counts(carry_h, ys_h, rec0_h) -> dict:
+    """The counters of the span `copy` of one `host_batch` copy: bytes
+    copied, records landed, and the sums of the candidate and active-slot
+    snapshots over every frame stepped where the decode wrote them."""
+    arrays = [*carry_h["best_final"].values(), carry_h["overflow"], *ys_h.values(),
+              *rec0_h.values()]
+    out = {"dtoh_bytes": sum(a.nbytes for a in arrays)}
+    if "rec_offsets" in ys_h:
+        out["records"] = int(ys_h["rec_offsets"][-1])
+    elif "rec_seq" in ys_h:  # the dense planes: a record landed where rec_seq != 0
+        out["records"] = int(np.count_nonzero(ys_h["rec_seq"]))
+    for key, snap in (("candidates", "n_cand"), ("active_slot_frames", "n_active")):
+        if snap in ys_h:
+            out[key] = int(ys_h[snap].sum())
+    return out
 
 
 def host_planes_diff(got, want, tol: float) -> float:

@@ -41,9 +41,10 @@ import dataclasses
 import numpy as np
 import torch
 
-from .._cuda_build import LaunchCounter, load
+from .._cuda_build import load
 from .core import (BF_FIELDS, REC_FIELDS, REC_WORDS, RECORD_WORDS, TorchDecoder,
                    float_view, host_batch, written_records)
+from ..utils import trace
 
 SNAP_NAMES = tuple("bf_" + f for f in BF_FIELDS) + ("n_active", "n_cand")
 # the dense form (`TorchDecoder.run`, the JAX class) and the compact form
@@ -73,7 +74,7 @@ _N_PTR = len(_TABLES) + 1 + 9 + 15 + len(YS_NAMES)
 # build with cycle counters here before the first launch
 LIB_NAME = "frame_step"
 
-counter = LaunchCounter()
+counter = trace.LaunchCounter()
 _lib = None
 
 
@@ -408,7 +409,10 @@ def assemble_results(dec: TorchDecoder, fs: FusedDecodeScan, carry, ys, lengths)
     padded-batch semantics of `TorchDecoder.decode_scores`)."""
     host = host_batch(carry, ys, fs.rec0)
     T = ys["rec_count"].shape[0]
-    return [dec.traceback(host, b, T, true_T=int(n)) for b, n in enumerate(lengths)]
+    with trace.span("traceback") as attrs:
+        if attrs is not None:
+            attrs["utterances"] = len(lengths)
+        return [dec.traceback(host, b, T, true_T=int(n)) for b, n in enumerate(lengths)]
 
 
 def compact_records(ys_dense: dict, t0: int = 0) -> dict:

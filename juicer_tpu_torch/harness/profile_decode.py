@@ -9,8 +9,9 @@ tiled to 16, `WSJ_POINT`, diagnostics off) with the GMM kernel, runs the
 first frames once to warm up, then profiles N frames of the frame loop
 with `torch.profiler` (CPU and CUDA activities). Prints the host time per
 frame, the device kernel time per frame (sum of kernel durations), the
-device idle share (1 - kernel time / wall time), kernel launches per
-frame, and the ten costliest kernels; `--trace` writes the Chrome trace
+device idle share (1 - the time any kernel, copy or set ran, each
+overlap counted once, over the wall time), kernel launches per frame,
+and the ten costliest kernels; `--trace` writes the Chrome trace
 to `chiprun_out/profile_decode.json` (large: tens of MB per 100 frames).
 `--fused` profiles the fused route instead: one launch of the frame-step
 kernel (`decoder/fused_scan.py`) over the same N frames, diagnostics as
@@ -22,9 +23,11 @@ scan, E slots, F insertion, G records), printed per frame and as the
 share of each; its times are not the kernel's own. `--entry`
 profiles one whole `BatchDecoder.decode_scores_batch` call on N frames
 (the fused route, as a user calls it): its wall time, the device's busy
-time and idle share, and beside it the same work stage by stage with a
-synchronise after each: the scan, the copy to the host (`host_batch`,
-with its bytes) and the traceback of B utterances. `--batch B` tiles the
+time and idle share, and the port's own spans of the profiled call
+(`utils.trace`): the entry, its copy to the host (`host_batch`; the span
+opens before the scan ends, so it includes the wait for the card) with
+its counters (bytes, records, candidates, active slot-frames) and the
+traceback of its utterances. `--batch B` tiles the
 8 sampled utterances to B (132 = one block on every SM); `--distinct`
 samples B different utterances instead (seed 11), so that no two blocks
 read the same closure-table rows; `--task 20k` decodes the 20k-word task
@@ -54,11 +57,12 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from ..decoder.core import TorchDecoder, host_batch
+from ..decoder.core import TorchDecoder
 from ..decoder import fused_scan
 from ..decoder.fused_scan import FusedDecodeScan
 from ..parallel.mesh import BatchDecoder
 from ..ops.gmm import make_gmm_scorer
+from ..utils import trace
 from . import card_line, wsj_task
 
 # the marks of the profiling build of csrc/frame_step.cu, in its order
@@ -75,8 +79,9 @@ def profile_run(run, n_frames: int, attempts: int = 3):
     run is then repeated, `attempts` sessions in all, before this raises.
     Returns the numbers a frame step (`wall_ms` without the profiler,
     `profiled_wall_ms`, `kernel_ms` of device kernel time,
-    `launches_per_frame`, and `idle`, the device's idle share 1 - kernel
-    time / wall time) and the profile."""
+    `launches_per_frame`, and `idle`, the device's idle share: 1 - the
+    union of its kernel, copy and set intervals over the wall time) and
+    the profile."""
     run()
     torch.cuda.synchronize()
     for _ in range(attempts):
@@ -87,8 +92,8 @@ def profile_run(run, n_frames: int, attempts: int = 3):
         profiled_wall = time.perf_counter() - t0
         # device-side events only (an aten op and its kernel both carry the
         # kernel's time in key_averages)
-        kernel_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                        if e.device_type == DeviceType.CUDA)
+        device = device_intervals(prof)
+        kernel_us = sum(e - s for s, e in device)
         if kernel_us > 0:
             break
     else:
@@ -104,7 +109,42 @@ def profile_run(run, n_frames: int, attempts: int = 3):
                 profiled_wall_ms=profiled_wall / n_frames * 1e3,
                 kernel_ms=kernel_us / n_frames / 1e3,
                 launches_per_frame=launches / n_frames,
-                idle=1.0 - kernel_us / 1e6 / wall), prof
+                idle=1.0 - busy_us(device) / 1e6 / wall), prof
+
+
+def device_intervals(prof) -> list[tuple[float, float]]:
+    """(start, end) in us of every kernel, copy and set the profiler saw on
+    the card; a range's twin on the card's timeline is not work."""
+    return [(e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+
+
+def busy_us(intervals) -> float:
+    """Time covered by at least one of `intervals`: their union, each
+    overlap counted once."""
+    busy, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy
+
+
+def entry_spans(records) -> dict:
+    """The last `entry` span of `records` (`utils.trace.spans()`): its
+    time and its children's in ms, and their counters summed."""
+    entry = [r for r in records if r.name == "entry"][-1]
+    out = {"entry_ms": (entry.end_ns - entry.start_ns) / 1e6, "copy_ms": 0.0,
+           "traceback_ms": 0.0}
+    for r in records:
+        if r.parent == entry.id and r.name in ("copy", "traceback"):
+            out[f"{r.name}_ms"] += (r.end_ns - r.start_ns) / 1e6
+            for k, v in r.attrs.items():
+                out[k] = out.get(k, 0) + v
+    return out
 
 
 def plain_loop_profile(dec, scores, n: int = 20) -> dict:
@@ -184,33 +224,13 @@ def main() -> None:
         def run():
             return dec.run(scores)
     # the warm-up run also covers the kernel build, allocator and
-    # cuBLAS/cub workspaces
+    # cuBLAS/cub workspaces; the port records its spans in the profiled run
+    trace.clear()
     numbers, prof = profile_run(run, T)
     if args.entry:
-        # the same call stage by stage, a synchronise after each
-        clock = time.perf_counter
-        t = [clock()]
-        if args.otf:
-            carry, ys, rec0 = dec.run(scores)
-        else:
-            fs = bd._fs[dec.device, B]
-            carry, ys = fs(scores.transpose(0, 1).contiguous())
-            rec0 = fs.rec0
-        torch.cuda.synchronize()
-        t.append(clock())
-        host = host_batch(carry, ys, rec0)
-        t.append(clock())
-        results = [dec.traceback(host, b, T) for b in range(B)]
-        t.append(clock())
-        stages = {
-            "scan_ms": (t[1] - t[0]) * 1e3, "copy_to_host_ms": (t[2] - t[1]) * 1e3,
-            "traceback_ms": (t[3] - t[2]) * 1e3,
-            "bytes_to_host": sum(v.nbytes for v in host[1].values()),
-            "words": sum(len(r.words) for r in results),
-        }
-        if "rec_count" in ys:
-            n_rec = ys["rec_count"][-1].sum().item()
-            stages.update(records=n_rec, records_per_frame_utt=n_rec / (T * B))
+        stages = entry_spans(trace.spans())
+        if "records" in stages:
+            stages["records_per_frame_utt"] = stages["records"] / (T * B)
     if args.fused and args.clocks:
         # of the last launch: the run timed without the profiler
         n = min(B, 1024)

@@ -20,6 +20,7 @@ import torch
 
 from .. import resolve_device
 from ..am.models import FlatGmmParams
+from ..utils import trace
 from . import gmm_cuda
 
 NEG_INF = -1e30
@@ -67,15 +68,17 @@ class GmmScorer:
             self.b_packed = torch.as_tensor(bp, device=dev)
 
     def __call__(self, features) -> torch.Tensor:
-        if not isinstance(features, torch.Tensor):
-            features = torch.as_tensor(np.asarray(features, np.float32), device=self.device)
-        if features.device != self.device:
-            raise ValueError(
-                f"GmmScorer on {self.device} got features on {features.device}")
-        if features.device.type == "cuda":
-            x = features.to(torch.float32).contiguous()
-            return gmm_cuda.gmm_logsumexp(x, self.W, self.b_packed, self.n_gmms)
-        return gmm_scores_dense(features, self.V, self.M, self.b, self.mask)
+        """Traced as the span `score` (`utils.trace`)."""
+        with trace.span("score"):
+            if not isinstance(features, torch.Tensor):
+                features = torch.as_tensor(np.asarray(features, np.float32), device=self.device)
+            if features.device != self.device:
+                raise ValueError(
+                    f"GmmScorer on {self.device} got features on {features.device}")
+            if features.device.type == "cuda":
+                x = features.to(torch.float32).contiguous()
+                return gmm_cuda.gmm_logsumexp(x, self.W, self.b_packed, self.n_gmms)
+            return gmm_scores_dense(features, self.V, self.M, self.b, self.mask)
 
 
 def make_gmm_scorer(params: FlatGmmParams, device="cuda") -> GmmScorer:

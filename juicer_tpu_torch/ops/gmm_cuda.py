@@ -17,8 +17,9 @@ import ctypes
 import numpy as np
 import torch
 
-from .._cuda_build import LaunchCounter, load
+from .._cuda_build import load
 from ..am.models import FlatGmmParams
+from ..utils.trace import LaunchCounter
 
 NEG = -1e30
 GMM_TILE = 16    # GMMs a block scores; G pads to a multiple

@@ -22,7 +22,8 @@ import ctypes
 
 import torch
 
-from .._cuda_build import LaunchCounter, load
+from .._cuda_build import load
+from ..utils.trace import LaunchCounter
 
 KERNELS = ("probe_product", "probe_gather", "probe_extract")
 # A product block stages all of t (`jtpu_probe_product_smem_bytes` gives its

@@ -42,6 +42,7 @@ from ..decoder.core import TorchDecoder, check_use_fused, host_batch
 from ..decoder.fused_scan import (FusedDecodeScan, assemble_results,
                                   why_not_covered)
 from ..decoder.results import DecodeResult
+from ..utils import trace
 
 
 def make_mesh(n_devices: Optional[int] = None, device="cuda") -> tuple[torch.device, ...]:
@@ -132,7 +133,11 @@ class BatchDecoder:
     def decode_scores_batch(self, gmm_scores, lengths=None) -> list[DecodeResult]:
         """gmm_scores: (B, T, n_gmms), optionally padded to a common T with
         per-utterance true `lengths`. Returns one DecodeResult each, in
-        batch order."""
+        batch order. Traced as the span `entry` (`utils.trace`)."""
+        with trace.span("entry") as attrs:
+            return self._decode(gmm_scores, lengths, attrs)
+
+    def _decode(self, gmm_scores, lengths, attrs) -> list[DecodeResult]:
         B, T = np.shape(gmm_scores)[:2]  # an array, a tensor or nested lists
         if lengths is not None:
             lengths = [int(n) for n in lengths]
@@ -150,6 +155,10 @@ class BatchDecoder:
                     and min(lengths[lo:hi]) < T):
                 raise ValueError("padded lengths need emit_diagnostics=True")
             plan.append((dec, lo, hi, fused))
+        if attrs is not None and plan:
+            dec, _, _, fused = plan[0]
+            attrs.update(B=int(B), T=int(T), K=dec.K, S=dec.S,
+                         route="fused" if fused else "plain")
         # launch every share, then read them back one by one
         launched = []
         for dec, lo, hi, fused in plan:
@@ -167,6 +176,9 @@ class BatchDecoder:
                 out += assemble_results(dec, fs, carry, ys, lens or [T] * (hi - lo))
             else:
                 host = host_batch(*state)
-                out += [dec.traceback(host, b, T, true_T=lens[b] if lens else None)
-                        for b in range(hi - lo)]
+                with trace.span("traceback") as tb:
+                    if tb is not None:
+                        tb["utterances"] = hi - lo
+                    out += [dec.traceback(host, b, T, true_T=lens[b] if lens else None)
+                            for b in range(hi - lo)]
         return out
