@@ -38,13 +38,18 @@ Phases (any failure raises and exits non-zero before the result line):
      full-width wave; the same with `max_emit_hyps=0` (the TPU kernel's
      scope) on a short sentence, in one launch and in two calls with the
      carried state. The first differing field, frame, utterance and slot
-     are printed on failure. Also printed: records landed per frame and
-     utterance (mean, peak) and the bytes a wave copies to the host;
-  6. the main path through the kernels: launch counts of both kernels are
-     zeroed just before and read just after `BatchDecoder(dec)` (default
+     are printed on failure. The best-path walk (`path_walk_kernel`) on the
+     fused state equals its plain version on a CPU copy, every header word
+     and path row (`[fused walk]`: path rows, kernel, plain and bound ms).
+     Also printed: records landed per frame and utterance (mean, peak) and
+     the bytes a wave copies to the host on the fused route and on the
+     routes that copy the arena;
+  6. the main path through the kernels: launch counts of the three kernels
+     are zeroed just before and read just after `BatchDecoder(dec)` (default
      `use_fused="auto"`) decodes the batch twice (features -> GMM kernel ->
-     frame-step kernel, one launch per wave -> copy to the host ->
-     traceback): the first call is certified as in 4, the second is timed,
+     frame-step kernel -> best-path walk, one launch each a wave -> copy of
+     the paths to the host -> words): the first call is certified as in 4,
+     the second is timed,
      and its frames/s stand beside the plain loop's. Then, outside the
      counted run, the device's share of a wave (both kernels, no copy to
      the host and no traceback), the frame-step kernel's time per wave
@@ -54,7 +59,8 @@ Phases (any failure raises and exits non-zero before the result line):
      row, for dense record planes;
   6b. a card full of utterances: the same 8 utterances tiled to B=132 (one
      block on every SM), launch counts zeroed before and read after one
-     certified and one timed wave through `BatchDecoder`; every
+     certified and one timed wave through `BatchDecoder` (one launch of each
+     kernel a wave); the walk held to its plain version at B=132; every
      utterance's words, word-end frames and score must equal the B=16
      wave's; the kernel's ms a wave, the device-only and the entry
      point's frames/s at B=132 beside those at B=16, and the device wave
@@ -80,10 +86,12 @@ Phases (any failure raises and exits non-zero before the result line):
          tuned budgets must decode every one without overflow to its
          transcript (a probe outside the kernel's scope raises);
        - the plain frame loop's B=16 wave as the reference, the kernel
-         equal to it bit for bit as in 5;
+         equal to it bit for bit as in 5 (the walk too, and at B=132 after
+         the certification);
        - certification through `BatchDecoder` at B=16 and B=132 (overflow
          0, dead 0, transcripts exact, each B=132 result equal to its B=16
-         result), launch counts zeroed before and read after each;
+         result), launch counts of the three kernels zeroed before and
+         read after each;
        - [mesh 20k] `BatchDecoder(dec, mesh=)` over replicas on the one
          card: (dev, dev) at B=16 (shares 8 + 8) and B=132 (66 + 66),
          (dev, dev, dev) at B=16 (6 + 5 + 5); each share's features scored
@@ -357,8 +365,9 @@ Phases (any failure raises and exits non-zero before the result line):
   [graft entry] `graft_entry.entry` on the card (one launch of each kernel)
      against `entry(device="cpu")` on a synthesised utterance, best finals
      within 1e-3; `dryrun_multichip(2)` over two replicas on the card;
-  8. result: a `kernels` JSON line (three kernels: gmm_logsumexp and
-     frame_step with the 20k fields, the OTF path's launches, the CLI
+  8. result: a `kernels` JSON line (four kernels: gmm_logsumexp and
+     frame_step with the 20k fields, path_walk (launches, ms, plain_ms,
+     bound_ms at B=16, B=132 and 20k), the OTF path's launches, the CLI
      phases' launches, the mesh's (`launches_mesh`), the gloo ranks'
      (`launches_gloo`) and the tools' (`launches_wsj_bench`,
      `launches_wsj_sweep`, `launches_wsj_otf`, `launches_bench_otf`,
@@ -600,8 +609,10 @@ def require_equal(what, got, want):
 def hold_to_plain(what, dec, fs, scores_tbg, plain_state, plain_results, lengths):
     """The fused scan on the plain wave's scores, bit for bit: compact
     records equal `compact_records` of the plain planes and expand to
-    them, snapshots and carry equal, tracebacks equal. Returns the fused
-    state and the largest float difference of the expanded planes (0)."""
+    them, snapshots and carry equal, the best-path walk equal to its plain
+    version (`hold_walk`), tracebacks equal. Returns the fused state, the
+    largest float difference of the expanded planes (0) and the walk's
+    numbers."""
     import torch
 
     from juicer_tpu_torch.decoder.fused_scan import (REC_NAMES, assemble_results,
@@ -617,11 +628,66 @@ def hold_to_plain(what, dec, fs, scores_tbg, plain_state, plain_results, lengths
     float_err = max(float((expanded[k] - plain_state[1][k]).abs().max())
                     for k in ("rec_score", "rec_ac", "rec_lm", "bf_score", "bf_ac", "bf_lm"))
     del expanded
+    walk = hold_walk(what, fs, fused_state, lengths)
     results = assemble_results(dec, fs, *fused_state, lengths)
     for i, (a, b) in enumerate(zip(results, plain_results)):
         if not same_result(a, b):
             raise RuntimeError(f"{what}: fused and plain tracebacks differ for utterance {i}")
-    return fused_state, float_err
+    return fused_state, float_err, walk
+
+
+def hold_walk(what, fs, state, lengths):
+    """The best-path walk on the card (`fused_scan.walk_paths`, kernel
+    `path_walk_kernel`) against its plain version on a CPU copy of the same
+    fused state: every header word (best final, overflow, stats, span
+    counters, path length and status) and every path row equal, the
+    status 0 everywhere. Returns the walk's numbers for the kernels line:
+    path rows walked, kernel ms over CUDA events, plain ms, bound ms and
+    the bytes copied to the host (`read_paths`)."""
+    import torch
+
+    from juicer_tpu_torch.decoder import fused_scan
+
+    carry, ys = state
+    T, B = ys["rec_count"].shape
+    n_max = int(ys["rec_count"][-1].max())
+    ys_cpu = {k: (v[:, :n_max] if k == "records" else v).cpu() for k, v in ys.items()}
+    bf_cpu = {f: v.cpu() for f, v in carry["best_final"].items()}
+    packed = fused_scan.walk_paths(fs, carry, ys, lengths)
+    got = packed.cpu()
+    t0 = time.perf_counter()
+    want = fused_scan.walk_paths_plain(ys_cpu, bf_cpu, carry["overflow"].cpu(),
+                                       fs.rec0_rows.cpu(), lengths, fs.dec.K)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n_head, W = B * fused_scan.HEAD_WORDS, fused_scan.HEAD_WORDS
+    head, head_want = got[:n_head].view(B, W), want[:n_head].view(B, W)
+    for b in range(B):
+        for i, name in enumerate(fused_scan.HEAD):
+            if head[b, i] != head_want[b, i]:
+                print(f"[{what} walk] DIFFERS header {name} of utterance {b}: "
+                      f"{int(head[b, i])} against {int(head_want[b, i])}", flush=True)
+    if not torch.equal(head, head_want):
+        raise RuntimeError(f"{what}: the walk's headers differ from the plain version")
+    if int(head[:, fused_scan.H["status"]].abs().sum()):
+        raise RuntimeError(f"{what}: a walk did not reach the path's first record")
+    rows, rows_want = got[n_head:].view(T + 1, B, 8), want[n_head:].view(T + 1, B, 8)
+    lens = head[:, fused_scan.H["len"]].tolist()
+    for b, n in enumerate(lens):
+        if not torch.equal(rows[:n, b], rows_want[:n, b]):
+            r = int((rows[:n, b] != rows_want[:n, b]).any(1).nonzero()[0])
+            raise RuntimeError(f"{what}: the walk's row {r} of utterance {b} differs: "
+                               f"{rows[r, b].tolist()} against {rows_want[r, b].tolist()}")
+    _, _, nbytes = fused_scan.read_paths(packed, B, T)
+    ms = cuda_ms(lambda: fused_scan.walk_paths(fs, carry, ys, lengths), 5)
+    # what the walk must move: n_active and n_cand of every frame (the span
+    # counters), a 32-byte row read and written a path row, the headers
+    path_rows = sum(lens)
+    bound_ms = (8.0 * T * B + 64.0 * path_rows + 4.0 * n_head) / PEAK_BYTES * 1e3
+    print(f"[{what} walk] {B} utterances, {path_rows} path rows (longest {max(lens)}): "
+          f"headers and rows equal to the plain version; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms on the host, bound {bound_ms:.6f} ms (bytes; a chain of "
+          f"dependent loads a path); {nbytes} bytes copied to the host", flush=True)
+    return dict(rows=path_rows, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bytes=nbytes)
 
 
 def frame_step_bound(dec, B, Tmax, n_scores, n_cand, n_active, n_rec):
@@ -778,8 +844,8 @@ def main() -> int:
           f"{fused_scan.smem_bytes(**fs.dims)} bytes of dynamic shared memory each "
           f"(hash table of {fs.dims['HT']})", flush=True)
     scores_tbg = scores.transpose(0, 1).contiguous()
-    fused_state, float_err = hold_to_plain("fused", dec, fs, scores_tbg, plain_state,
-                                           plain_results, lengths)
+    fused_state, float_err, walk16 = hold_to_plain("fused", dec, fs, scores_tbg, plain_state,
+                                                   plain_results, lengths)
     print(f"[fused] full-width wave {B} x {Tmax} at {p['beam']}/{p['end_beam']}/"
           f"{p['maxhyps']}: compact records, their expansion, 8 snapshots, carry, words "
           f"and word-end frames equal to the plain version (max |float diff| {float_err})",
@@ -797,8 +863,9 @@ def main() -> int:
           f"{n_rec_sum / (B * Tmax):.3f} a frame and utterance (peak "
           f"{int(per_frame.max())} in one frame), {32 * n_rec_sum / 1e6:.2f} MB of the "
           f"{fused_state[1]['records'].numel() * 4 / 1e6:.1f} MB arena written; a wave "
-          f"copies {host_bytes / 1e6:.3f} MB to the host (dense planes: "
-          f"{dense_bytes / 1e6:.1f} MB)", flush=True)
+          f"copies {walk16['bytes'] / 1e6:.4f} MB to the host on the fused route (the walked "
+          f"paths), {host_bytes / 1e6:.3f} MB on the routes that copy the arena (dense "
+          f"planes: {dense_bytes / 1e6:.1f} MB)", flush=True)
     del host, carry_h, ys_h, rec0_h, count, per_frame
     del plain_state, fused_state
 
@@ -831,6 +898,7 @@ def main() -> int:
     bd = BatchDecoder(dec)
     gmm_cuda.counter.launches = 0
     fused_scan.counter.launches = 0
+    fused_scan.walk_counter.launches = 0
     t0 = time.perf_counter()
     results = bd.decode_scores_batch(scorer(x).view(B, Tmax, G), lengths)
     t_cert = time.perf_counter() - t0
@@ -839,20 +907,25 @@ def main() -> int:
     t_entry = time.perf_counter() - t0
     launches = gmm_cuda.counter.launches
     fs_launches = fused_scan.counter.launches
+    walk_launches = fused_scan.walk_counter.launches
     if launches == 0:
         raise RuntimeError("the main path did not launch gmm_logsumexp")
     if fs_launches == 0:
         raise RuntimeError("the main path did not launch frame_step")
+    if walk_launches != 2:
+        raise RuntimeError(f"two waves launched path_walk {walk_launches} times; expected "
+                           f"one a wave")
     certify(results, "main path", utts, labels, markers)
     for i, (a, b) in enumerate(zip(again, results)):
         if a.words != b.words or a.score != b.score or a.overflow:
             raise RuntimeError(f"the timed main-path wave differs for utterance {i}")
     fps = B * Tmax / t_entry
     print(f"[main path] BatchDecoder (fused route), two waves; launches: gmm_logsumexp "
-          f"{launches}, frame_step {fs_launches}; first wave {t_cert:.3f}s", flush=True)
+          f"{launches}, frame_step {fs_launches}, path_walk {walk_launches}; first wave "
+          f"{t_cert:.3f}s", flush=True)
     print(f"[main path] timed wave through BatchDecoder: {B} x {Tmax} frames in "
-          f"{t_entry:.4f}s = {fps:.1f} frames/s (GMM kernel + frame-step kernel + copy "
-          f"of the records to the host + traceback of {B} utterances) beside "
+          f"{t_entry:.4f}s = {fps:.1f} frames/s (GMM kernel + frame-step kernel + walk of "
+          f"the best paths + copy of the paths to the host + words of {B} utterances) beside "
           f"{fps_plain:.1f} frames/s of the plain loop (no copy, no traceback) | {card}",
           flush=True)
     results16 = results
@@ -892,15 +965,17 @@ def main() -> int:
     lengths2 = [lengths[i % B] for i in range(B2)]
     gmm_cuda.counter.launches = 0
     fused_scan.counter.launches = 0
+    fused_scan.walk_counter.launches = 0
     t0 = time.perf_counter()
     results2 = bd.decode_scores_batch(scorer(x2).view(B2, Tmax, G), lengths2)
     t_cert2 = time.perf_counter() - t0
     t0 = time.perf_counter()
     again2 = bd.decode_scores_batch(scorer(x2).view(B2, Tmax, G), lengths2)
     t_entry2 = time.perf_counter() - t0
-    launches2 = (gmm_cuda.counter.launches, fused_scan.counter.launches)
-    if launches2 != (2, 2):
-        raise RuntimeError(f"B={B2}: two waves launched gmm_logsumexp, frame_step "
+    launches2 = (gmm_cuda.counter.launches, fused_scan.counter.launches,
+                 fused_scan.walk_counter.launches)
+    if launches2 != (2, 2, 2):
+        raise RuntimeError(f"B={B2}: two waves launched gmm_logsumexp, frame_step, path_walk "
                            f"{launches2} times; expected one each a wave")
     certify(results2, f"B={B2}", utts, labels, markers)
     for i, (a, c) in enumerate(zip(results2, again2)):
@@ -914,6 +989,7 @@ def main() -> int:
     tr_ms2 = cuda_ms(lambda: scores2.transpose(0, 1).contiguous(), 3)
     scores2_tbg = scores2.transpose(0, 1).contiguous()
     fs_ms2 = cuda_ms(lambda: fs2(scores2_tbg), 3)
+    walk132 = hold_walk(f"B={B2}", fs2, fs2(scores2_tbg), lengths2)
     del scores2, scores2_tbg
 
     def device_wave2():
@@ -930,8 +1006,8 @@ def main() -> int:
     fps2, fps_device2 = B2 * Tmax / t_entry2, B2 * Tmax / t_wave2
     print(f"[B={B2}] {len(utts)} utterances tiled to {B2} x {Tmax} frames, one block an SM: "
           f"every utterance's words, word-end frames and score equal the B={B} wave's; "
-          f"launches of two waves: gmm_logsumexp {launches2[0]}, frame_step {launches2[1]}; "
-          f"first wave {t_cert2:.3f}s", flush=True)
+          f"launches of two waves: gmm_logsumexp {launches2[0]}, frame_step {launches2[1]}, "
+          f"path_walk {launches2[2]}; first wave {t_cert2:.3f}s", flush=True)
     print(f"[B={B2}] frame_step {fs_ms2:.3f} ms a wave ({fs_ms2 * 1e3 / Tmax:.2f} us a frame "
           f"of {B2}) beside {fs_ms:.3f} ms at B={B} ({fs_ms2 / fs_ms:.2f}x the time for "
           f"{B2 / B:.2f}x the utterances) | {card}", flush=True)
@@ -1042,6 +1118,15 @@ def main() -> int:
         "launches_b132": launches2[1],
         **k20["frame_step"], **otf["frame_step"], **cli["frame_step"],
         "launches_gloo": gloo["frame_step"],
+    }, {
+        "name": "path_walk", "route": "cuda",
+        "source": "juicer_tpu_torch/csrc/frame_step.cu",
+        "replaces": "juicer_tpu/decoder/tpu_core.py:1446",
+        "launches": walk_launches, "equal_to_plain": True, "ms": walk16["ms"],
+        "plain_ms": walk16["plain_ms"], "bound_ms": walk16["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "path_rows": walk16["rows"], "dtoh_bytes": walk16["bytes"],
+        "ms_b132": walk132["ms"], "launches_b132": launches2[2],
+        **k20["path_walk"],
     }, probe]}))
     print("[time] phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; total {sum(phase_s.values()):.1f}", flush=True)
@@ -1307,16 +1392,18 @@ def decode_records(decoder, scores):
 def card_cpu_parity(art, cfg, dec, sc_card):
     """The same scores through the plain loop on the card and on the CPU
     (words, word-end frames and traceback records equal), and through
-    `decode_scores` on the card (one launch of the kernel, the same result).
-    Returns the card's and the CPU's (result, records)."""
+    `decode_scores` on the card (one launch of the kernel and of the walk,
+    the same result). Returns the card's and the CPU's (result, records)."""
     from juicer_tpu_torch.decoder import fused_scan
     from juicer_tpu_torch.decoder.core import TorchDecoder
 
     r_card, ys_card = decode_records(dec, sc_card)
-    n0 = fused_scan.counter.launches
+    n0, w0 = fused_scan.counter.launches, fused_scan.walk_counter.launches
     r_entry = dec.decode_scores(sc_card)  # the card's route: the kernel at B=1
-    if fused_scan.counter.launches - n0 != 1:
-        raise RuntimeError("decode_scores on the card did not launch frame_step once")
+    n = (fused_scan.counter.launches - n0, fused_scan.walk_counter.launches - w0)
+    if n != (1, 1):
+        raise RuntimeError(f"decode_scores on the card launched frame_step, path_walk {n} "
+                           f"times; expected once each")
     if not same_result(r_entry, r_card):
         raise RuntimeError("decode_scores through the kernel differs from the plain loop")
     r_cpu, ys_cpu = decode_records(TorchDecoder(art, cfg, device="cpu"), sc_card.cpu())
@@ -1367,11 +1454,13 @@ def mesh_20k(card, dec, scorer, waves, plain_results, entry, utts, labels, marke
 
         gmm_cuda.counter.launches = 0
         fused_scan.counter.launches = 0
+        fused_scan.walk_counter.launches = 0
         got = call()
-        n = (gmm_cuda.counter.launches, fused_scan.counter.launches)
-        if n != (len(parts), len(parts)):
+        n = (gmm_cuda.counter.launches, fused_scan.counter.launches,
+             fused_scan.walk_counter.launches)
+        if n != (len(parts),) * 3:
             raise RuntimeError(f"mesh 20k: {len(parts)} shares launched gmm_logsumexp, "
-                               f"frame_step {n} times; expected one each a share")
+                               f"frame_step, path_walk {n} times; expected one each a share")
         launches[0] += n[0]
         launches[1] += n[1]
         torch.cuda.synchronize()
@@ -1391,7 +1480,7 @@ def mesh_20k(card, dec, scorer, waves, plain_results, entry, utts, labels, marke
         growth[f"{len(mesh)}x{b}"] = m2 - m0
         print(f"[mesh 20k] {len(mesh)} replicas on {dev}, B={b} in shares of "
               f"{[hi - lo for _, lo, hi in parts]}: launches gmm_logsumexp {n[0]}, frame_step "
-              f"{n[1]} (one each a share); every utterance's words, word-end frames and "
+              f"{n[1]}, path_walk {n[2]} (one each a share); every utterance's words, word-end frames and "
               f"score equal the single-device results, certified; memory_allocated {m0} "
               f"before the replicas, {m1} after them ({len(bd.replicas)} decoder, tables "
               f"shared), {m2} after the decode (+{m2 - m0} bytes: the shares' scans' "
@@ -1541,8 +1630,8 @@ def phase_20k(card, dev, at_2k, phase_done):
           f"{static['idle']:.3f} | {card}", flush=True)
     fs = FusedDecodeScan(dec, B)
     scores_tbg = scores.transpose(0, 1).contiguous()
-    fused_state, _ = hold_to_plain("20k fused", dec, fs, scores_tbg, plain_state,
-                                   plain_results, lengths)
+    fused_state, _, walk16 = hold_to_plain("20k fused", dec, fs, scores_tbg, plain_state,
+                                           plain_results, lengths)
     n_cand, n_active, n_rec = wave_counts(fused_state[1])
     print(f"[20k] plain frame loop {B} x {Tmax} in {t_plain:.3f}s; the frame-step kernel "
           f"equal to it bit for bit (compact records, their expansion, 8 snapshots, carry, "
@@ -1558,14 +1647,16 @@ def phase_20k(card, dev, at_2k, phase_done):
     for b, xx, lens in ((B, x, lengths), (B2, x2, lengths2)):
         gmm_cuda.counter.launches = 0
         fused_scan.counter.launches = 0
+        fused_scan.walk_counter.launches = 0
         got = bd.decode_scores_batch(scorer(xx).view(b, Tmax, G), lens)
         t0 = time.perf_counter()
         again = bd.decode_scores_batch(scorer(xx).view(b, Tmax, G), lens)
         t_entry = time.perf_counter() - t0
-        launches = (gmm_cuda.counter.launches, fused_scan.counter.launches)
-        if launches != (2, 2):
-            raise RuntimeError(f"20k B={b}: two waves launched gmm_logsumexp, frame_step "
-                               f"{launches} times; expected one each a wave")
+        launches = (gmm_cuda.counter.launches, fused_scan.counter.launches,
+                    fused_scan.walk_counter.launches)
+        if launches != (2, 2, 2):
+            raise RuntimeError(f"20k B={b}: two waves launched gmm_logsumexp, frame_step, "
+                               f"path_walk {launches} times; expected one each a wave")
         certify(got, f"20k B={b}", utts, labels, markers)
         for i, (a, r) in enumerate(zip(got, again)):
             if not same_result(a, r) or not same_result(a, plain_results[i % B]):
@@ -1582,6 +1673,7 @@ def phase_20k(card, dev, at_2k, phase_done):
     fs2 = bd._fs[dec.device, B2]
     scores2_tbg = scorer(x2).view(B2, Tmax, G).transpose(0, 1).contiguous()
     fs_ms2 = cuda_ms(lambda: fs2(scores2_tbg), 3)
+    walk132 = hold_walk(f"20k B={B2}", fs2, fs2(scores2_tbg), lengths2)
     del scores2_tbg
     bound, bound_by, nbytes, ops, _ = frame_step_bound(dec, B, Tmax, scores_tbg.numel(),
                                                        n_cand, n_active, n_rec)
@@ -1685,6 +1777,11 @@ def phase_20k(card, dev, at_2k, phase_done):
             "launches_mesh": mesh["launches_mesh"],
             "mesh_bytes_growth": mesh["mesh_bytes_growth"],
             **tools[0]["frame_step"], **tools[1]["frame_step"]},
+        "path_walk": {
+            "ms_20k": walk16["ms"], "ms_20k_b132": walk132["ms"],
+            "plain_ms_20k": walk16["plain_ms"], "bound_ms_20k": walk16["bound_ms"],
+            "path_rows_20k": walk16["rows"], "path_rows_20k_b132": walk132["rows"],
+            "launches_20k": entry[B][0][2], "launches_20k_b132": entry[B2][0][2]},
     }
 
 
@@ -2198,7 +2295,7 @@ def phase_scale_1m(card, dev, gmm141, phase_done):
     del host
     fs = FusedDecodeScan(dec, SCALE_B)
     scores_tbg = scores.transpose(0, 1).contiguous()
-    fused_state, float_err = hold_to_plain("scale 1M", dec, fs, scores_tbg, plain_state,
+    fused_state, float_err, _ = hold_to_plain("scale 1M", dec, fs, scores_tbg, plain_state,
                                            plain_results, [T] * SCALE_B)
     n_cand, n_active, n_rec = wave_counts(fused_state[1])
     del plain_state, fused_state

@@ -1072,6 +1072,206 @@ int launch(const Params& p, size_t smem, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the best-path walk ----------------------------------------------------
+// After a launch of the frame step from frame 0, `path_walk_kernel` reads
+// back, for each utterance, only what its words need: one warp an
+// utterance writes a header and the records of its best path, so that the
+// host copies a few KB instead of the whole record arena and looks nothing
+// up. Its plain version is `fused_scan.walk_paths_plain`, held to it bit
+// for bit. It replaces no TPU kernel: the JAX package copies the records
+// and traces back on the host (`pallas_scan.assemble_results`), as the
+// port did before it. What bounds it is latency, not bytes: a path is a
+// chain of dependent reads (about 20 records an utterance at the 20k
+// task, each a window lookup and a 32-byte row), so a warp takes one
+// utterance, every utterance of the wave at once, and each step costs a
+// few dependent loads.
+//
+// The header (kHeadWords int32 words, enum Head): the best final at the
+// true length n (the (T, B) snapshot at frame n - 1 where 0 < n < T, else
+// the carry's), the overflow flag, the path's length, the walk's status
+// (0: it reached prev = -1; 1: a record was missing, its id in
+// H_MISSING; 2: it passed T + 1 records), the max of `n_active` and of
+// `n_cand` and the sum of `n_active` over the first n frames (all T where
+// n is outside (0, T)), and the launch's records landed and sums of
+// `n_active` and `n_cand` over every frame (the span counters).
+//
+// A path row is the record's eight words with the id replaced by its
+// frame: {frame, prev, seq, score, ac, lm, src, arc}; an init record
+// (id in [-K, 0), from `rec0`) has frame 0. Rows go to (T + 1, B, 8) in
+// walk order (the best final's record first): row r of every utterance
+// is contiguous, so the first `copy_rows` rows of the wave are one range
+// (zero past a path's end) and the rest of the longest path a second.
+//
+// The arena of an utterance is in ascending id t*K + slot, and rec_count
+// is the running count at the end of each frame, so record pid lies among
+// rows [rec_count[t - 1], rec_count[t]) with t = pid / K: the warp
+// narrows that window 32-fold a round (each lane samples one id, a ballot
+// finds the interval), then finds the id among the last 32 rows.
+enum WalkPtr {
+  Q_RECORDS, Q_REC_COUNT, Q_BF_SCORE, Q_BF_AC, Q_BF_LM, Q_BF_PATH, Q_BF_SEQ, Q_BF_SRC,
+  Q_N_ACTIVE, Q_N_CAND, Q_FIN_SCORE, Q_FIN_AC, Q_FIN_LM, Q_FIN_PATH, Q_FIN_SEQ,
+  Q_FIN_SRC, Q_OVERFLOW, Q_REC0, Q_LENGTHS, Q_OUT,
+  N_QPTR
+};
+enum WalkInt { J_B, J_K, J_T, J_REC_CAP, J_COPY_ROWS, N_JINT };
+// The header's words in order, once: the enum below and the names the
+// library exports (`jtpu_walk_head_names`, which the wrapper holds its
+// layout to) are both made from this list.
+#define JTPU_WALK_HEAD(X)                                                          \
+  X(SCORE, score) X(AC, ac) X(LM, lm) X(PATH, path) X(SEQ, seq) X(SRC, src)       \
+  X(OVERFLOW, overflow) X(LEN, len) X(STATUS, status) X(MISSING, missing)         \
+  X(MAX_ACTIVE, max_active) X(MAX_CAND, max_cand) X(SUM_ACTIVE, sum_active)       \
+  X(RECORDS, records) X(ACTIVE_ALL, active_all) X(PAD, pad)                       \
+  X(CAND_ALL_LO, cand_all_lo) X(CAND_ALL_HI, cand_all_hi)
+enum Head {
+#define JTPU_HEAD_ENUM(e, s) H_##e,
+  JTPU_WALK_HEAD(JTPU_HEAD_ENUM)
+#undef JTPU_HEAD_ENUM
+  N_HEAD
+};
+constexpr int kHeadWords = 20;  // N_HEAD rounded up: rows stay 16-byte aligned
+static_assert(N_HEAD <= kHeadWords && kHeadWords % 4 == 0, "header words");
+constexpr int kWalkWarps = 4;   // utterances a block
+
+struct WalkParams {
+  const void* ptr[N_QPTR];
+  int i[N_JINT];
+};
+
+__global__ void __launch_bounds__(32 * kWalkWarps) path_walk_kernel(const WalkParams p) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int B = p.i[J_B], K = p.i[J_K], T = p.i[J_T];
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kWalkWarps + (threadIdx.x >> 5);
+  if (b >= B) return;  // the whole warp
+  const int* rec_count = static_cast<const int*>(p.ptr[Q_REC_COUNT]);
+  const int* n_active = static_cast<const int*>(p.ptr[Q_N_ACTIVE]);
+  const int* n_cand = static_cast<const int*>(p.ptr[Q_N_CAND]);
+  const int n = static_cast<const int*>(p.ptr[Q_LENGTHS])[b];
+  const int te = (n > 0 && n < T) ? n : T;
+
+  // counters over the true length and over every frame
+  int sum_act = 0, max_act = 0, max_cand = 0, act_all = 0;
+  long long cand_all = 0;
+  for (int t = lane; t < T; t += 32) {
+    const int a = n_active[static_cast<size_t>(t) * B + b];
+    const int c = n_cand[static_cast<size_t>(t) * B + b];
+    act_all += a;
+    cand_all += c;
+    if (t < te) {
+      sum_act += a;
+      max_act = max(max_act, a);
+      max_cand = max(max_cand, c);
+    }
+  }
+  sum_act = __reduce_add_sync(kAll, sum_act);
+  act_all = __reduce_add_sync(kAll, act_all);
+  max_act = __reduce_max_sync(kAll, max_act);
+  max_cand = __reduce_max_sync(kAll, max_cand);
+  for (int o = 16; o > 0; o >>= 1) cand_all += __shfl_xor_sync(kAll, cand_all, o);
+
+  // the best final at the true length
+  int bf[6];
+  if (te < T) {
+    const size_t row = static_cast<size_t>(te - 1) * B + b;
+#pragma unroll
+    for (int f = 0; f < 6; ++f) bf[f] = static_cast<const int*>(p.ptr[Q_BF_SCORE + f])[row];
+  } else {
+#pragma unroll
+    for (int f = 0; f < 3; ++f) bf[f] = static_cast<const int*>(p.ptr[Q_FIN_SCORE + f])[b];
+#pragma unroll
+    for (int f = 3; f < 6; ++f) {
+      bf[f] = static_cast<int>(static_cast<const long long*>(p.ptr[Q_FIN_SCORE + f])[b]);
+    }
+  }
+
+  // the walk: lane w < 8 carries word w of the current row
+  int* out = static_cast<int*>(const_cast<void*>(p.ptr[Q_OUT]));
+  int* rows = out + static_cast<size_t>(B) * kHeadWords;
+  const int* rec = static_cast<const int*>(p.ptr[Q_RECORDS]) +
+                   static_cast<size_t>(b) * p.i[J_REC_CAP] * 8;
+  const int* rec0 = static_cast<const int*>(p.ptr[Q_REC0]) + static_cast<size_t>(b) * K * 8;
+  int len = 0, status = 0, missing = 0;
+  // the host's empty test, `score <= NEG / 2` in double
+  if (!(static_cast<double>(__int_as_float(bf[H_SCORE])) <= -5.0e29)) {
+    int pid = bf[H_PATH];
+    while (pid != -1) {
+      if (len == T + 1) {
+        status = 2;
+        break;
+      }
+      int word = 0;
+      bool found = false;
+      if (pid >= 0) {
+        const int t = pid / K;
+        if (t < T) {
+          int lo = t > 0 ? rec_count[static_cast<size_t>(t - 1) * B + b] : 0;
+          int hi = rec_count[static_cast<size_t>(t) * B + b];
+          while (hi - lo > 32) {
+            const long long span = hi - lo;
+            const int pos = lo + static_cast<int>(lane * span / 32);
+            const unsigned le = __ballot_sync(kAll, rec[static_cast<size_t>(pos) * 8] <= pid);
+            if (le == 0) {
+              hi = lo;  // below the window's first id
+              break;
+            }
+            const int j = 31 - __clz(le);
+            const int nlo = lo + static_cast<int>(j * span / 32);
+            hi = j == 31 ? hi : lo + static_cast<int>((j + 1) * span / 32);
+            lo = nlo;
+          }
+          const bool hit = lane < hi - lo && rec[static_cast<size_t>(lo + lane) * 8] == pid;
+          const unsigned hits = __ballot_sync(kAll, hit);
+          if (hits != 0) {
+            found = true;
+            const size_t i = static_cast<size_t>(lo + __ffs(hits) - 1);
+            if (lane < 8) word = lane == 0 ? t : rec[i * 8 + lane];
+          }
+        }
+      } else if (pid >= -K) {
+        found = true;
+        if (lane < 8) word = rec0[static_cast<size_t>(pid + K) * 8 + lane];
+      }
+      if (!found) {
+        status = 1;
+        missing = pid;
+        break;
+      }
+      if (lane < 8) rows[(static_cast<size_t>(len) * B + b) * 8 + lane] = word;
+      ++len;
+      pid = __shfl_sync(kAll, word, 1);
+    }
+  }
+  // the copied rows past the path's end read zero
+  for (int r = len; r < p.i[J_COPY_ROWS]; ++r) {
+    if (lane < 8) rows[(static_cast<size_t>(r) * B + b) * 8 + lane] = 0;
+  }
+
+  if (lane < kHeadWords) {
+    int v = 0;
+    switch (lane) {
+      case H_SCORE: case H_AC: case H_LM: case H_PATH: case H_SEQ: case H_SRC:
+        v = bf[0];
+#pragma unroll
+        for (int f = 1; f < 6; ++f) v = lane == f ? bf[f] : v;
+        break;
+      case H_OVERFLOW: v = static_cast<const unsigned char*>(p.ptr[Q_OVERFLOW])[b] ? 1 : 0; break;
+      case H_LEN: v = len; break;
+      case H_STATUS: v = status; break;
+      case H_MISSING: v = missing; break;
+      case H_MAX_ACTIVE: v = max_act; break;
+      case H_MAX_CAND: v = max_cand; break;
+      case H_SUM_ACTIVE: v = sum_act; break;
+      case H_RECORDS: v = rec_count[static_cast<size_t>(T - 1) * B + b]; break;
+      case H_ACTIVE_ALL: v = act_all; break;
+      case H_CAND_ALL_LO: v = static_cast<int>(cand_all & 0xffffffffll); break;
+      case H_CAND_ALL_HI: v = static_cast<int>(cand_all >> 32); break;
+      default: break;
+    }
+    out[static_cast<size_t>(b) * kHeadWords + lane] = v;
+  }
+}
+
 }  // namespace
 
 // Dynamic shared memory one block takes, in bytes.
@@ -1125,4 +1325,33 @@ extern "C" int jtpu_frame_step(const void* const* ptrs, const int* ints, const f
 #undef JTPU_FS_CASE
     default: return -1;
   }
+}
+
+// Launches the best-path walk on `stream`: one warp an utterance, kWalkWarps
+// utterances a block. `n_ptr` and `n_int` are the caller's counts of its
+// arguments (N_QPTR and N_JINT here). Returns cudaGetLastError() (0 =
+// launched), -2 where the counts differ, or -1 for bad sizes.
+extern "C" int jtpu_walk_paths(const void* const* ptrs, int n_ptr, const int* ints, int n_int,
+                               void* stream) {
+  if (n_ptr != N_QPTR || n_int != N_JINT) return -2;
+  WalkParams p;
+  for (int i = 0; i < N_QPTR; ++i) p.ptr[i] = ptrs[i];
+  for (int i = 0; i < N_JINT; ++i) p.i[i] = ints[i];
+  if (p.i[J_B] <= 0 || p.i[J_T] <= 0 || p.i[J_K] <= 0 || p.i[J_COPY_ROWS] < 0 ||
+      p.i[J_COPY_ROWS] > p.i[J_T] + 1) {
+    return -1;
+  }
+  const int blocks = (p.i[J_B] + kWalkWarps - 1) / kWalkWarps;
+  path_walk_kernel<<<blocks, 32 * kWalkWarps, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Words of one utterance's walk header (kHeadWords).
+extern "C" int jtpu_walk_head_words() { return kHeadWords; }
+
+// The header's field names in word order, each followed by a comma.
+extern "C" const char* jtpu_walk_head_names() {
+#define JTPU_HEAD_NAME(e, s) #s ","
+  return JTPU_WALK_HEAD(JTPU_HEAD_NAME);
+#undef JTPU_HEAD_NAME
 }

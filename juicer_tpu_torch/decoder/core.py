@@ -1002,7 +1002,8 @@ class TorchDecoder:
     def _fused_single(self, sc: torch.Tensor):
         """One utterance (T, n_gmms) through the fused scan at B=1: one
         launch of the frame-step kernel. Raises where the kernel does not
-        cover the decode, as `BatchDecoder(use_fused="auto")` does."""
+        cover the decode, as `BatchDecoder(use_fused="auto")` does.
+        Returns the carry, the compact `ys` and the scan."""
         from .fused_scan import FusedDecodeScan, why_not_covered
 
         why = why_not_covered(self, int(sc.shape[0]))
@@ -1014,7 +1015,7 @@ class TorchDecoder:
         if fs is None:
             fs = self._fused1 = FusedDecodeScan(self, 1)
         carry, ys = fs(sc[:, None, :].contiguous())
-        return carry, ys, fs.rec0
+        return carry, ys, fs
 
     def stream(self, use_fused="auto"):
         """A streaming session over this decoder (`decoder/stream.py`):
@@ -1038,7 +1039,9 @@ class TorchDecoder:
     def decode_scores(self, gmm_scores, use_fused="auto") -> DecodeResult:
         """Decode from a precomputed (T, n_gmms) log-likelihood matrix
         (float32 scores are cast to the decoder's dtype). A decoder on the
-        card goes through the frame-step kernel (one launch) or raises,
+        card goes through the frame-step kernel (one launch) and reads the
+        result back as `BatchDecoder` does (`fused_scan.assemble_results`:
+        the best path walked on the card, only it copied) or raises,
         unless `use_fused=False` asks for the plain frame loop `run`; a CPU
         decoder always runs `run`, the kernel's plain version
         (`BatchDecoder`'s rule at B=1)."""
@@ -1052,12 +1055,14 @@ class TorchDecoder:
                 sc = torch.cat([sc, sc[-1:].expand(T_pad - T, -1)])
                 true_T = T
         if T > 0 and self.device.type == "cuda" and use_fused is not False:
-            carry, ys, rec0 = self._fused_single(sc)
-        else:
-            # also at T == 0, with no frame to step on either route: the
-            # result is read from the initial propagation, which `run`
-            # hands back as it built it
-            carry, ys, rec0 = self.run(sc[None])
+            from .fused_scan import assemble_results
+
+            carry, ys, fs = self._fused_single(sc)
+            return assemble_results(self, fs, carry, ys, [true_T or int(sc.shape[0])])[0]
+        # also at T == 0, with no frame to step on either route: the result
+        # is read from the initial propagation, which `run` hands back as it
+        # built it
+        carry, ys, rec0 = self.run(sc[None])
         return self.traceback(host_batch(carry, ys, rec0), 0, int(sc.shape[0]),
                               true_T=true_T)
 
@@ -1100,7 +1105,8 @@ class TorchDecoder:
         """Words of utterance `b` from a host copy of a batch decode
         (`host_batch`), as `TpuDecoder._traceback` reads them. The records
         are the dense (T, B, K) planes of `run` or the compact records of
-        the fused scan; one lookup reads a record from either."""
+        the fused scan; one lookup reads a record from either, and
+        `path_result` builds the words from the records it finds."""
         carry, ys, rec0 = host
         if true_T is not None and 0 < true_T < T:
             # padded batch entry: the best-final snapshot at the true length
@@ -1109,11 +1115,6 @@ class TorchDecoder:
         else:
             bf = {f: carry["best_final"][f][b] for f in BF_FIELDS}
         overflow = bool(carry["overflow"][b])
-        if overflow:
-            import warnings
-
-            warnings.warn(
-                "TorchDecoder: expansion/frontier budget overflow; results may be pruned")
         na = ys["n_active"][:, b] if "n_active" in ys else np.zeros(1)
         nc = ys["n_cand"][:, b] if "n_cand" in ys else np.zeros(1)
         stats = dict(
@@ -1122,11 +1123,7 @@ class TorchDecoder:
             max_cand=int(nc[:T].max()) if nc.size else 0,
             overflow=overflow,
         )
-        score = float(bf["score"])
-        if score <= NEG / 2:
-            return DecodeResult([], [], NEG, NEG, NEG, T, **stats)
         K = self.K
-        seqs = self.art.seqs
         if "records" in ys:
             # this utterance's records, ascending in id
             lo, hi = ys["rec_offsets"][b], ys["rec_offsets"][b + 1]
@@ -1159,6 +1156,37 @@ class TorchDecoder:
                     float(rec0["rec_lm"][b, at]), 0,
                     int(rec0["rec_src"][b, at]), int(rec0["rec_arc"][b, at]))
 
+        def path():
+            pid = int(bf["path"])
+            while pid != -1:
+                rec = rec_fields(pid)
+                yield rec
+                pid = rec[0]
+
+        best = (float(bf["score"]), float(bf["ac"]), float(bf["lm"]), int(bf["seq"]),
+                int(bf["src"]))
+        return self.path_result(T, best, stats, path())
+
+    def path_result(self, T: int, best_final, stats: dict, path) -> DecodeResult:
+        """The DecodeResult of one utterance of T frames, from its best
+        final `(score, ac, lm, seq, src)`, its `stats` (`avg_active`,
+        `max_active`, `max_cand`, `overflow`) and `path`: the records of
+        its best path from the best final's back to the first, each
+        `(prev, seq, score, ac, lm, frame, src, arc)` with an init record
+        at frame 0. The one word assembly of both record sources: the host
+        lookup of `traceback` and the walk on the card
+        (`fused_scan.assemble_results`). `path` is read only when the
+        score is not empty."""
+        if stats["overflow"]:
+            import warnings
+
+            warnings.warn(
+                "TorchDecoder: expansion/frontier budget overflow; results may be pruned")
+        score, bf_ac, bf_lm, bf_seq, bf_src = best_final
+        if score <= NEG / 2:
+            return DecodeResult([], [], NEG, NEG, NEG, T, **stats)
+        seqs = self.art.seqs
+
         # a record stores its LANDING values; each label's crossing-time
         # values differ by a per-closure-edge constant (artifact.remainders);
         # the overall-last label carries the best-final values. With a G the
@@ -1173,19 +1201,16 @@ class TorchDecoder:
                     out.append(WordHyp(lab, frame, s, a, l))
             return out
 
-        bf_ac, bf_lm = float(bf["ac"]), float(bf["lm"])
         segs: list[list[WordHyp]] = []  # last segment first
-        fseq = seqs[int(bf["seq"])]
+        fseq = seqs[bf_seq]
         if fseq:
-            rem = (self.art.final_remainders(int(bf["src"]), int(bf["seq"]))
-                   if int(bf["src"]) >= 0 and not self.otf else None)
+            rem = (self.art.final_remainders(bf_src, bf_seq)
+                   if bf_src >= 0 and not self.otf else None)
             seg = seg_hyps(fseq, T - 1, score, bf_ac, bf_lm, rem)
             seg[-1] = WordHyp(seg[-1].word, T - 1, score, bf_ac, bf_lm)
             segs.append(seg)
-        pid = int(bf["path"])
         first = not fseq
-        while pid != -1:
-            prev, seq_id, s, a, l, frame, src, arc_b = rec_fields(pid)
+        for _, seq_id, s, a, l, frame, src, arc_b in path:
             rem = (self.art.remainders(src, arc_b, seq_id)
                    if src >= 0 and arc_b >= 0 and not self.otf else None)
             seg = seg_hyps(seqs[seq_id], frame, s, a, l, rem)
@@ -1193,7 +1218,6 @@ class TorchDecoder:
                 seg[-1] = WordHyp(seg[-1].word, frame, score, bf_ac, bf_lm)
                 first = False
             segs.append(seg)
-            pid = prev
         hyps = [h for seg in reversed(segs) for h in seg]
         return DecodeResult(
             words=[h.word for h in hyps], word_hyps=hyps, score=score,

@@ -30,6 +30,12 @@ that landed:
 
 `compact_records` turns the dense planes into this form and is the plain
 version of the kernel's output stage; `expand_records` is its inverse.
+
+`assemble_results` does not copy the arena: a second kernel of the same
+source, the best-path walk (`walk_paths`; plain version
+`walk_paths_plain`), follows each utterance's best path through it on
+the card and writes a header and the path's records, and the host copies
+those (`read_paths`, at most two copies) and builds the words from them.
 """
 
 from __future__ import annotations
@@ -42,8 +48,8 @@ import numpy as np
 import torch
 
 from .._cuda_build import load
-from .core import (BF_FIELDS, REC_FIELDS, REC_WORDS, RECORD_WORDS, TorchDecoder,
-                   float_view, host_batch, written_records)
+from .core import (BF_FIELDS, NEG, REC_FIELDS, REC_WORDS, RECORD_WORDS, TorchDecoder,
+                   float_view, written_records)
 from ..utils import trace
 
 SNAP_NAMES = tuple("bf_" + f for f in BF_FIELDS) + ("n_active", "n_cand")
@@ -74,7 +80,19 @@ _N_PTR = len(_TABLES) + 1 + 9 + 15 + len(YS_NAMES)
 # build with cycle counters here before the first launch
 LIB_NAME = "frame_step"
 
+# the best-path walk: the words of an utterance's header (`JTPU_WALK_HEAD` of
+# the kernel source, which the library's `jtpu_walk_head_names` must repeat;
+# `cand_all` takes two words, an int64) and the path rows copied with the
+# headers, in one copy; a longer path costs one copy more
+HEAD = ("score", "ac", "lm", "path", "seq", "src", "overflow", "len", "status", "missing",
+        "max_active", "max_cand", "sum_active", "records", "active_all", "pad",
+        "cand_all_lo", "cand_all_hi")
+HEAD_WORDS = 20
+H = {name: i for i, name in enumerate(HEAD)}
+PATH_CAP = 64
+
 counter = trace.LaunchCounter()
+walk_counter = trace.LaunchCounter()
 _lib = None
 
 
@@ -95,6 +113,16 @@ def _get_lib():
         if tuple(n) != (_N_PTR, len(_INTS), len(_FLOATS)):
             raise RuntimeError(f"frame_step: the library takes {tuple(n)} arguments, "
                                f"the wrapper passes {(_N_PTR, len(_INTS), len(_FLOATS))}")
+        lib.jtpu_walk_paths.restype = ctypes.c_int
+        lib.jtpu_walk_paths.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                                        ctypes.c_int, ctypes.c_void_p]
+        lib.jtpu_walk_head_words.restype = ctypes.c_int
+        lib.jtpu_walk_head_names.restype = ctypes.c_char_p
+        layout = (lib.jtpu_walk_head_words(),
+                  tuple(lib.jtpu_walk_head_names().decode().split(",")[:-1]))
+        if layout != (HEAD_WORDS, HEAD):
+            raise RuntimeError(f"walk_paths: the library writes the header {layout}, the "
+                               f"wrapper reads {(HEAD_WORDS, HEAD)}")
         _lib = lib
     return _lib
 
@@ -291,6 +319,13 @@ class FusedDecodeScan:
             self._plain = copy.copy(dec)
             self._plain.cfg = dataclasses.replace(dec.cfg, emit_diagnostics=True)
         self.init, self.rec0 = dec._init_carry(B)
+        # the init records as the walk reads them: (B, K, 8) int32 rows
+        # {0, prev, seq, score, ac, lm, src, arc}, frame 0 and float bits
+        cols = [torch.zeros_like(self.rec0["rec_prev"], dtype=torch.int32)]
+        for name in REC_FIELDS:
+            col = self.rec0[name]
+            cols.append(col.view(torch.int32) if col.is_floating_point() else col.to(torch.int32))
+        self.rec0_rows = torch.stack(cols, dim=2).contiguous()
         # threads a block: a multiple of 32 up to MAX_THREADS
         # (a quarter of K: measured best of 128..512 at K=1024, where some
         # 300 slots are live and a thread's chain of instructions, not the
@@ -404,15 +439,180 @@ def device_wave(dec: TorchDecoder, dbs: torch.Tensor):
 
 
 def assemble_results(dec: TorchDecoder, fs: FusedDecodeScan, carry, ys, lengths):
-    """Per-utterance DecodeResults of a fused-scan batch, each read at its
-    true length from the per-frame best-final snapshot (the exact
-    padded-batch semantics of `TorchDecoder.decode_scores`)."""
-    host = host_batch(carry, ys, fs.rec0)
-    T = ys["rec_count"].shape[0]
+    """Per-utterance DecodeResults of a fused-scan batch launched from frame
+    0, each read at its true length from the per-frame best-final snapshot
+    (the exact padded-batch semantics of `TorchDecoder.decode_scores`).
+    The walk finds each best path where the records are (`walk_paths`),
+    the host copies the headers and paths (`read_paths`; traced as the
+    span `copy`, with the counters of `core.copy_counts` and
+    `path_records`, the rows walked and copied) and builds the words from
+    them with `TorchDecoder.path_result` (the span `traceback`)."""
+    T, B = ys["rec_count"].shape
+    lengths = [int(n) for n in lengths]
+    with trace.span("copy") as attrs:
+        head, rows, nbytes = read_paths(walk_paths(fs, carry, ys, lengths), B, T)
+        if attrs is not None:
+            cand = np.ascontiguousarray(head[:, H["cand_all_lo"]:H["cand_all_hi"] + 1])
+            attrs.update(dtoh_bytes=nbytes, records=int(head[:, H["records"]].sum()),
+                         candidates=int(cand.view(np.int64).sum()),
+                         active_slot_frames=int(head[:, H["active_all"]].sum()),
+                         path_records=int(head[:, H["len"]].sum()))
     with trace.span("traceback") as attrs:
         if attrs is not None:
-            attrs["utterances"] = len(lengths)
-        return [dec.traceback(host, b, T, true_T=int(n)) for b, n in enumerate(lengths)]
+            attrs["utterances"] = B
+        heads = head.tolist()
+        bests = head[:, :3].view(np.float32).tolist()
+        return [_walked_result(dec, b, T, lengths[b], heads[b], bests[b],
+                               rows[:heads[b][H["len"]], b]) for b in range(B)]
+
+
+def _walked_result(dec: TorchDecoder, b: int, T: int, n: int, head: list, best: list,
+                   rows: np.ndarray):
+    """The DecodeResult of utterance b from its walk: `head` its header words,
+    `best` the best final's score, ac and lm, `rows` its path's rows."""
+    if head[H["status"]] == 1:
+        raise RuntimeError(f"traceback: no record {head[H['missing']]} of utterance {b}")
+    if head[H["status"]] != 0:
+        raise RuntimeError(f"traceback: the path of utterance {b} passes {T + 1} records")
+    te = n if 0 < n < T else T
+    stats = dict(avg_active=head[H["sum_active"]] / te, max_active=head[H["max_active"]],
+                 max_cand=head[H["max_cand"]], overflow=bool(head[H["overflow"]]))
+    ints = rows.tolist()
+    floats = rows[:, 3:6].view(np.float32).tolist()
+    path = [(r[1], r[2], f[0], f[1], f[2], r[0], r[6], r[7]) for r, f in zip(ints, floats)]
+    return dec.path_result(te, (*best, head[H["seq"]], head[H["src"]]), stats, path)
+
+
+def walk_paths(fs: FusedDecodeScan, carry, ys, lengths) -> torch.Tensor:
+    """The best-path walk of a fused scan launched from frame 0 (`carry`,
+    `ys` its output, `lengths` the true lengths): one int32 tensor on the
+    scan's device, B headers of `HEAD_WORDS` words (`HEAD`), then the
+    paths' rows as (T + 1, B, 8), row r of every utterance together, walk
+    order (the best final's record first), each row the record's words
+    with its frame for its id; the first min(T + 1, `PATH_CAP`) rows are
+    zero past a path's end. On CUDA tensors one launch of the kernel
+    `path_walk_kernel` (csrc/frame_step.cu); on CPU tensors its plain
+    version `walk_paths_plain`."""
+    T, B = ys["rec_count"].shape
+    if len(lengths) != B:
+        raise ValueError(f"walk_paths: {len(lengths)} lengths for {B} utterances")
+    dev = ys["records"].device
+    if dev.type == "cpu":
+        return walk_paths_plain(ys, carry["best_final"], carry["overflow"], fs.rec0_rows,
+                                lengths, fs.dec.K)
+    K, cap = fs.dec.K, ys["records"].shape[1]
+    # the kernel's arguments in the order of its `enum WalkPtr`
+    specs = [("records", ys["records"], torch.int32, (B, cap, 8)),
+             ("rec_count", ys["rec_count"], torch.int32, (T, B))]
+    specs += [(k, ys[k], torch.int32 if k in _INT_RECS else torch.float32, (T, B))
+              for k in SNAP_NAMES]
+    specs += [("best_final " + f, carry["best_final"][f],
+               torch.float32 if f in ("score", "ac", "lm") else torch.int64, (B,))
+              for f in BF_FIELDS]
+    specs += [("overflow", carry["overflow"], torch.bool, (B,)),
+              ("rec0 rows", fs.rec0_rows, torch.int32, (B, K, 8))]
+    for name, t, dtype, shape in specs:
+        _check(name, t, dev, dtype, shape)
+    lens = torch.tensor(lengths, dtype=torch.int32).pin_memory().to(dev, non_blocking=True)
+    out = torch.empty(B * HEAD_WORDS + (T + 1) * B * 8, dtype=torch.int32, device=dev)
+    tensors = [t for _, t, _, _ in specs] + [lens, out]
+    ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+    ints = (ctypes.c_int * 5)(B, K, T, cap, min(T + 1, PATH_CAP))
+    lib = _get_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.jtpu_walk_paths(ptrs, len(ptrs), ints, len(ints), stream)
+    if rc != 0:
+        raise RuntimeError(f"walk_paths: launch failed (code {rc})")
+    walk_counter.launches += 1
+    return out
+
+
+def walk_paths_plain(ys, best_final, overflow, rec0_rows, lengths, K: int) -> torch.Tensor:
+    """The plain version of `path_walk_kernel`: the same packed words from
+    CPU tensors. Every row that no path reaches reads zero; the kernel
+    zeroes only those it copies with the headers."""
+    rc = ys["rec_count"].numpy()
+    T, B = rc.shape
+    out = np.zeros(B * HEAD_WORDS + (T + 1) * B * 8, np.int32)
+    head = out[:B * HEAD_WORDS].reshape(B, HEAD_WORDS)
+    rows = out[B * HEAD_WORDS:].reshape(T + 1, B, 8)
+    recs, r0 = ys["records"].numpy(), rec0_rows.numpy()
+    na, nc = ys["n_active"].numpy(), ys["n_cand"].numpy()
+    snaps = [ys["bf_" + f].numpy() for f in BF_FIELDS]
+    fin = [best_final[f].numpy() for f in BF_FIELDS]
+    ovf = overflow.numpy()
+    for b, n in enumerate(lengths):
+        te = n if 0 < n < T else T
+        h = head[b]
+        bf = [s[te - 1, b] for s in snaps] if te < T else [f[b] for f in fin]
+        h[:3] = np.array(bf[:3], np.float32).view(np.int32)
+        h[3:6] = bf[3:6]
+        h[H["overflow"]] = int(ovf[b])
+        h[H["max_active"]] = na[:te, b].max()
+        h[H["max_cand"]] = nc[:te, b].max()
+        h[H["sum_active"]] = na[:te, b].sum()
+        h[H["records"]] = rc[-1, b]
+        h[H["active_all"]] = na[:, b].sum()
+        h[H["cand_all_lo"]:H["cand_all_hi"] + 1] = np.array(
+            [nc[:, b].astype(np.int64).sum()]).view(np.int32)
+        length = status = missing = 0
+        if not float(bf[0]) <= NEG / 2:
+            ids = recs[b, :, 0]
+            pid = int(bf[3])
+            while pid != -1:
+                if length == T + 1:
+                    status = 2
+                    break
+                row = None
+                if pid >= 0:
+                    t = pid // K
+                    if t < T:
+                        lo, hi = (int(rc[t - 1, b]) if t else 0), int(rc[t, b])
+                        i = lo + int(np.searchsorted(ids[lo:hi], pid))
+                        if i < hi and ids[i] == pid:
+                            row = recs[b, i].copy()
+                            row[0] = t
+                elif pid >= -K:
+                    row = r0[b, pid + K]
+                if row is None:
+                    status, missing = 1, pid
+                    break
+                rows[length, b] = row
+                length += 1
+                pid = int(row[1])
+        h[H["len"]], h[H["status"]], h[H["missing"]] = length, status, missing
+    return torch.from_numpy(out)
+
+
+def read_paths(packed: torch.Tensor, B: int, T: int):
+    """The walk's headers and path rows on the host: the headers with the
+    first min(T + 1, `PATH_CAP`) rows in one copy, and the rest of the
+    longest path in a second only where a path is longer; from the card
+    through pinned memory, each copy waited for. Returns (headers (B,
+    HEAD_WORDS), rows (R, B, 8), bytes copied), int32 NumPy arrays."""
+    n_head = B * HEAD_WORDS
+    copy_rows = min(T + 1, PATH_CAP)
+    first = n_head + copy_rows * B * 8
+    part = _to_host(packed[:first])
+    head = part[:n_head].reshape(B, HEAD_WORDS)
+    rows = part[n_head:].reshape(copy_rows, B, 8)
+    nbytes = part.nbytes
+    longest = int(head[:, H["len"]].max())
+    if longest > copy_rows:
+        more = _to_host(packed[first:first + (longest - copy_rows) * B * 8])
+        rows = np.concatenate([rows, more.reshape(-1, B, 8)])
+        nbytes += more.nbytes
+    return head, rows, nbytes
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    if t.device.type != "cuda":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return host.numpy()
 
 
 def compact_records(ys_dense: dict, t0: int = 0) -> dict:

@@ -24,10 +24,11 @@ share of each; its times are not the kernel's own. `--entry`
 profiles one whole `BatchDecoder.decode_scores_batch` call on N frames
 (the fused route, as a user calls it): its wall time, the device's busy
 time and idle share, and the port's own spans of the profiled call
-(`utils.trace`): the entry, its copy to the host (`host_batch`; the span
-opens before the scan ends, so it includes the wait for the card) with
-its counters (bytes, records, candidates, active slot-frames) and the
-traceback of its utterances. `--batch B` tiles the
+(`utils.trace`): the entry, its copy to the host (the walk of the best
+paths and their copy, `fused_scan.assemble_results`; the span opens
+before the scan ends, so it includes the wait for the card) with its
+counters (bytes, records, candidates, active slot-frames, path rows) and
+the traceback of its utterances. `--batch B` tiles the
 8 sampled utterances to B (132 = one block on every SM); `--distinct`
 samples B different utterances instead (seed 11), so that no two blocks
 read the same closure-table rows; `--task 20k` decodes the 20k-word task

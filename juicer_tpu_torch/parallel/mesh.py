@@ -23,8 +23,9 @@ frame-step kernel a share, on the CPU its plain version) and the plain
 frame loop `TorchDecoder.run`.
 
 What one process with several devices overlaps: every share is launched
-before any result is read back (the first sync is `core.host_batch`'s
-copy to the host), and each launch goes to its own device's current
+before any result is read back (the first sync is the first share's copy
+to the host: `fused_scan.read_paths` on the fused route, `core.host_batch`
+on the plain one), and each launch goes to its own device's current
 stream. Shares on distinct cards therefore run concurrently; shares on
 one device serialize on its stream. The traceback of each share then
 runs on the host, one share after another.

@@ -10,11 +10,15 @@ that the code inside it fills. The hot path opens four:
   - `entry`: one `parallel.mesh.BatchDecoder.decode_scores_batch` call,
     with `B`, `T` (padded frames), `K` and `S` of the first share's
     decoder and `route` ("fused" or "plain");
-  - `copy`: one `decoder.core.host_batch` copy to the host, with
-    `dtoh_bytes` (the bytes of every array it returns), `records` (the
-    records that landed), and, where the decode wrote its per-frame
-    snapshots, `candidates` and `active_slot_frames` (their sums over
-    every frame stepped, padded ones too);
+  - `copy`: one read-back of a decode to the host, with `dtoh_bytes`
+    (the bytes copied), `records` (the records that landed), and, where
+    the decode wrote its per-frame snapshots, `candidates` and
+    `active_slot_frames` (their sums over every frame stepped, padded
+    ones too). On the fused route it is `decoder.fused_scan.
+    assemble_results`' walk of the best paths on the card and their copy,
+    and adds `path_records` (the path rows walked and copied); elsewhere
+    it is `decoder.core.host_batch`'s copy of everything the traceback
+    reads;
   - `traceback`: the traceback loop of one batch, with `utterances`.
 
 Spans are recorded only while a `torch.profiler` session is active (the

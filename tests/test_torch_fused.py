@@ -32,6 +32,7 @@ from juicer_tpu.utils.synth import make_synth_task
 from juicer_tpu_torch.convert import fused_state_from_jax
 from juicer_tpu_torch.decoder import TorchDecoder, TorchDecoderConfig
 from juicer_tpu_torch.decoder import fused_scan
+from juicer_tpu_torch.decoder.core import host_batch
 from juicer_tpu_torch.decoder.fused_scan import (REC_NAMES, YS_NAMES, FusedDecodeScan,
                                                  assemble_results, compact_records,
                                                  concat_records, expand_records,
@@ -172,18 +173,28 @@ def test_chunked_run_equals_one_piece(synth, row):
         assert torch.equal(late[k], whole_y[k][64:]), k
 
 
-def test_assemble_results_match_pallas(synth):
+@pytest.mark.parametrize("short", [0, 4])
+def test_assemble_results_match_pallas(synth, short):
     """Words, scores and word-end frames at the true lengths equal the JAX
-    `assemble_results` of the TPU kernel's output."""
+    `assemble_results` of the TPU kernel's output, and the walked route's
+    results (`assemble_results`: the walk's plain version) equal the host
+    lookup's (`TorchDecoder.traceback` over `host_batch`) field for field.
+    `short` utterances are cut to 1..short frames: too few to reach a
+    final, so their results are empty."""
     jdec, pdec = decoders(synth, **BEAMS)
-    scores, lens = synth[2], synth[4]
+    scores = synth[2]
+    lens = list(range(1, short + 1)) + synth[4][short:]
     ps = PallasDecodeScan(jdec, B=B, chunk=64, interpret=True)
     want = jax_assemble_results(jdec, ps, *ps(jnp.asarray(scores)), lens)
     fs = FusedDecodeScan(pdec, B)
-    got = assemble_results(pdec, fs, *fs(torch.as_tensor(scores)), lens)
+    carry, ys = fs(torch.as_tensor(scores))
+    got = assemble_results(pdec, fs, carry, ys, lens)
+    host = host_batch(carry, ys, fs.rec0)
+    assert got == [pdec.traceback(host, b, T, true_T=n) for b, n in enumerate(lens)]
     assert len(got) == B
+    assert [g.empty for g in got] == [b < short for b in range(B)]
     for g, w in zip(got, want):
-        assert g.words == w.words and g.words
+        assert g.words == w.words and (g.words or g.empty)
         assert [h.end_frame for h in g.word_hyps] == [h.end_frame for h in w.word_hyps]
         assert g.n_frames == w.n_frames and g.overflow == w.overflow
         assert g.score == pytest.approx(w.score, abs=TOL)

@@ -300,6 +300,53 @@ def test_frame_step_matches_plain_on_wsj_sentence(card, max_hyps):
 
 
 @pytest.mark.gpu
+def test_walk_equals_plain_on_2k_batch(card, monkeypatch):
+    """The best-path walk on the card (`path_walk_kernel`) against its plain
+    version on 16 padded sentences of the 2k-word task at the operating
+    point: the headers, the rows copied with them and every path's rows,
+    bit for bit. `assemble_results` equals the host lookup's `traceback`
+    field for field, also with a cap of 4 rows (the second copy), and
+    gives the transcripts."""
+    task = wsj_task.load_task("2k", verbose=False)
+    utts = wsj_task.sample_utterances(task.cache, task.models, 16, 300, seed=19)
+    scorer = make_gmm_scorer(task.models.flat_params(), device=card)
+    B, lens = len(utts), [len(f) for _, f in utts]
+    T = max(lens)
+    scores = torch.empty((T, B, scorer.n_gmms), device=card)
+    for b, (_, f) in enumerate(utts):
+        sc = scorer(torch.as_tensor(f, device=card))
+        scores[: len(f), b] = sc
+        scores[len(f):, b] = sc[-1]
+    dec = TorchDecoder(task.artifact, wsj_task.decoder_config(), device=card)
+    fs = FusedDecodeScan(dec, B)
+    carry, ys = fs(scores)
+    n0 = fused_scan.walk_counter.launches
+    got = fused_scan.walk_paths(fs, carry, ys, lens).cpu()
+    assert fused_scan.walk_counter.launches == n0 + 1
+    want = fused_scan.walk_paths_plain(
+        {k: v.cpu() for k, v in ys.items()}, {f: v.cpu() for f, v in carry["best_final"].items()},
+        carry["overflow"].cpu(), fs.rec0_rows.cpu(), lens, dec.K)
+    hw, H = fused_scan.HEAD_WORDS, fused_scan.H
+    first = B * hw + min(T + 1, fused_scan.PATH_CAP) * B * 8
+    assert torch.equal(got[:first], want[:first])
+    head = want[: B * hw].view(B, hw)
+    n = head[:, H["len"]].tolist()
+    assert (head[:, H["status"]] == 0).all() and min(n) > 0
+    rows_got, rows_want = got[B * hw:].view(T + 1, B, 8), want[B * hw:].view(T + 1, B, 8)
+    for b in range(B):
+        assert torch.equal(rows_got[: n[b], b], rows_want[: n[b], b]), b
+    host = host_batch(carry, ys, fs.rec0)
+    lookup = [dec.traceback(host, b, T, true_T=m) for b, m in enumerate(lens)]
+    assert assemble_results(dec, fs, carry, ys, lens) == lookup
+    monkeypatch.setattr(fused_scan, "PATH_CAP", 4)
+    assert max(n) > 4 and assemble_results(dec, fs, carry, ys, lens) == lookup
+    labels, markers = wsj_task.word_labels(task.cache)
+    for r, (words, _) in zip(lookup, utts):
+        assert not r.overflow
+        assert [w for w in r.words if w not in markers] == [labels[w] for w in words]
+
+
+@pytest.mark.gpu
 def test_frame_step_refuses_bad_input(card):
     art, G = _fuzz_artifact(seed=1)
     dec = TorchDecoder(art, TorchDecoderConfig(max_insts=128, expand_budget=256), device=card)
@@ -477,9 +524,10 @@ def test_decode_scores_on_the_card_launches_the_kernel_once(card):
     dec = TorchDecoder(art, cfg, device=card)
     cpu = TorchDecoder(art, cfg, device="cpu")
     sc = _fuzz_scores(9, 75, 1, G, "cpu")[:, 0]
-    n0 = fused_scan.counter.launches
+    n0, w0 = fused_scan.counter.launches, fused_scan.walk_counter.launches
     got = dec.decode_scores(sc)
     assert fused_scan.counter.launches - n0 == 1
+    assert fused_scan.walk_counter.launches - w0 == 1  # read back through the walk
     want = cpu.decode_scores(sc)
     assert got == want and got.n_frames == 75
     dec.K, dec.E = 4096, 8192  # beyond one block's shared memory

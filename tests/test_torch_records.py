@@ -13,8 +13,12 @@ dense (T, B, K) planes. Here, on the CPU:
     `DecodeResult` field for field, and the JAX `TpuDecoder`'s words and
     word-end frames on the same numpy scores (float32; scores within the
     1e-4 that `tests/test_torch_decoder.py` states);
+  - the walked route (`fused_scan.assemble_results`) equals the host
+    lookup, and the walk's header layout is the kernel source's;
   - `decode_scores` of a CPU decoder still runs the plain frame loop.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -24,6 +28,7 @@ from hypothesis import strategies as st
 
 from juicer_tpu.decoder.artifact import DecoderArtifact as JaxArtifact
 from juicer_tpu.decoder.tpu_core import TpuDecoder, TpuDecoderConfig
+from juicer_tpu.parallel.mesh import BatchDecoder as JaxBatchDecoder
 
 from juicer_tpu_torch.decoder import TorchDecoder, TorchDecoderConfig
 from juicer_tpu_torch.decoder import fused_scan
@@ -183,13 +188,89 @@ def test_traceback_through_compact_lookup(synth, max_hyps):
                 rec_offsets=np.zeros_like(ys_h["rec_offsets"]))
     with pytest.raises(RuntimeError, match="no record"):
         pdec.traceback((carry_h, ys_h, rec0_h), 0, scores.shape[0])
+    # and so is one the walk does not find
+    bad = dict(ys, records=ys["records"].clone())
+    bad["records"][0, :, 0] = -5
+    with pytest.raises(RuntimeError, match="no record .* of utterance 0"):
+        fused_scan.assemble_results(pdec, fs, carry, bad, lens)
+
+
+def path_ids(host, b, T, n, K):
+    """The record ids of utterance b's best path at its true length n, read
+    from a `host_batch` copy apart from either traceback."""
+    carry, ys, rec0 = host
+    pid = int(ys["bf_path"][n - 1, b] if 0 < n < T else carry["best_final"]["path"][b])
+    lo, hi = ys["rec_offsets"][b], ys["rec_offsets"][b + 1]
+    prev = dict(zip(ys["records"][lo:hi, 0].tolist(), ys["records"][lo:hi, 1].tolist()))
+    out = []
+    while pid != -1:
+        out.append(pid)
+        pid = prev[pid] if pid >= 0 else int(rec0["rec_prev"][b, pid + K])
+    return out
+
+
+TINY = dict(max_insts=8, expand_budget=16, final_budget=8)
+
+
+@pytest.mark.parametrize("net_seed,big,tiny", [(3, False, True), (0, True, False),
+                                               (1, True, True)])
+def test_walked_paths_equal_host_lookup_on_fuzz_network(tmp_path, net_seed, big, tiny):
+    """On fuzz networks whose initial propagation lands word records, the
+    walked route (`assemble_results`) equals the host lookup's
+    `traceback` field for field and the JAX `BatchDecoder`'s words,
+    word-end frames, flags and scores, padded: paths that end in an init
+    record (id < 0), empty results and, with budgets of 8 slots, flagged
+    overflows."""
+    _, models, net = random_case(net_seed, max_states=64 if big else 9)
+    jart = JaxArtifact(net, models)
+    _, _, part = carry_across(tmp_path, net, models, jart)
+    kw = dict(TINY if tiny else budgets(big), **ROWS[net_seed % len(ROWS)])
+    dec = TorchDecoder(part, TorchDecoderConfig(**kw), device="cpu")
+    lens = [30, 17, 5]
+    scores = np.stack([scores_matrix(models, 30, seed=net_seed * 10 + u)
+                       for u in range(len(lens))]).astype(np.float32)
+    fs = FusedDecodeScan(dec, len(lens))
+    carry, ys = fs(torch.as_tensor(scores).transpose(0, 1).contiguous())
+    with pytest.warns() if tiny else contextlib.nullcontext():
+        got = fused_scan.assemble_results(dec, fs, carry, ys, lens)
+        host = host_batch(carry, ys, fs.rec0)
+        assert got == [dec.traceback(host, b, 30, true_T=n) for b, n in enumerate(lens)]
+    jdec = TpuDecoder(jart, TpuDecoderConfig(**kw, emit_diagnostics=True))
+    with pytest.warns() if tiny else contextlib.nullcontext():
+        want = JaxBatchDecoder(jdec, use_pallas=False).decode_scores_batch(scores, lens)
+    for g, w in zip(got, want):
+        assert (g.words, g.empty, g.overflow, g.n_frames, g.max_active, g.max_cand) == (
+            w.words, w.empty, w.overflow, w.n_frames, w.max_active, w.max_cand)
+        assert [h.end_frame for h in g.word_hyps] == [h.end_frame for h in w.word_hyps]
+        assert abs(g.score - w.score) < SCORE_TOL and abs(g.lm_score - w.lm_score) < SCORE_TOL
+    paths = [path_ids(host, b, 30, n, dec.K) for b, n in enumerate(lens) if not got[b].empty]
+    assert any(p and p[-1] < 0 for p in paths)  # a path that ends in an init record
+    assert any(r.empty for r in got) == (net_seed != 1)
+    assert all(r.overflow for r in got) == tiny
+
+
+def test_walk_header_layout_is_the_kernel_sources():
+    """`fused_scan.HEAD`, the header words that the plain walk writes and
+    the host reads, is the kernel source's `JTPU_WALK_HEAD` list in its
+    order, and `HEAD_WORDS` its `kHeadWords`: the library repeats the same
+    list at load, which only a card can check."""
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(fused_scan.__file__), os.pardir, "csrc",
+                            "frame_step.cu")).read()
+    body = re.search(r"#define JTPU_WALK_HEAD\(X\)(.*?)\nenum Head", src, re.S).group(1)
+    assert tuple(re.findall(r"X\(\w+, (\w+)\)", body)) == fused_scan.HEAD
+    assert int(re.search(r"constexpr int kHeadWords = (\d+);", src).group(1)) == \
+        fused_scan.HEAD_WORDS
 
 
 def test_decode_scores_on_cpu_decoder_is_the_plain_loop(synth, monkeypatch):
     """A CPU decoder's `decode_scores` runs `run` and builds no fused scan;
     `_fused_single`, the route of a decoder on the card, gives the same
-    result from compact records and refuses what the kernel does not
-    cover."""
+    result from compact records, through the host lookup and through the
+    walk that `decode_scores` reads it with on the card, and refuses what
+    the kernel does not cover."""
     part, utt = synth[1], synth[3][0]
     dec = TorchDecoder(part, TorchDecoderConfig(
         **BUDGETS, emit_prune_win=150.0, phone_end_prune_win=75.0, max_emit_hyps=10), device="cpu")
@@ -202,9 +283,10 @@ def test_decode_scores_on_cpu_decoder_is_the_plain_loop(synth, monkeypatch):
     assert fused_scan.counter.launches == n0 and want.words
     T_pad = -(-len(utt) // 128) * 128
     sc = torch.as_tensor(np.concatenate([utt, np.repeat(utt[-1:], T_pad - len(utt), axis=0)]))
-    carry, ys, rec0 = dec._fused_single(sc)
-    assert set(ys) == set(YS_NAMES) and dec._fused1.B == 1
-    assert dec.traceback(host_batch(carry, ys, rec0), 0, T_pad, true_T=len(utt)) == want
+    carry, ys, fs = dec._fused_single(sc)
+    assert set(ys) == set(YS_NAMES) and fs is dec._fused1 and fs.B == 1
+    assert dec.traceback(host_batch(carry, ys, fs.rec0), 0, T_pad, true_T=len(utt)) == want
+    assert fused_scan.assemble_results(dec, fs, carry, ys, [len(utt)]) == [want]
     dec.K, dec.E = 4096, 8192  # beyond one block's shared memory
     with pytest.raises(ValueError, match="decode_scores.*shared memory.*TorchDecoder.run"):
         dec._fused_single(sc)

@@ -28,6 +28,7 @@ from juicer_tpu_torch.parallel import BatchDecoder, make_mesh
 from juicer_tpu_torch.utils import trace
 
 from test_decoder import make_models, scores_matrix
+from test_torch_records import path_ids
 from test_torch_decoder import _one_torch_thread, carry_across  # noqa: F401 (fixture)
 
 BUDGETS = dict(max_insts=64, expand_budget=256, final_budget=64)
@@ -140,6 +141,38 @@ def test_copy_counters_equal_sums_made_apart(task, use_fused):
                          "candidates": int(ys["n_cand"].sum()),
                          "active_slot_frames": int(ys["n_active"].sum())}
     assert records > 0 and rec.attrs["candidates"] > 0
+
+
+@pytest.mark.parametrize("cap", [None, 0])
+def test_walked_copy_counters_equal_sums_made_apart(task, cap, monkeypatch):
+    """The fused route's `copy` span (`assemble_results`: the walk and its
+    copy) carries the counters of `host_batch`'s with their meanings, and
+    `path_records`, the rows walked; `dtoh_bytes` counts the headers and
+    first rows and, where a path passes the cap (0 rows: every path), the
+    rest of the longest path, copied second. The results are the host
+    lookup's."""
+    _, pdec, scores = task
+    if cap is not None:
+        monkeypatch.setattr(fused_scan, "PATH_CAP", cap)
+    B, T = scores.shape[:2]
+    fs = FusedDecodeScan(pdec, B)
+    carry, ys = fs(pdec.scores_tensor(scores).transpose(0, 1).contiguous())
+    got, (copy, tb) = traced(lambda: fused_scan.assemble_results(pdec, fs, carry, ys, LENGTHS))
+    assert (copy.name, tb.name, copy.parent, tb.parent) == ("copy", "traceback", 0, 0)
+    host = host_batch(carry, ys, fs.rec0)
+    assert got == [pdec.traceback(host, b, T, true_T=n) for b, n in enumerate(LENGTHS)]
+    # each best path's length, followed through the host copy
+    paths = [0 if got[b].empty else len(path_ids(host, b, T, n, pdec.K))
+             for b, n in enumerate(LENGTHS)]
+    rows = min(T + 1, fused_scan.PATH_CAP)
+    words = B * fused_scan.HEAD_WORDS + (rows + max(0, max(paths) - rows)) * B * 8
+    assert copy.attrs == {"dtoh_bytes": 4 * words, "records": int(ys["rec_count"][-1].sum()),
+                          "candidates": int(ys["n_cand"].sum()),
+                          "active_slot_frames": int(ys["n_active"].sum()),
+                          "path_records": sum(paths)}
+    assert tb.attrs == {"utterances": B}
+    assert copy.attrs["candidates"] > 0 and sum(paths) > 0
+    assert cap is None or max(paths) > rows  # the second copy ran
 
 
 def test_a_span_that_raises_is_kept_and_closed(task):
