@@ -26,7 +26,7 @@ def control_numbers(cell, seed: int, device: str) -> dict:
     cfg = cell.config
     task_dir = os.path.join(cell.repo, cfg["task_dir"])
     models, lex = Models(os.path.join(task_dir, "models.npz")), Lexicon(task_dir)
-    pool = traffic.make_pool(task_dir, models, lex, cell.mix)
+    pool = traffic.make_pool(task_dir, models, lex, cell.mix, cfg["network"]["context"])
     sample = check.draw_sample(pool.lengths, int(cell.limits["sample"]), seed)
     net = Network(os.path.join(task_dir, "clg.npz"))
     point = cfg["point"]

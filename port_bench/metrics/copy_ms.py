@@ -1,5 +1,7 @@
 """copy_ms: for each traced wave, the time the program's `copy` spans
-(`decoder.core.host_batch`, mapped onto the profiler's clock by
+(on the fused route `decoder.fused_scan.assemble_results`: the best paths'
+walk on the card and their pinned copy; on the other routes
+`decoder.core.host_batch`; mapped onto the profiler's clock by
 `pb.program_trace`) stay open after the wave's last `frame_step` kernel
 ends, as a mean over the waves, in ms: the copy's own cost, without the
 wait for the kernel that its first read includes. Nothing where the

@@ -103,7 +103,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, device: str,
 
     t0 = time.perf_counter()
     models, lex = Models(os.path.join(task_dir, "models.npz")), Lexicon(task_dir)
-    pool = traffic.make_pool(task_dir, models, lex, mix)
+    pool = traffic.make_pool(task_dir, models, lex, mix, cfg["network"]["context"])
     spans["pool_s"] = time.perf_counter() - t0
     B = int(mix["batch"])
     sample = check.draw_sample(pool.lengths, int(cell.limits["sample"]), seed)

@@ -19,6 +19,28 @@ frame, at least 1) is scaled so that the holds sum to the target.
     to [`min`, `max`], whose median is solved for so that the pool's mean
     length is `mean` frames.
 
+Which HMM a phone is drawn from is the configuration's context dependency,
+its `network.context`:
+
+  - "monophone": phone p is the HMM named p;
+  - "xwrdtri", "xwrdtrindi" (the toolchain's two cross-word triphone C
+    transducers, which build the C differently and give an utterance the
+    same models): `sil` and `sp` are context-independent, each its own
+    model; every other phone p takes the logical model `l-p+r`, where l
+    and r are the phones beside it in the utterance, across word
+    boundaries, `sil` among them (`sil-p+r`, `l-p+sil`); `sp` is
+    transparent to context, so the phones on either side of it see each
+    other (as the C's arcs (1b) and (2b) in
+    `juicer_tpu_torch/compile/cd.py` assign them). A logical name is the
+    HMM of its physical name in the task directory's tied list
+    `tied.lst`, read as the toolchain reads an HTK list (a line of one
+    name is a physical model; a line of two ties the first, logical, name
+    to the second, physical, one; the first line of a name holds), and
+    where the task has no tied list, the HMM of that name itself (an
+    untied set).
+
+A phone, logical or physical name with no model raises, naming it.
+
 A mix file's other keys: `batch` (utterances a wave), `pool` (distinct
 utterances), `loop` ("closed") and `clients` (1), and `corpus_seed`: the
 pool (sentences and frames) is made from it, a fixed test set, the same
@@ -38,6 +60,11 @@ from statistics import NormalDist
 import numpy as np
 
 from .task import Lexicon, Models
+
+CONTEXTS = ("monophone", "xwrdtri", "xwrdtrindi")
+SIL, SP = "sil", "sp"
+TIED_LIST = "tied.lst"
+
 
 def load_mix(path: str) -> dict:
     with open(path) as fd:
@@ -87,17 +114,54 @@ class Pool:
         return len(self.feats)
 
 
+def read_tied_list(path: str) -> dict:
+    """logical name -> physical name of an HTK tied list."""
+    tied = {}
+    with open(path, errors="replace") as fd:
+        for line in fd:
+            parts = line.split()
+            if parts:
+                phys = parts[min(1, len(parts) - 1)]
+                tied.setdefault(phys, phys)
+                tied.setdefault(parts[0], phys)
+    return tied
+
+
+def cross_word_names(phones: list) -> list:
+    """The logical model of each phone of an utterance (names, sil at both
+    ends) under a cross-word triphone C."""
+    ctx = [i for i, p in enumerate(phones) if p != SP]
+    left = {b: phones[a] for a, b in zip(ctx, ctx[1:])}
+    right = {a: phones[b] for a, b in zip(ctx, ctx[1:])}
+    names = []
+    for i, p in enumerate(phones):
+        if p in (SIL, SP):
+            names.append(p)
+        elif i in left and i in right:
+            names.append(f"{left[i]}-{p}+{right[i]}")
+        else:
+            raise ValueError(f"phone {p!r} at an edge of the utterance has no context: "
+                             f"{' '.join(phones)}")
+    return names
+
+
 class Sentences:
     """A task's bigram, pronunciations and phone models, and its sentence
     sampler."""
 
-    def __init__(self, task_dir: str, models: Models, lex: Lexicon):
+    def __init__(self, task_dir: str, models: Models, lex: Lexicon, context: str):
+        if context not in CONTEXTS:
+            raise ValueError(f"unknown context {context!r}: the traffic draws {CONTEXTS}")
         self.bz = np.load(os.path.join(task_dir, "bigram.npz"))
         self.rows = {}
         self.lex = lex
         self.models = models
-        self.hmm_of_phone = [models.hmm_index.get(p, -1) for p in lex.phones]
+        self.context = context
         self.SB, self.SE = lex.n_words, lex.n_words + 1
+        path = os.path.join(task_dir, TIED_LIST)
+        self.tied = (read_tied_list(path) if context != "monophone" and os.path.exists(path)
+                     else None)
+        self.hmm_of_name = {}
 
     def _row(self, w: int):
         row = self.rows.get(w)
@@ -107,25 +171,34 @@ class Sentences:
             row = self.rows[w] = (ids, cdf / cdf[-1])
         return row
 
-    def sentence(self, rng, frames_of):
-        """ONE sentence <s> w... </s>: its words and the sum of frames_of."""
-        words, w, est = [], self.SB, 0
+    def sentence(self, rng):
+        """The words of ONE sentence <s> w... </s>."""
+        words, w = [], self.SB
         while True:
             ids, cdf = self._row(w)
             w = int(ids[min(int(np.searchsorted(cdf, rng.random(), side="right")), len(ids) - 1)])
             if w == self.SE:
-                return words, est
+                return words
             words.append(w)
-            est += frames_of(w)
 
-    def sample_close(self, rng, frames_of, target):
+    def frames(self, words, fps: int) -> int:
+        """The frames a sentence is estimated to take, by which it is chosen:
+        monophone, each phone of the words at the emitting states of HMM 0
+        (sil left out); otherwise the emitting states of the HMMs it uses."""
+        if self.context == "monophone":
+            n = sum(len(self.lex.prons[f"w{w}"]) for w in words)
+            return n * (self.models.n_states(0) - 2) * fps
+        return sum(self.models.n_states(h) - 2 for h in self.hmms(words)) * fps
+
+    def sample_close(self, rng, fps: int, target):
         """The first of up to 300 sentences within 0.6-1.5x the target
         frames, else the closest non-empty one."""
         best = None
         for _ in range(300):
-            words, est = self.sentence(rng, frames_of)
+            words = self.sentence(rng)
             if not words:
                 continue
+            est = self.frames(words, fps)
             err = abs(est - target)
             if best is None or err < best[0]:
                 best = (err, words)
@@ -133,11 +206,34 @@ class Sentences:
                 break
         return best[1]
 
-    def state_gmms(self, words) -> np.ndarray:
-        """The GMM of each emitting state of sil + the words + sil."""
+    def hmms(self, words) -> list:
+        """The HMM of each phone of sil + the words + sil."""
         prons = self.lex.prons
         phones = prons["<s>"] + sum((prons[f"w{w}"] for w in words), []) + prons["</s>"]
-        return np.concatenate([self.models.hmm_gmms[self.hmm_of_phone[p]] for p in phones])
+        names = [self.lex.phones[p] for p in phones]
+        if self.context != "monophone":
+            names = cross_word_names(names)
+        return [self._hmm(n) for n in names]
+
+    def _hmm(self, logical: str) -> int:
+        """The HMM of a phone's model name, through the tied list if any."""
+        h = self.hmm_of_name.get(logical)
+        if h is None:
+            if self.tied is None:
+                phys = logical
+            elif logical in self.tied:
+                phys = self.tied[logical]
+            else:
+                raise ValueError(f"the logical model {logical!r} is not in {TIED_LIST}")
+            if phys not in self.models.hmm_index:
+                via = f" (the physical model of {logical!r})" if phys != logical else ""
+                raise ValueError(f"no HMM named {phys!r}{via}")
+            h = self.hmm_of_name[logical] = self.models.hmm_index[phys]
+        return h
+
+    def state_gmms(self, words) -> np.ndarray:
+        """The GMM of each emitting state of sil + the words + sil."""
+        return np.concatenate([self.models.hmm_gmms[h] for h in self.hmms(words)])
 
 
 def _holds(rng, n: int, fps: int, T: int):
@@ -158,24 +254,19 @@ def _holds(rng, n: int, fps: int, T: int):
     return hold
 
 
-def make_pool(task_dir: str, models: Models, lex: Lexicon, mix: dict) -> Pool:
-    """The pool of the mix's corpus seed: utterance i has exactly
-    pool_lengths(mix)[i] frames."""
+def make_pool(task_dir: str, models: Models, lex: Lexicon, mix: dict, context: str) -> Pool:
+    """The pool of the mix's corpus seed under the configuration's context
+    dependency: utterance i has exactly pool_lengths(mix)[i] frames."""
     rng = rng_of(mix["corpus_seed"], 0)
-    sents = Sentences(task_dir, models, lex)
+    sents = Sentences(task_dir, models, lex, context)
     fps = int(mix["frames_per_state"])
-    per_phone = models.n_states(0) - 2
-
-    def frames_of(w):
-        return len(lex.prons[f"w{w}"]) * per_phone * fps
-
     sd = np.sqrt(models.vars).astype(np.float32)
     mu = models.means.astype(np.float32)
     words, feats = [], []
     lengths = pool_lengths(mix)
     for T in lengths:
         for _try in range(50):
-            ws = sents.sample_close(rng, frames_of, int(T))
+            ws = sents.sample_close(rng, fps, int(T))
             gmms = sents.state_gmms(ws)
             hold = _holds(rng, len(gmms), fps, int(T))
             if hold is not None:
