@@ -191,8 +191,8 @@ Phases (any failure raises and exits non-zero before the result line):
      the bench wave's overflow 0; accuracy reported) and `SWEEP_HARD`
      (100,75,1200, free text, decode-side mismatch 1.5, the JAX sweep's
      start K=2048 / E=4096, 4 utterances of ~300 frames and a bench at
-     B=4: its route and reason printed, expected the plain loop past the
-     kernel's shared memory); one line a rung with
+     B=4: its route printed; its budgets pass a block's shared memory, so
+     the kernel keeps their search state in device memory); one line a rung with
      K, E, accuracy, errors, peak, overflow, dead, steady frames/s and
      route; the seconds of each sweep;
   [wsj otf 20k] inside [otf]: its budgets are `harness/wsj_otf.tune`'s
@@ -338,13 +338,15 @@ Phases (any failure raises and exits non-zero before the result line):
      GMMs of 8 components, D=39) and the artifact by the native closure
      (seconds, closure entries, largest fan-out, the tables' bytes on the
      card); B=1 at the script's defaults K=8192 / E=32768 (`decode_scores`
-     twice, the plain loop, its reason printed, no frame_step launch);
+     twice through `frame_step`, its search state in device memory: two
+     launches), its result equal to `decode_scores(use_fused=False)` and
+     the unpadded wave held bit for bit to the plain loop (`hold_to_plain`);
      `--batch 8` at K=768 / E=1024 through `frame_step` (first and steady
      wave, two launches, overflow reported: the budgets bind by design),
      the same wave held bit for bit to the plain loop (`hold_to_plain`),
      the kernel's ms against `frame_step_bound`; its first utterance
-     through `decode_scores` (one launch) equal to the plain loop's; K=1024 / E=1408 refused by
-     `why_not_fused` at G=6,000 (shared memory); `gmm_logsumexp` at G=6,000
+     through `decode_scores` (one launch) equal to the plain loop's; K=8192 / E=40000 refused by
+     `why_not_fused` at G=6,000 (the sort merge); `gmm_logsumexp` at G=6,000
      on 8 x 500 frames of N(0, 1) features against the plain scorer, as in
      3, beside [gmm] B=16's G=141 reading;
   [pipeline scale] `harness/pipeline_scale` at 200 and 1000 words (host):
@@ -364,10 +366,25 @@ Phases (any failure raises and exits non-zero before the result line):
      the bound;
   [graft entry] `graft_entry.entry` on the card (one launch of each kernel)
      against `entry(device="cpu")` on a synthesised utterance, best finals
-     within 1e-3; `dryrun_multichip(2)` over two replicas on the card;
+     within 1e-3; `dryrun_multichip(2)` over two replicas on the card, its
+     WSJ-budget decoder (K=2048 / E=4096) on the kernel route: launches
+     gmm_logsumexp 2, frame_step 12;
+  [20k tri1] after [cli 20k], the cross-word triphone task
+     (`scripts/_wsj_cache_20k_tri1`: the 20k words over the `xwrdtri` C,
+     2,000 tied states of 3 to 12 Gaussians, ~9,800 HMMs; its artifact
+     built in memory) at `TRI_POINT` (K=8,576 / E=12,672, beams 70 / 40 /
+     500), the benchmark cell `wsj20k-tri1.read-b16`'s shapes: the kernel
+     dims must keep the search state in device memory and the HMM tables
+     unstaged; 8 utterances sampled with seed 11 at ~1000 frames, tiled to
+     B=16; the GMM kernel held to the plain scorer as in 3; the plain
+     loop's wave certified, then the frame-step kernel held to it bit for
+     bit (`hold_to_plain`, the walk too), launch counts zeroed before and
+     read after (0 and 1); the kernel's ms a wave, the plain loop's, and
+     the bound;
   8. result: a `kernels` JSON line (four kernels: gmm_logsumexp and
-     frame_step with the 20k fields, path_walk (launches, ms, plain_ms,
-     bound_ms at B=16, B=132 and 20k), the OTF path's launches, the CLI
+     frame_step with the 20k and 20k tri1 (`*_tri1`) fields, path_walk
+     (launches, ms, plain_ms, bound_ms at B=16, B=132, 20k and 20k tri1),
+     the OTF path's launches, the CLI
      phases' launches, the mesh's (`launches_mesh`), the gloo ranks'
      (`launches_gloo`) and the tools' (`launches_wsj_bench`,
      `launches_wsj_sweep`, `launches_wsj_otf`, `launches_bench_otf`,
@@ -558,9 +575,11 @@ def gmm_phase(scorer, xx, what, card):
         lambda: gmm_scores_dense(xx, scorer.V, scorer.M, scorer.b, scorer.mask), 20)
     library_ms = cuda_ms(library, 20)
     # the function's own work: every real (frame, GMM, component) over
-    # 2D inputs; each input byte read once, each output byte written once
-    flops = 2.0 * T * G * C * 2 * D
-    nbytes = 4.0 * (xx.numel() + 2 * D * G * C + G * C + T * G)
+    # 2D inputs, the padding of smaller mixtures left out; each input byte
+    # read once, each output byte written once
+    n_real = int(scorer.mask.sum())
+    flops = 2.0 * T * n_real * 2 * D
+    nbytes = 4.0 * (xx.numel() + (2 * D + 1) * n_real + T * G)
     t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
@@ -765,9 +784,12 @@ def main() -> int:
         for line in rep.splitlines():
             if "Compiling entry function" in line:
                 entry = line
-            # frame_step is compiled per HMM state count and for staged or
-            # unstaged HMM tables; S=5, staged, is the task's
-            if name == "frame_step" and "ILi5ELb1E" not in entry:
+            # frame_step is compiled per HMM state count, for staged or
+            # unstaged HMM tables and for a search state in shared or device
+            # memory; S=5 staged in shared memory is the monophone tasks',
+            # S=5 unstaged in device memory the triphone task's
+            if name == "frame_step" and not ("ILi5ELb1ELb1E" in entry
+                                             or "ILi5ELb0ELb0E" in entry):
                 continue
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
@@ -1069,10 +1091,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cli20 = phase_cli_20k(card, dev, cli_lib, phase_done)
-    # release the CLI's decoder before the on-the-fly pair's
+    # release the CLI's decoder before the triphone task's and the
+    # on-the-fly pair's
     del cli_lib
     gc.collect()
     torch.cuda.empty_cache()
+    tri = phase_tri_20k(card, dev, phase_done)
     cl20 = phase_toolchain_20k(card, phase_done)
     otf = phase_otf(card, dev, k20.pop("static"), phase_done)
     cli_lib = otf.pop("cli")
@@ -1105,7 +1129,8 @@ def main() -> int:
         "max_abs_err_b132": gmm132["err"], "ms_b132": gmm132["ms"],
         "plain_ms_b132": gmm132["plain_ms"], "bound_ms_b132": gmm132["bound_ms"],
         "library_ms_b132": gmm132["library_ms"], "launches_b132": launches2[0],
-        **k20["gmm_logsumexp"], **otf["gmm_logsumexp"], **cli["gmm_logsumexp"],
+        **k20["gmm_logsumexp"], **tri["gmm_logsumexp"], **otf["gmm_logsumexp"],
+        **cli["gmm_logsumexp"],
         "launches_gloo": gloo["gmm_logsumexp"],
     }, {
         "name": "frame_step", "route": "cuda",
@@ -1116,7 +1141,7 @@ def main() -> int:
         "bound_by": fs_bound_by, "library_ms": None,
         "bound_ms_dense": dense_bound, "ms_b132": fs_ms2,
         "launches_b132": launches2[1],
-        **k20["frame_step"], **otf["frame_step"], **cli["frame_step"],
+        **k20["frame_step"], **tri["frame_step"], **otf["frame_step"], **cli["frame_step"],
         "launches_gloo": gloo["frame_step"],
     }, {
         "name": "path_walk", "route": "cuda",
@@ -1126,7 +1151,7 @@ def main() -> int:
         "plain_ms": walk16["plain_ms"], "bound_ms": walk16["bound_ms"], "bound_by": "bytes",
         "library_ms": None, "path_rows": walk16["rows"], "dtoh_bytes": walk16["bytes"],
         "ms_b132": walk132["ms"], "launches_b132": launches2[2],
-        **k20["path_walk"],
+        **k20["path_walk"], **tri["path_walk"],
     }, probe]}))
     print("[time] phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; total {sum(phase_s.values()):.1f}", flush=True)
@@ -1785,6 +1810,97 @@ def phase_20k(card, dev, at_2k, phase_done):
     }
 
 
+def phase_tri_20k(card, dev, phase_done):
+    """[20k tri1]: the cross-word triphone task (`scripts/_wsj_cache_20k_tri1`,
+    see the module docstring) at `TRI_POINT`, one wave at B=16 through the
+    frame-step kernel held to the plain loop. Returns the kernels line's
+    fields."""
+    import torch
+
+    from juicer_tpu_torch.decoder import fused_scan
+    from juicer_tpu_torch.decoder.core import TorchDecoder, host_batch
+    from juicer_tpu_torch.decoder.fused_scan import FusedDecodeScan
+    from juicer_tpu_torch.harness import wsj_task
+    from juicer_tpu_torch.ops import gmm_cuda
+    from juicer_tpu_torch.ops.gmm import make_gmm_scorer
+
+    p = wsj_task.TRI_POINT
+    B = p["batch"]
+    task = wsj_task.load_task("20k-tri1", cache=False)
+    models = task.models
+    dec = TorchDecoder(task.artifact, wsj_task.decoder_config(p, emit_diagnostics=True),
+                       device="cuda")
+    fs = FusedDecodeScan(dec, B)
+    why = fused_scan.why_not_fused(dec)
+    if why is not None or fs.dims["state_in_smem"] or fs.dims["hmm_words"]:
+        raise RuntimeError(f"[20k tri1] fused scope {why}, dims {fs.dims}: expected the "
+                           f"kernel, its search state in device memory, HMM tables unstaged")
+    params = models.flat_params()
+    G, D = params.n_gmms, params.vec_size
+    utts = wsj_task.sample_utterances(task.cache, models, n_utts=p["n_utts"],
+                                      target_frames=p["frames"], seed=11)
+    feats, lengths, Tmax = tile_features(utts, B, dev)
+    labels, markers = wsj_task.word_labels(task.cache)
+    print(f"[20k tri1] {task.net.n_arcs} arcs, {dec.H} HMMs, {G} GMMs; K={dec.K} E={dec.E} "
+          f"F={dec.F}, beams {p['beam']}/{p['end_beam']}/{p['maxhyps']}; {len(utts)} "
+          f"utterances T={[f.shape[0] for _, f in utts]}, batch {B} x {Tmax}; kernel dims "
+          f"{fs.dims}, {fused_scan.smem_bytes(**fs.dims)} bytes of shared memory a block",
+          flush=True)
+    phase_done("20k tri1 task")
+
+    scorer = make_gmm_scorer(params, device="cuda")
+    x = feats.reshape(B * Tmax, D).contiguous()
+    gmm = gmm_phase(scorer, x, f"20k tri1 B={B}", card)
+
+    scores = scorer(x).view(B, Tmax, G)
+    gmm_cuda.counter.launches = 0
+    fused_scan.counter.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_state = dec.run(scores)
+    torch.cuda.synchronize()
+    t_plain = time.perf_counter() - t0
+    if fused_scan.counter.launches:
+        raise RuntimeError("[20k tri1] the plain wave launched frame_step")
+    host = host_batch(*plain_state)
+    plain_results = [dec.traceback(host, b, Tmax, true_T=lengths[b]) for b in range(B)]
+    del host
+    certify(plain_results, "20k tri1 plain", utts, labels, markers)
+    scores_tbg = scores.transpose(0, 1).contiguous()
+    fused_scan.counter.launches = 0
+    fused_state, float_err, walk = hold_to_plain("20k tri1", dec, fs, scores_tbg,
+                                                 plain_state, plain_results, lengths)
+    launches = (gmm_cuda.counter.launches, fused_scan.counter.launches)
+    if launches != (0, 1):
+        raise RuntimeError(f"[20k tri1] the held wave launched gmm_logsumexp, frame_step "
+                           f"{launches}; expected 0 and 1")
+    n_cand, n_active, n_rec = wave_counts(fused_state[1])
+    del plain_state, fused_state
+    fs_ms = cuda_ms(lambda: fs(scores_tbg), 3)
+    bound, bound_by, nbytes, ops, _ = frame_step_bound(dec, B, Tmax, scores_tbg.numel(),
+                                                       n_cand, n_active, n_rec)
+    print(f"[20k tri1] the frame-step kernel equals the plain loop bit for bit on the wave "
+          f"{B} x {Tmax} (compact records, their expansion, 8 snapshots, carry, walk, words "
+          f"and word-end frames; max |float diff| {float_err}); launches gmm_logsumexp "
+          f"{launches[0]}, frame_step {launches[1]}; frame_step {fs_ms:.3f} ms a wave "
+          f"({fs_ms * 1e3 / Tmax:.2f} us a frame), plain loop {t_plain * 1e3:.1f} ms, bound "
+          f"{bound:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G operations; "
+          f"{n_cand} candidates, {n_active} active slot-frames, {n_rec} records) | {card}",
+          flush=True)
+    del dec, fs, scores, scores_tbg, x, feats, scorer, task
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("20k tri1 fused vs plain")
+    return {"gmm_logsumexp": {"ms_tri1": gmm["ms"], "plain_ms_tri1": gmm["plain_ms"],
+                              "library_ms_tri1": gmm["library_ms"],
+                              "bound_ms_tri1": gmm["bound_ms"], "max_abs_err_tri1": gmm["err"]},
+            "frame_step": {"ms_tri1": fs_ms, "plain_ms_tri1": t_plain * 1e3,
+                           "bound_ms_tri1": bound, "bound_by_tri1": bound_by,
+                           "max_abs_err_tri1": float_err, "launches_tri1": launches[1]},
+            "path_walk": {"ms_tri1": walk["ms"], "plain_ms_tri1": walk["plain_ms"],
+                          "bound_ms_tri1": walk["bound_ms"], "path_rows_tri1": walk["rows"]}}
+
+
 def phase_otf(card, dev, static, phase_done):
     """[otf]: on-the-fly composition at the 20k task on the card (see the
     module docstring). `static` holds the static 20k plain loop's numbers
@@ -2056,10 +2172,10 @@ def phase_otf(card, dev, static, phase_done):
 # ---- the reference-scale tools of harness/ ----------------------------------
 # [wsj sweep 20k]'s rungs: two on the tracked models, tuned from the bench's
 # budgets, and one hard rung (free text, decode-side mismatch 1.5, the JAX
-# sweep's default budgets) expected past the kernel's shared memory. At the
-# full 8 x 1000 frames the hard rung took 82.5 and 105.5 s of plain loop (69
-# s of it tuning: three probes up to K=8192); past 90 s it runs on 4
-# utterances of ~300 frames
+# sweep's default budgets) past a block's shared memory, where the kernel
+# keeps its search state in device memory. At the full 8 x 1000 frames, on
+# the plain loop, the hard rung took 82.5 and 105.5 s (69 s of it tuning:
+# three probes up to K=8192); so it runs on 4 utterances of ~300 frames
 SWEEP_EASY = ["--settings", "70,50,500;60,40,300", "--K", "1024", "--E", "1408",
               "--batches", "8"]
 SWEEP_HARD = ["--settings", "100,75,1200", "--free-text", "--mismatch", "1.5",
@@ -2138,8 +2254,8 @@ def phase_wsj_sweep_20k(card, task, phase_done):
     row a rung with its route: `SWEEP_EASY`'s two rungs on the tracked
     models must certify on the kernel route (overflow 0, dead 0, the bench
     wave's overflow 0; accuracy reported); `SWEEP_HARD`'s rung prints its
-    route and reason (expected: the plain loop, past the kernel's shared
-    memory). Returns the kernels line's fields."""
+    route (its budgets past a block's shared memory: the kernel, its search
+    state in device memory). Returns the kernels line's fields."""
     from juicer_tpu_torch.decoder import fused_scan
     from juicer_tpu_torch.harness import wsj_sweep
     from juicer_tpu_torch.ops import gmm_cuda
@@ -2221,7 +2337,7 @@ def phase_bench_otf(card, phase_done):
 PIPELINE_ARCS = {200: (1165, 1000, 3125, 12293, 12013),
                  1000: (5960, 5000, 15869, 102981, 100796)}
 SCALE_KERNEL_KE = (768, 1024)  # at G=6,000: fits a block's shared memory
-SCALE_PLAIN_KE = (1024, 1408)  # the bench's budgets: past it at G=6,000
+SCALE_PLAIN_KE = (8192, 40000)  # past E=32768 "auto" takes the sort merge: the plain loop
 SCALE_B = 8
 
 
@@ -2255,21 +2371,45 @@ def phase_scale_1m(card, dev, gmm141, phase_done):
           flush=True)
     phase_done("scale 1M build")
 
-    # B=1 at the script's defaults (K=8192 / E=32768): the plain loop
+    # B=1 at the script's defaults (K=8192 / E=32768): the kernel, its search
+    # state past a block's shared memory in device memory
     gmm_cuda.counter.launches = 0
     fused_scan.counter.launches = 0
     b1 = scale_bench.run(scale_bench.parse_args([]), (net, models, art))
     n_b1 = (gmm_cuda.counter.launches, fused_scan.counter.launches)
-    if not b1["route"].startswith("plain loop: ") or n_b1 != (0, 0):
+    if b1["route"] != "frame_step" or n_b1 != (0, 2):
         raise RuntimeError(f"[scale 1M] B=1 at K=8192 / E=32768: route {b1['route']}, "
-                           f"launches {n_b1}; expected the plain loop, (0, 0)")
+                           f"launches {n_b1}; expected frame_step, (0, 2)")
     s = b1["single"]
     print(f"[scale 1M] B=1 K={b1['decoder'].K} E={b1['decoder'].E}: route {b1['route']}; "
           f"{len(s['result'].words)} words, overflow {s['result'].overflow}; first call "
           f"{s['first_s']:.2f}s, steady {s['steady_s']:.2f}s = "
           f"{scale_bench.FRAMES / s['steady_s']:.1f} frames/s; launches gmm_logsumexp "
           f"{n_b1[0]}, frame_step {n_b1[1]} | {card}", flush=True)
-    del b1, s
+    # the same scores held to the plain loop: the script's result against
+    # `decode_scores(use_fused=False)`, and the unpadded wave bit for bit
+    dec1, T = b1["decoder"], scale_bench.FRAMES
+    sc1 = dec1.scores_tensor(scale_bench.score_batch(0, G))
+    t0 = time.perf_counter()
+    r_plain1 = dec1.decode_scores(sc1, use_fused=False)
+    plain_ms_b1 = (time.perf_counter() - t0) * 1e3
+    if not same_result(s["result"], r_plain1):
+        raise RuntimeError(f"[scale 1M] B=1 at K={dec1.K} / E={dec1.E}: kernel words "
+                           f"{s['result'].words} score {s['result'].score} vs plain "
+                           f"{r_plain1.words} {r_plain1.score}")
+    plain_state = dec1.run(sc1[None])
+    host = host_batch(*plain_state)
+    fs1 = FusedDecodeScan(dec1, 1)
+    if fs1.dims["state_in_smem"]:
+        raise RuntimeError(f"[scale 1M] B=1 at K={dec1.K} / E={dec1.E}: dims {fs1.dims}")
+    _, err_b1, _ = hold_to_plain("scale 1M B=1", dec1, fs1, sc1[:, None].contiguous(),
+                                 plain_state, [dec1.traceback(host, 0, T)], [T])
+    print(f"[scale 1M] B=1 K={dec1.K} E={dec1.E} (search state in device memory): the "
+          f"script's result equals decode_scores(use_fused=False) ({plain_ms_b1:.1f} ms), "
+          f"and on the unpadded wave the kernel equals the plain loop bit for bit "
+          f"(records, snapshots, carry, walk, words; max |float diff| {err_b1}) | {card}",
+          flush=True)
+    del b1, s, dec1, sc1, r_plain1, plain_state, host, fs1
     phase_done("scale 1M B=1")
 
     # --batch 8 at K=768 / E=1024 through the kernel, then held to the plain loop
@@ -2335,7 +2475,7 @@ def phase_scale_1m(card, dev, gmm141, phase_done):
     K2, E2 = SCALE_PLAIN_KE
     wide = TorchDecoder(art, scale_bench.decoder_config(K2, E2), device=dev)
     why = fused_scan.why_not_fused(wide)
-    if why is None or "shared memory" not in why:
+    if why is None or "sort merge" not in why:
         raise RuntimeError(f"[scale 1M] K={K2} / E={E2} at G={G}: why_not_fused {why!r}")
     print(f"[scale 1M] K={K2} / E={E2} at G={G} takes the plain loop: {why}", flush=True)
     del wide
@@ -2361,6 +2501,7 @@ def phase_scale_1m(card, dev, gmm141, phase_done):
                               "bound_ms_g6000": g6k["bound_ms"],
                               "library_ms_g6000": g6k["library_ms"]},
             "frame_step": {"launches_scale_b1": n_b1[1], "launches_scale_b8": n_b8[1],
+                           "plain_ms_scale_b1": plain_ms_b1, "max_abs_err_scale_b1": err_b1,
                            "ms_scale_b8": fs_ms, "plain_ms_scale_b8": plain_ms,
                            "bound_ms_scale_b8": bound, "bound_by_scale_b8": bound_by,
                            "max_abs_err_scale_b8": float_err}}
@@ -2434,7 +2575,7 @@ def phase_profile_otf_step(card, dev, pair, phase_done):
     db = profile_otf_step.batch_scores(cache, models, 8, dev, frames=200)
     out = profile_otf_step.profile(art, g, db, waves=1, card=card)
     n = (gmm_cuda.counter.launches, fused_scan.counter.launches)
-    if n != (8, 0) or any(not out[k]["route"].startswith("plain loop: ") for k in out):
+    if n != (8, 0) or any(not out[k]["route"].startswith("plain loop") for k in out):
         raise RuntimeError(f"[profile otf step] launches {n} (expected (8, 0)), routes "
                            f"{[out[k]['route'] for k in out]}")
     print(f"[profile otf step] B=8 x {db.shape[1]} frames, K=2176 / E=3840: " + ", ".join(
@@ -2587,9 +2728,13 @@ def phase_graft_entry(card, dev, phase_done):
     out = graft_entry.dryrun_multichip(2, device=dev, mesh=(dev, dev))
     n_dry = (gmm_cuda.counter.launches, fused_scan.counter.launches)
     # gmm_logsumexp: the batch's scores and the WSJ-budget batch's; frame_step:
-    # 4 single-device truths, 2 shares of the fused route, 2 gathered finals
-    if n_dry != (2, 8):
-        raise RuntimeError(f"[graft entry] dryrun_multichip launches {n_dry}, expected (2, 8)")
+    # 4 single-device truths, 2 shares of the fused route, 2 gathered finals,
+    # and at the WSJ-order budgets (K=2048 / E=4096, past a block's shared
+    # memory: the kernel, its search state in device memory) 2 single-device
+    # truths and 2 shares of the mesh
+    if n_dry != (2, 12) or out["routes"]["wsj-budget"] != "frame_step":
+        raise RuntimeError(f"[graft entry] dryrun_multichip launches {n_dry}, expected "
+                           f"(2, 12); routes {out['routes']}")
     print(f"[graft entry] dryrun_multichip(2) over (cuda:0, cuda:0): {len(out['plain'])} "
           f"utterances, routes {out['routes']}, mean best final {out['mean_best_final']:.3f}; "
           f"launches gmm_logsumexp {n_dry[0]}, frame_step {n_dry[1]}; "

@@ -21,6 +21,7 @@ A reduced copy of `juicer_tpu/am/models.py` (the rebuild of `HTKModels`,
 from __future__ import annotations
 
 import math
+import zipfile
 from dataclasses import dataclass
 from typing import Optional
 
@@ -58,6 +59,19 @@ class FlatGmmParams:
     M: np.ndarray  # (D, G*C) f32
     b: np.ndarray  # (G*C,)   f32
     mask: np.ndarray  # (G, C) bool
+
+
+def _read_npz(path: str) -> dict:
+    """Every array of an npz file, by name, read in one pass over the zip
+    (what `np.load` gives, without its linear search of the member list
+    at every lookup: a tied-state set holds some 16,000 arrays)."""
+    out = {}
+    with zipfile.ZipFile(path) as zf:
+        for info in zf.infolist():
+            if info.filename.endswith(".npy"):
+                with zf.open(info) as fd:
+                    out[info.filename[:-4]] = np.lib.format.read_array(fd, allow_pickle=False)
+    return out
 
 
 class AcousticModelSet:
@@ -179,7 +193,7 @@ class AcousticModelSet:
 
     @classmethod
     def load_npz(cls, path: str) -> "AcousticModelSet":
-        z = np.load(path, allow_pickle=False)
+        z = _read_npz(path)
         ms = cls()
         ms.vec_size = int(z["vec_size"])
         ms.hybrid_mode = bool(z["hybrid"])

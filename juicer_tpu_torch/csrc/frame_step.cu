@@ -66,7 +66,10 @@
 //     emitting flags, GMM ids) are staged in shared memory at kernel start
 //     when they fit (the wrapper decides; a template flag, so that staged
 //     reads are shared-memory loads), and the next frame's score row
-//     arrives by cp.async while this frame computes;
+//     arrives by cp.async while this frame computes, into the one row
+//     buffer once phase A, its only reader, is done with it (G floats, not
+//     2G: at G = 2,000 GMMs the buffer takes 8 KB, and a second one would
+//     leave no room for E = 1,664 beside unstaged HMM tables);
 //   - the recombination table is never cleared between frames: key, winner
 //     and slot words carry the frame's generation, so an entry of an earlier
 //     frame reads as empty. It is cleared only when the generation wraps
@@ -105,8 +108,15 @@
 // E=1408, S=5, H=47: the table 64 KB (16 bytes an entry), the frontier
 // 60 KB, ten (K) and seven (E) work planes 79 KB (reused across phases,
 // as noted at their declarations), the histogram 4 KB, the staged HMM
-// tables 5.6 KB (H*S*(S+1) words), two score rows and the warps' record
-// counts 1.4 KB.
+// tables 5.6 KB (H*S*(S+1) words), the score row and the warps' record
+// counts 0.8 KB. Where the search state (table, frontier, work and
+// candidate planes) does not fit, as for the thousands of live HMM
+// instances of a tied-state triphone system at the same beams (K=8,576
+// and E=12,672 take 1.7 MB), it lies in the block's part of a workspace
+// in device memory (a template flag, so that the shared-memory kernel is
+// unchanged), and every phase's reads and atomics on it go through L1
+// and L2; the histogram, the score row and the record counts stay in
+// shared memory.
 //
 // Every float result is one add or subtract, a max or a select, so there is
 // no float sum whose order could matter, and the counters are integers.
@@ -139,12 +149,12 @@ enum Ptr {
   P_OUT_BF_SRC,
   P_RECORDS, P_REC_COUNT,
   P_BF_SCORE, P_BF_AC, P_BF_LM, P_BF_PATH, P_BF_SEQ, P_BF_SRC, P_N_ACTIVE,
-  P_N_CAND,
+  P_N_CAND, P_WORKSPACE,
   N_PTR
 };
 enum Int {
   I_B, I_K, I_E, I_F, I_S, I_G, I_H, I_N_ARCS, I_N_ENT, I_N_FENT, I_N_BINS, I_HT,
-  I_MAX_EMIT_HYPS, I_N_FRAMES, I_T_BASE, I_THREADS, I_REC_CAP, I_HMM_SMEM,
+  I_MAX_EMIT_HYPS, I_N_FRAMES, I_T_BASE, I_THREADS, I_REC_CAP, I_HMM_SMEM, I_WS_BYTES,
   N_INT
 };
 enum Flt { F_EMIT_WIN, F_START_WIN, F_END_WIN, F_WORD_WIN, F_HIST_MIN, F_HIST_MAX, N_FLT };
@@ -345,14 +355,21 @@ struct Shared {
 
 __host__ __device__ inline size_t rup4(size_t n) { return (n + 3) & ~static_cast<size_t>(3); }
 
-// dynamic shared memory of one block, in bytes (mirrored by fused_scan.py);
-// hmm_words = H*S*(S+1) when the HMM tables are staged, else 0
-__host__ __device__ inline size_t smem_bytes(int K, int E, int S, int G, int n_bins, int HT,
-                                             int hmm_words) {
+// the search state of one block, in bytes (mirrored by fused_scan.py): the
+// recombination table, the frontier and work planes and the candidate planes
+__host__ __device__ inline size_t search_state_bytes(int K, int E, int S, int HT) {
   return 8 * static_cast<size_t>(HT) +
          4 * (2 * static_cast<size_t>(HT) + (3 * static_cast<size_t>(S | 1) + 10) * rup4(K) +
-              7 * rup4(E) + rup4(n_bins) + 2 * rup4(G) + rup4((K + 31) / 32 + 32) +
-              rup4(hmm_words));
+              7 * rup4(E));
+}
+// dynamic shared memory of one block, in bytes (mirrored by fused_scan.py):
+// the search state where it rides in shared memory, the histogram, the score
+// row, the warps' record counts and, when staged, the HMM tables (hmm_words =
+// H*S*(S+1), else 0)
+__host__ __device__ inline size_t smem_bytes(int K, int E, int S, int G, int n_bins, int HT,
+                                             int hmm_words, bool state_in_smem) {
+  return (state_in_smem ? search_state_bytes(K, E, S, HT) : 0) +
+         4 * (rup4(n_bins) + rup4(G) + rup4((K + 31) / 32 + 32) + rup4(hmm_words));
 }
 
 __device__ __forceinline__ void cp_async4(void* smem_dst, const void* src) {
@@ -364,7 +381,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <int S, bool kStaged>
+template <int S, bool kStaged, bool kShared>
 __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ Shared sh;
@@ -385,8 +402,16 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
   const int K4 = static_cast<int>(rup4(K)), E4 = static_cast<int>(rup4(E));
   const int G4 = static_cast<int>(rup4(G));
 
-  // ---- carve the dynamic shared memory --------------------------------
-  unsigned long long* ht_val = reinterpret_cast<unsigned long long*>(smem_raw);
+  // ---- carve the search state and the dynamic shared memory -------------
+  // The search state (table, frontier, work and candidate planes) lies in
+  // shared memory, or where it does not fit (a frontier of thousands of
+  // slots) in the block's part of a workspace in device memory; the rest
+  // always lies in shared memory.
+  unsigned char* fbase = smem_raw;
+  if (!kShared) {
+    fbase = at<unsigned char>(p, P_WORKSPACE) + static_cast<size_t>(b) * p.i[I_WS_BYTES];
+  }
+  unsigned long long* ht_val = reinterpret_cast<unsigned long long*>(fbase);
   unsigned* ht_key = reinterpret_cast<unsigned*>(ht_val + HT);
   unsigned* ht_slot = ht_key + HT;
   // the frontier, slot-major with an odd stride: a slot's states sit at
@@ -418,9 +443,9 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
   int* c_seq = c_prev + E4;
   int* c_src = c_seq + E4;
   int* c_h = c_src + E4;    // hash position; then the routing code of a winner
-  int* s_hist = c_h + E4;
-  float* s_gmm = reinterpret_cast<float*>(s_hist + rup4(n_bins));  // two score rows
-  int* s_wrec = reinterpret_cast<int*>(s_gmm + 2 * G4);
+  int* s_hist = kShared ? c_h + E4 : reinterpret_cast<int*>(smem_raw);
+  float* s_gmm = reinterpret_cast<float*>(s_hist + rup4(n_bins));  // the score row
+  int* s_wrec = reinterpret_cast<int*>(s_gmm + G4);
   float* s_trp = reinterpret_cast<float*>(s_wrec + rup4((K + 31) / 32 + 32));  // (H, S, S)
   int* s_sg = reinterpret_cast<int*>(s_trp + H * S * S);  // (H, S) GMM id, -1 = not emitting
 
@@ -508,10 +533,9 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
     const size_t row_tb = static_cast<size_t>(f) * B + b;
     const int t = p.i[I_T_BASE] + f;
     Reduce& red = sh.r[f & 1];
-    const float* gmm_row = s_gmm + (f & 1) * G4;
     const int bound_r = (bound + 31) & ~31;  // whole warps take part
 
-    // ---- frame scalars; ask for the next frame's scores -------------------
+    // ---- frame scalars ----------------------------------------------------
     const float normalise = best_emit > kHalfNeg ? best_emit : 0.0f;
     norm = norm + normalise;
     float emit_thresh;
@@ -522,11 +546,6 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
       emit_thresh = emit_win > 0.0f ? -emit_win : kNeg;
     }
     const float start_thresh = best_start - start_win;
-    if (f + 1 < p.i[I_N_FRAMES]) {
-      const float* next = scores + (row_tb + B) * G;
-      float* dst = s_gmm + ((f + 1) & 1) * G4;
-      for (int g = tid; g < G; g += nt) cp_async4(dst + g, next + g);
-    }
     if (++gen > gen_max) {
       for (int i = tid; i < HT; i += nt) {
         ht_val[i] = 0ull;
@@ -589,7 +608,7 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
             gm = emitting[hmm * S + j] ? static_cast<int>(state_gmm[hmm * S + j]) : -1;
           }
           const bool pass = gm >= 0 && ns > emit_thresh && best > kHalfNeg;
-          const float outp = gmm_row[max(gm, 0)];
+          const float outp = s_gmm[max(gm, 0)];
           const float s2 = pass ? ns + outp : kNeg;
           const float a2 = pass ? bac + outp : kNeg;
           const int p2 = pass ? bpa : -1;
@@ -638,6 +657,13 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
       }
     }
     __syncthreads();  // 1
+    // phase A was the score row's only reader: the next frame's row comes
+    // into the same buffer while the rest of this frame computes (waited
+    // for before barrier 8)
+    if (f + 1 < p.i[I_N_FRAMES]) {
+      const float* next = scores + (row_tb + B) * G;
+      for (int g = tid; g < G; g += nt) cp_async4(s_gmm + g, next + g);
+    }
     FS_MARK(1);
 
     // ---- B. exit beams; one scan: exits, both fan-outs, the histogram ----
@@ -839,9 +865,11 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
           if (i < n_c) {
             const int h = c_h[i];
             int code = -1;
-            if (h >= 0 && (static_cast<unsigned>(ht_val[h]) & 0xffffu) ==
-                              0xffffu - static_cast<unsigned>(i)) {
-              const unsigned sl = ht_slot[h];
+            // the table's words were last written by atomics: in device
+            // memory they are read from L2, where the atomics landed
+            if (h >= 0 && (static_cast<unsigned>(kShared ? ht_val[h] : __ldcg(ht_val + h)) &
+                           0xffffu) == 0xffffu - static_cast<unsigned>(i)) {
+              const unsigned sl = kShared ? ht_slot[h] : __ldcg(ht_slot + h);
               code = (sl >> 16) == 0xffffu - gen ? static_cast<int>(sl & 0xffffu) : -2;
             }
             c_h[i] = code;
@@ -1053,7 +1081,7 @@ __global__ void __launch_bounds__(kMaxThreads) frame_step_kernel(const Params p)
   }
 }
 
-template <int S, bool kStaged>
+template <int S, bool kStaged, bool kShared>
 int launch(const Params& p, size_t smem, cudaStream_t stream) {
   // the opt-in to more than 48 KB is set once per instantiation, device and
   // size
@@ -1064,11 +1092,12 @@ int launch(const Params& p, size_t smem, cudaStream_t stream) {
   size_t& allowed = allowed_on[device];
   if (smem > 48 * 1024 && smem > allowed) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        frame_step_kernel<S, kStaged>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        frame_step_kernel<S, kStaged, kShared>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (rc != cudaSuccess) return static_cast<int>(rc);
     allowed = smem;
   }
-  frame_step_kernel<S, kStaged><<<p.i[I_B], p.i[I_THREADS], smem, stream>>>(p);
+  frame_step_kernel<S, kStaged, kShared><<<p.i[I_B], p.i[I_THREADS], smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1276,8 +1305,9 @@ __global__ void __launch_bounds__(32 * kWalkWarps) path_walk_kernel(const WalkPa
 
 // Dynamic shared memory one block takes, in bytes.
 extern "C" long long jtpu_frame_step_smem_bytes(int K, int E, int S, int G, int n_bins, int HT,
-                                                int hmm_words) {
-  return static_cast<long long>(smem_bytes(K, E, S, G, n_bins, HT, hmm_words));
+                                                int hmm_words, int state_in_smem) {
+  return static_cast<long long>(
+      smem_bytes(K, E, S, G, n_bins, HT, hmm_words, state_in_smem != 0));
 }
 
 #ifdef JTPU_FS_CLOCKS
@@ -1312,14 +1342,25 @@ extern "C" int jtpu_frame_step(const void* const* ptrs, const int* ints, const f
   const int nt = p.i[I_THREADS];
   if (nt < 32 || nt > kMaxThreads || nt % 32) return -1;
   if (p.i[I_K] >= 0xffff || p.i[I_E] >= 0xffff || p.i[I_F] >= 0xffff) return -1;
+  // the search state in shared memory, or (ws_bytes > 0) in a workspace of
+  // B * ws_bytes bytes of device memory that holds it
+  const bool shared = p.i[I_WS_BYTES] == 0;
+  if (!shared && (p.ptr[P_WORKSPACE] == nullptr || p.i[I_WS_BYTES] % 16 ||
+                  static_cast<size_t>(p.i[I_WS_BYTES]) <
+                      search_state_bytes(p.i[I_K], p.i[I_E], p.i[I_S], p.i[I_HT]))) {
+    return -1;
+  }
   const size_t smem =
       smem_bytes(p.i[I_K], p.i[I_E], p.i[I_S], p.i[I_G], p.i[I_N_BINS], p.i[I_HT],
-                 p.i[I_HMM_SMEM] ? p.i[I_H] * p.i[I_S] * (p.i[I_S] + 1) : 0);
+                 p.i[I_HMM_SMEM] ? p.i[I_H] * p.i[I_S] * (p.i[I_S] + 1) : 0, shared);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool staged = p.i[I_HMM_SMEM] != 0;
   switch (p.i[I_S]) {
-#define JTPU_FS_CASE(n) \
-    case n: return staged ? launch<n, true>(p, smem, s) : launch<n, false>(p, smem, s);
+#define JTPU_FS_CASE(n)                                                                    \
+    case n:                                                                                \
+      if (shared) return staged ? launch<n, true, true>(p, smem, s)                        \
+                                : launch<n, false, true>(p, smem, s);                      \
+      return staged ? launch<n, true, false>(p, smem, s) : launch<n, false, false>(p, smem, s);
     JTPU_FS_CASE(2) JTPU_FS_CASE(3) JTPU_FS_CASE(4) JTPU_FS_CASE(5)
     JTPU_FS_CASE(6) JTPU_FS_CASE(7) JTPU_FS_CASE(8)
 #undef JTPU_FS_CASE

@@ -18,8 +18,8 @@ which the reference-scale tools of `harness/` decode with too). What
 decodes the samples follows `BatchDecoder`'s rule
 (`use_fused`): on a CUDA decoder "auto" and True decode through the
 frame-step kernel and raise `ProbeOutOfScope` (a `ValueError`) with
-the reason when a probe lies outside its scope (a doubled probe soon needs more shared memory
-than a block has); only `use_fused=False` takes the plain frame loop
+the reason when a probe lies outside its scope (a doubled probe past E
+= 32768 takes the sort merge); only `use_fused=False` takes the plain frame loop
 `TorchDecoder.run`, the counterpart of the JAX tuner's XLA decoder. A CPU
 decoder always runs the plain loop.
 """

@@ -2,11 +2,12 @@
 
 Counterpart of `juicer_tpu/decoder/pallas_scan.py` (`PallasDecodeScan`).
 The kernel `csrc/frame_step.cu` runs one thread block per utterance with
-the frame loop inside the block and the frontier in shared memory; it
-computes what `TorchDecoder._frame_step` computes and is held to it bit
-for bit. `TorchDecoder.run` is its plain PyTorch version: a
-`FusedDecodeScan` given CPU tensors runs that, and given CUDA tensors
-launches the kernel or raises.
+the frame loop inside the block and the frontier in shared memory (or,
+where a frontier of thousands of slots does not fit there, in a workspace
+of device memory, `_dims`); it computes what `TorchDecoder._frame_step`
+computes and is held to it bit for bit. `TorchDecoder.run` is its plain
+PyTorch version: a `FusedDecodeScan` given CPU tensors runs that, and
+given CUDA tensors launches the kernel or raises.
 
 The carry is `TorchDecoder`'s own (the nested dict `_init_carry` builds,
 same shapes and dtypes), so the two routes can resume from each other's
@@ -73,9 +74,9 @@ _TABLES = ("arc_meta32", "ent_arc", "ent_score", "ent_ac", "ent_seq", "f_score",
            "f_ac", "f_seq", "trP", "emitting", "state_gmm")
 _INTS = ("B", "K", "E", "F", "S", "G", "H", "n_arcs", "n_ent", "n_fent", "n_bins",
          "HT", "max_emit_hyps", "n_frames", "t_base", "threads", "rec_cap",
-         "hmm_smem")
+         "hmm_smem", "ws_bytes")
 _FLOATS = ("emit_win", "start_win", "end_win", "word_win", "hist_min", "hist_max")
-_N_PTR = len(_TABLES) + 1 + 9 + 15 + len(YS_NAMES)
+_N_PTR = len(_TABLES) + 1 + 9 + 15 + len(YS_NAMES) + 1
 # the kernel library of `_cuda_build`; the profiling harness names the
 # build with cycle counters here before the first launch
 LIB_NAME = "frame_step"
@@ -104,7 +105,7 @@ def _get_lib():
         lib.jtpu_frame_step.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                         ctypes.c_void_p, ctypes.c_void_p]
         lib.jtpu_frame_step_smem_bytes.restype = ctypes.c_longlong
-        lib.jtpu_frame_step_smem_bytes.argtypes = [ctypes.c_int] * 7
+        lib.jtpu_frame_step_smem_bytes.argtypes = [ctypes.c_int] * 8
         lib.jtpu_frame_step_arg_counts.restype = ctypes.c_int
         lib.jtpu_frame_step_arg_counts.argtypes = [ctypes.c_void_p] * 3
         n = (ctypes.c_int * 3)()
@@ -140,23 +141,33 @@ def hash_size(K: int, E: int) -> int:
     return n
 
 
-def smem_bytes(K: int, E: int, S: int, G: int, n_bins: int, HT: int,
-               hmm_words: int = 0) -> int:
-    """Dynamic shared memory of one block (`smem_bytes` of the kernel
+def search_state_bytes(K: int, E: int, S: int, HT: int) -> int:
+    """The search state of one block (`search_state_bytes` of the kernel
     source): the hash table, the (S, K) frontier planes and ten (K) work
-    planes, seven (E) candidate planes, the histogram, two frames' scores,
-    the warps' record counts and, when they are staged, the HMM tables
-    (`hmm_words` = H*S*(S+1))."""
-    return 8 * HT + 4 * (2 * HT + (3 * (S | 1) + 10) * _rup4(K) + 7 * _rup4(E)
-                         + _rup4(n_bins) + 2 * _rup4(G) + _rup4((K + 31) // 32 + 32)
-                         + _rup4(hmm_words))
+    planes, and seven (E) candidate planes."""
+    return 8 * HT + 4 * (2 * HT + (3 * (S | 1) + 10) * _rup4(K) + 7 * _rup4(E))
+
+
+def smem_bytes(K: int, E: int, S: int, G: int, n_bins: int, HT: int,
+               hmm_words: int = 0, state_in_smem: bool = True) -> int:
+    """Dynamic shared memory of one block (`smem_bytes` of the kernel
+    source): the search state where it rides there (`state_in_smem`), the
+    histogram, one frame's scores, the warps' record counts and, when they
+    are staged, the HMM tables (`hmm_words` = H*S*(S+1))."""
+    return ((search_state_bytes(K, E, S, HT) if state_in_smem else 0)
+            + 4 * (_rup4(n_bins) + _rup4(G) + _rup4((K + 31) // 32 + 32) + _rup4(hmm_words)))
 
 
 def _dims(dec: TorchDecoder) -> dict:
     sg = np.asarray(dec.art.state_gmm)
     n_bins = dec._n_bins if dec.cfg.max_emit_hyps > 0 else 0
     d = dict(K=dec.K, E=dec.E, S=dec.S, G=max(int(sg.max()) + 1, 1),
-             n_bins=n_bins, HT=hash_size(dec.K, dec.E), hmm_words=0)
+             n_bins=n_bins, HT=hash_size(dec.K, dec.E), hmm_words=0, state_in_smem=True)
+    # the search state rides in shared memory when it fits (K=1024 and E up
+    # to 1,706); else in a workspace of device memory (the thousands of
+    # live instances of a tied-state triphone system at the same beams)
+    if smem_bytes(**d) > SMEM_LIMIT:
+        d["state_in_smem"] = False
     # the HMM tables ride in shared memory when they fit beside the rest
     # (47 HMMs of 5 states: 5.6 KB); else the kernel reads them in place
     hmm_words = dec.H * dec.S * (dec.S + 1)
@@ -257,10 +268,12 @@ def fused_eligible(dec: TorchDecoder) -> bool:
     the sort merge, `gen_lattice` and on-the-fly composition (a decoder
     with a G) decode only in the plain frame loop `TorchDecoder.run`, as
     they decode only in the JAX engine's `lax.scan` step. The kernel
-    adds: 2 <= S <= 8 HMM states; the block's state fits the 227 KB of
-    shared memory an H100 block may take (at S=5 and E=1408 that is K up
-    to 1024: about 215 KB; `smem_bytes` is the count); fan-out sums fit
-    int32; and K, E and F stay below 65535.
+    adds: 2 <= S <= 8 HMM states; the block's shared memory fits the
+    227 KB an H100 block may take (`smem_bytes`: the histogram, a frame's
+    scores, the record counts, and the search state where it fits, as at
+    S=5, K=1024 and E up to 1,706; past that the search state lies in a
+    workspace of device memory); fan-out sums fit int32; and K, E and F
+    stay below 65535.
 
     Conditions of the TPU kernel's `pallas_eligible` that went, and why:
     `max_emit_hyps == 0` (the histogram threshold is in the kernel);
@@ -313,6 +326,7 @@ class FusedDecodeScan:
         self.dec = dec
         self.B = B
         self.dims = _dims(dec)
+        self._ws = None  # the search state's workspace, where it lies in device memory
         # the plain version writes the (T, B) snapshots as the kernel always does
         self._plain = dec
         if not dec.cfg.emit_diagnostics:
@@ -360,10 +374,17 @@ class FusedDecodeScan:
             _check("carry " + ".".join(path), t, dev, dtype, shape)
             ins.append(t)
         lib = _get_lib()
-        if lib.jtpu_frame_step_smem_bytes(d["K"], d["E"], d["S"], scores.shape[2],
-                                          d["n_bins"], d["HT"], d["hmm_words"]) > SMEM_LIMIT:
+        in_smem = d["state_in_smem"]
+        if lib.jtpu_frame_step_smem_bytes(d["K"], d["E"], d["S"], scores.shape[2], d["n_bins"],
+                                          d["HT"], d["hmm_words"], in_smem) > SMEM_LIMIT:
             raise ValueError("frame_step: the block's state does not fit shared memory")
         _meta32(dec)
+        # the search state's workspace in device memory, where it does not
+        # ride in shared memory: a part of 256-byte multiples a block
+        ws_bytes = 0 if in_smem else -(-search_state_bytes(d["K"], d["E"], d["S"], d["HT"])
+                                       // 256) * 256
+        if ws_bytes and self._ws is None:
+            self._ws = torch.empty(B * ws_bytes, device=dev, dtype=torch.uint8)
 
         outs = [torch.empty_like(t) for t in ins]
         bf = {f: torch.empty((B,), device=dev,
@@ -378,7 +399,8 @@ class FusedDecodeScan:
                                    if name in _INT_RECS else torch.float32)
         tensors = ([dec.tab[k] for k in _TABLES] + [scores] + ins + outs
                    + [bf[f] for f in BF_FIELDS] + [ys[n] for n in YS_NAMES])
-        ptrs = (ctypes.c_void_p * _N_PTR)(*[t.data_ptr() for t in tensors])
+        ptrs = (ctypes.c_void_p * _N_PTR)(*[t.data_ptr() for t in tensors],
+                                          self._ws.data_ptr() if ws_bytes else None)
         cfg = dec.cfg
         hist = cfg.max_emit_hyps > 0
         flts = (ctypes.c_float * len(_FLOATS))(
@@ -391,7 +413,7 @@ class FusedDecodeScan:
                     HT=d["HT"], max_emit_hyps=cfg.max_emit_hyps,
                     n_frames=T, t_base=t0,
                     threads=self.threads,
-                    rec_cap=T * K, hmm_smem=int(d["hmm_words"] > 0))
+                    rec_cap=T * K, hmm_smem=int(d["hmm_words"] > 0), ws_bytes=ws_bytes)
         ints = (ctypes.c_int * len(_INTS))(*[vals[k] for k in _INTS])
         # the kernel sets its shared-memory opt-in on the current device:
         # make that the device whose stream it is launched on

@@ -20,8 +20,9 @@ The counterpart of the repo root's `__graft_entry__.py`:
                          mean of the per-utterance best final scores
                          gathered over the replicas; and a decoder at
                          WSJ-order budgets (K=2048, E=4096, maxHyps 8000:
-                         past a block's shared memory, so the plain route)
-                         split the same way. It returns what it checked.
+                         past a block's shared memory, so the kernel keeps
+                         its search state in device memory) split the same
+                         way. It returns what it checked.
 
 The JAX version shards with `shard_map` over `jax.sharding.Mesh`; here a
 mesh is a tuple of torch devices (`make_mesh`, or any tuple with a device

@@ -1,7 +1,7 @@
 """Where a decode wave's time goes on the card.
 
     python -m juicer_tpu_torch.harness.profile_decode [--frames N] [--batch B]
-        [--task 2k|20k] [--distinct] [--otf [--budgets K E]]
+        [--task 2k|20k|20k-tri1] [--distinct] [--otf [--budgets K E]]
         [--fused [--clocks] | --entry] [--trace]
 
 Scores the 2k-word WSJ-order task's bench batch (8 sampled utterances
@@ -24,15 +24,21 @@ share of each; its times are not the kernel's own. `--entry`
 profiles one whole `BatchDecoder.decode_scores_batch` call on N frames
 (the fused route, as a user calls it): its wall time, the device's busy
 time and idle share, and the port's own spans of the profiled call
-(`utils.trace`): the entry, its copy to the host (the walk of the best
-paths and their copy, `fused_scan.assemble_results`; the span opens
-before the scan ends, so it includes the wait for the card) with its
-counters (bytes, records, candidates, active slot-frames, path rows) and
-the traceback of its utterances. `--batch B` tiles the
+(`utils.trace`): the entry with its attributes (`B`, `T`, `K`, `S`, `H`,
+`route`, and the kernel's `staged` and `smem`), its copy to the host (the
+walk of the best paths and their copy, `fused_scan.assemble_results`; the
+span opens before the scan ends, so it includes the wait for the card)
+with its counters (bytes, records, candidates, active slot-frames, path
+rows) and the traceback of its utterances, and the `score` span's
+attributes of the wave's scoring (`frames`, `G`, `components`,
+`columns`; recorded in a profiler session of its own before the
+profiled call, which holds no scoring). `--batch B` tiles the
 8 sampled utterances to B (132 = one block on every SM); `--distinct`
 samples B different utterances instead (seed 11), so that no two blocks
 read the same closure-table rows; `--task 20k` decodes the 20k-word task
-(its artifact read from, or built into, the package's `_cache/`). The
+and `--task 20k-tri1` its cross-word triphone system (the artifact read
+from, or built into, the package's `_cache/`; the tied-state task at
+`wsj_task.TRI_POINT`, its sentences drawn from their triphones). The
 fused route also prints the candidates and active slots a frame and
 utterance of the wave. `--otf` decodes the task by on-the-fly
 composition instead (`wsj_task.load_otf_task`, `OTF_POINT`'s beams, K
@@ -139,7 +145,7 @@ def entry_spans(records) -> dict:
     time and its children's in ms, and their counters summed."""
     entry = [r for r in records if r.name == "entry"][-1]
     out = {"entry_ms": (entry.end_ns - entry.start_ns) / 1e6, "copy_ms": 0.0,
-           "traceback_ms": 0.0}
+           "traceback_ms": 0.0, **{f"entry_{k}": v for k, v in entry.attrs.items()}}
     for r in records:
         if r.parent == entry.id and r.name in ("copy", "traceback"):
             out[f"{r.name}_ms"] += (r.end_ns - r.start_ns) / 1e6
@@ -166,7 +172,7 @@ def main() -> None:
     ap.add_argument("--entry", action="store_true",
                     help="profile one whole BatchDecoder.decode_scores_batch call")
     ap.add_argument("--batch", type=int, default=0, help="utterances a wave (default: 16, or 8 with --otf)")
-    ap.add_argument("--task", default="2k", choices=("2k", "20k"))
+    ap.add_argument("--task", default="2k", choices=("2k", "20k", "20k-tri1"))
     ap.add_argument("--distinct", action="store_true",
                     help="B different sampled utterances instead of 8 tiled to B")
     ap.add_argument("--otf", action="store_true",
@@ -189,7 +195,7 @@ def main() -> None:
         B = args.batch or p["n_utts"]
     else:
         task = wsj_task.load_task(args.task)
-        p = wsj_task.WSJ_POINT
+        p = wsj_task.TRI_POINT if args.task in wsj_task.TRI_TASKS else wsj_task.WSJ_POINT
         B = args.batch or p["batch"]
     utts = wsj_task.sample_utterances(task.cache, task.models,
                                       B if args.distinct else p["n_utts"],
@@ -204,8 +210,13 @@ def main() -> None:
     dec = TorchDecoder(task.artifact, wsj_task.decoder_config(p, emit_diagnostics=False),
                        g_network=task.g if args.otf else None)
     stages = {}
+    score_attrs = {}
     if args.entry:
         bd = BatchDecoder(dec, use_fused=not args.otf)
+        with profile(activities=[ProfilerActivity.CPU]):
+            scorer(feats.cuda().reshape(B * T, -1))
+        score_attrs = {f"score_{k}": v for k, v in
+                       [r for r in trace.spans() if r.name == "score"][-1].attrs.items()}
 
         def run():
             return bd.decode_scores_batch(scores)
@@ -229,7 +240,7 @@ def main() -> None:
     trace.clear()
     numbers, prof = profile_run(run, T)
     if args.entry:
-        stages = entry_spans(trace.spans())
+        stages = dict(entry_spans(trace.spans()), **score_attrs)
         if "records" in stages:
             stages["records_per_frame_utt"] = stages["records"] / (T * B)
     if args.fused and args.clocks:

@@ -17,9 +17,10 @@ lines, each the best of 3 timed waves after a first wave:
 
 The scores are 8 utterances sampled from the task (seed 11, ~1000
 frames), each scored by the GMM scorer (one kernel launch on the card),
-edge-padded to the longest and tiled to B. K=2176 is past the frame-step
-kernel's shared memory and no kernel covers a G, so all three lines run
-the plain frame loop and compare like with like; each prints its route.
+edge-padded to the longest and tiled to B. No kernel covers a G, so all
+three lines run the plain frame loop (`TorchDecoder.run`, the static line
+too) and compare like with like; each prints its route, with the reason
+where the kernel would not cover the decoder.
 Before timing, the frames of a wave are held within
 `fused_scan.max_scan_T` (record ids `t*K + slot` are int32), the guard the
 JAX script skips.
@@ -46,7 +47,7 @@ from .. import resolve_device
 from ..am.models import AcousticModelSet
 from ..decoder.artifact import DecoderArtifact
 from ..decoder.core import TorchDecoder, TorchDecoderConfig
-from ..decoder.fused_scan import max_scan_T, route_of
+from ..decoder.fused_scan import max_scan_T, why_not_fused
 from . import card_line, wsj_task
 from .profile_step import stubbed
 from .wsj_bench import default_cache, score_utterances, synchronize
@@ -94,7 +95,8 @@ def bench(label, dec, db, waves=3, card=""):
     if T > max_scan_T(dec):
         raise ValueError(f"{T} frames at K={dec.K}: record ids t*K + slot would pass int32 "
                          f"(at most {max_scan_T(dec)} frames)")
-    route, _ = route_of(dec)
+    why = why_not_fused(dec)
+    route = f"plain loop: {why}" if why else "plain loop"
     t0 = time.perf_counter()
     dec.run(db)
     synchronize(dec.device)

@@ -15,10 +15,11 @@ the overflow is reported, not held to 0.
 
 The route is chosen in the open (`fused_scan.route_of`): the frame-step
 kernel where `why_not_fused` of the decoder is None, else the plain frame
-loop with the reason. At 6,000 GMMs the kernel's shared memory holds two
-frames' scores (48 KB), so K=768 / E=1024 fits a block and K=1024 /
-E=1408 does not; the script's defaults K=8192 / E=32768 take the plain
-loop at any model count.
+loop with the reason. At 6,000 GMMs the kernel's shared memory holds a
+frame's scores (24 KB), so K=768 / E=1024 fits a block; K=1024 / E=1408
+and the script's defaults K=8192 / E=32768 do not, and the kernel keeps
+their search state in device memory; past E=32768 ("auto" takes the sort
+merge) the plain loop runs.
 
 Run as
 

@@ -34,11 +34,24 @@ it rebuilds CL, then CLG (or the networks named), prints each stage's
 states, arcs and seconds and the peak host RSS, and exits non-zero on a
 difference, naming the array and its first differing index; with
 `--out`, each network held to its file is written to DIR/<network>.npz.
+
+The tied-state triphone tasks (`TRI_TASKS`; `20k-tri1`, in
+`scripts/_wsj_cache_20k_tri1`) are the 20k task decoded by a cross-word
+triphone system: `--build 20k-tri1` copies the 20k task's `phones.lst`,
+`lex.dict`, `lm.arpa` and `bigram.npz`, draws the tied list `tied.lst`
+and the models (`tri_models.make_tied_set`, Kaldi WSJ tri1's widths),
+and builds the CLG with the cross-word triphone C over the tied list.
+Each file that is missing is written; each that is there is held to
+what the build made, bit for bit (the models array by array, the CLG by
+`require_same_network`). `load_task("20k-tri1")` loads it like the
+others, and `sample_utterances` draws its phones from their cross-word
+triphones through the tied list.
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import os
 import re
 import resource
@@ -57,7 +70,8 @@ from ..compile import (CDGen, CDPhoneLookup, CDType, GramGen, GramType, LexGen,
 from ..decoder.network import DecoderNetwork
 from ..decoder.otf import GNetwork
 from ..fst import algos
-from ..lexicon import Lexicon, Vocabulary
+from ..lexicon import Lexicon, PhoneSet, Vocabulary
+from .tri_models import TRI1, make_tied_set
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(_PKG)
@@ -79,9 +93,23 @@ OTF_POINT = dict(beam=85.0, end_beam=60.0, maxhyps=800, K=4096, E=8192, margin=1
                  n_utts=8, frames=1000, seed=11)
 
 
+# tied-state triphone tasks: name -> (the task whose words, grammar and
+# phones they share, copied byte for byte: `SHARED_FILES`; the arguments
+# of `make_tied_set`)
+TRI_TASKS = {"20k-tri1": ("20k", TRI1)}
+SHARED_FILES = ("phones.lst", "lex.dict", "lm.arpa", "bigram.npz")
+TIED_LIST = "tied.lst"
+# a tied-state task's operating point: WSJ_POINT's beam, the benchmark's
+# end beam 40, and budgets above the test set's peaks (8,500 live HMM
+# instances, 12,598 candidates): a phone's right-context variants share
+# their first state's tied state, tie in score, and the beams keep them all
+TRI_POINT = dict(WSJ_POINT, end_beam=40.0, K=8576, E=12672)
+
+
 def task_dir(name: str = "2k") -> str:
-    """`scripts/_wsj_cache_<name>` of this checkout."""
-    return os.path.join(ROOT, "scripts", f"_wsj_cache_{name}")
+    """`scripts/_wsj_cache_<name>` of this checkout (a `-` of the name is
+    a `_` of the directory)."""
+    return os.path.join(ROOT, "scripts", f"_wsj_cache_{name.replace('-', '_')}")
 
 
 @dataclass
@@ -242,14 +270,29 @@ def build_cl(lexicon: Lexicon):
     return cl
 
 
-def build_task_clg(lexicon: Lexicon, lm_fname: str, verbose: bool = True):
+def _triphone_c(lexicon: Lexicon, n_aux: int, tied_list: str, hmm_names: list):
+    """The cross-word triphone C ("xwrdtri") over the tied list's logical
+    names, bound to the models `hmm_names` (input label = index + 1)."""
+    lookup = CDPhoneLookup(lexicon.phone_set)
+    lookup.add_tied_list(tied_list)
+    lookup.bind_models(hmm_names)
+    lookup.verify_all_models()
+    return CDGen(CDType.XWORD_TRIPHONE, lookup, hmm_names, n_aux_syms=n_aux).build()
+
+
+def build_task_clg(lexicon: Lexicon, lm_fname: str, verbose: bool = True,
+                   tied_list: str | None = None, hmm_names: list | None = None):
     """The static CLG of the NGRAM grammar of `lm_fname` (`ensure_task`):
-    `build_clg` of G, L with aux phones and the monophone C; verbose
-    prints each stage's states, arcs and seconds."""
+    `build_clg` of G, L with aux phones and the monophone C, or with
+    `tied_list` the cross-word triphone C over it and the models
+    `hmm_names`; verbose prints each stage's states, arcs and seconds."""
     G = GramGen(lexicon.vocab, GramType.NGRAM, lm_fname=lm_fname).build()
     lexgen = LexGen(lexicon)
     L = lexgen.build(output_aux_phones=True)
-    C = _monophone_c(lexicon, lexgen.n_aux)
+    if tied_list is None:
+        C = _monophone_c(lexicon, lexgen.n_aux)
+    else:
+        C = _triphone_c(lexicon, lexgen.n_aux, tied_list, hmm_names)
     return build_clg(G, L, C, verbose=verbose).clg
 
 
@@ -278,6 +321,24 @@ def require_same_network(what: str, got: DecoderNetwork, want: DecoderNetwork) -
                                f"{getattr(want, k)}")
 
 
+def require_same_models(what: str, got: AcousticModelSet, path: str) -> None:
+    """Raise unless `got`, saved, holds what the npz at `path` holds: the
+    same arrays under the same names, each of the same dtype, shape and
+    bits (the zip's timestamps aside)."""
+    buf = io.BytesIO()
+    got.save_npz(buf)
+    buf.seek(0)
+    a, b = np.load(buf), np.load(path)
+    if sorted(a.files) != sorted(b.files):
+        raise RuntimeError(f"{what}: arrays {sorted(set(a.files) ^ set(b.files))[:5]} are in "
+                           f"one file only")
+    for k in a.files:
+        x, y = a[k], b[k]
+        if x.dtype != y.dtype or x.shape != y.shape or x.tobytes() != y.tobytes():
+            raise RuntimeError(f"{what}: {k} is {x.dtype} {x.shape}, the file's "
+                               f"{y.dtype} {y.shape}, or differs in its bits")
+
+
 def peak_rss_bytes() -> int:
     """The process's peak resident set (`ru_maxrss`, KiB on Linux)."""
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
@@ -289,6 +350,10 @@ def build_task(name: str = "2k", networks=("cl", "clg"), verbose: bool = True) -
     toolchain and hold each to its tracked file bit for bit (raises
     RuntimeError naming the array and index that differ). Returns
     {network: DecoderNetwork}, and "seconds" {stage: s}."""
+    if name in TRI_TASKS:
+        if tuple(networks) != ("clg",):
+            raise ValueError(f"{name} has only a CLG, not {networks}")
+        return build_tri_task(name, verbose)
     cache = task_dir(name)
     out, seconds = {}, {}
 
@@ -322,6 +387,74 @@ def build_task(name: str = "2k", networks=("cl", "clg"), verbose: bool = True) -
         out[which] = net
     out["seconds"] = seconds
     return out
+
+
+def _hold_or_write(what: str, path: str, data: bytes, verbose: bool) -> None:
+    """Write `data` to `path` where it is missing, else raise unless the
+    file holds exactly `data`."""
+    if not os.path.exists(path):
+        with open(path, "wb") as fd:
+            fd.write(data)
+        state = "written"
+    else:
+        with open(path, "rb") as fd:
+            if fd.read() != data:
+                raise RuntimeError(f"{what}: {os.path.basename(path)} differs from the build's")
+        state = "equal to the file byte for byte"
+    if verbose:
+        print(f"{what}: {os.path.basename(path)} {state}", flush=True)
+
+
+def build_tri_task(name: str, verbose: bool = True) -> dict:
+    """Build the tied-state triphone task `name` (`TRI_TASKS`) into its
+    directory, writing each missing file and holding each present one to
+    the build bit for bit: the shared files of the task it is built over,
+    the tied list and models (`make_tied_set`), and the CLG with the
+    cross-word triphone C. Returns {"clg": DecoderNetwork, "tied":
+    TiedSet, "seconds": {stage: s}}."""
+    base, params = TRI_TASKS[name]
+    cache, src = task_dir(name), task_dir(base)
+    what = f"[build {name}]"
+    os.makedirs(cache, exist_ok=True)
+    for f in SHARED_FILES:
+        with open(os.path.join(src, f), "rb") as fd:
+            _hold_or_write(what, os.path.join(cache, f), fd.read(), verbose)
+    with open(os.path.join(cache, "phones.lst")) as fd:
+        phones = [line.strip() for line in fd if line.strip()]
+    t0 = time.perf_counter()
+    tied = make_tied_set(phones, **params)
+    seconds = {"models": time.perf_counter() - t0}
+    _hold_or_write(what, os.path.join(cache, TIED_LIST), tied.tied_text.encode(), verbose)
+    models_npz = os.path.join(cache, "models.npz")
+    if os.path.exists(models_npz):
+        require_same_models(f"{what} models", tied.models, models_npz)
+        state = "equal to models.npz array for array"
+    else:
+        tied.models.save_npz(models_npz)
+        state = "written to models.npz"
+    if verbose:
+        print(f"{what} models: {tied.n_physical} physical of {tied.n_logical} logical "
+              f"triphones, {tied.models.n_gmms} tied states, {int(tied.gaussians.sum())} "
+              f"Gaussians (largest {int(tied.gaussians.max())}); {state}", flush=True)
+    t0 = time.perf_counter()
+    f = build_task_clg(task_lexicon(cache), os.path.join(cache, "lm.arpa"), verbose,
+                       tied_list=os.path.join(cache, TIED_LIST),
+                       hmm_names=tied.models.hmm_names)
+    seconds["CLG"] = time.perf_counter() - t0
+    net = DecoderNetwork(f, f.isyms, f.osyms)
+    del f
+    clg_npz = os.path.join(cache, "clg.npz")
+    if os.path.exists(clg_npz):
+        require_same_network(f"{what} clg", net, DecoderNetwork.load_npz(clg_npz))
+        state = "equal to clg.npz bit for bit"
+    else:
+        net.save_npz(clg_npz)
+        state = "written to clg.npz"
+    if verbose:
+        print(f"{what} clg: {net.n_states} states, {net.n_arcs} arcs, "
+              f"{seconds['CLG']:.1f}s; {state}; peak host RSS "
+              f"{peak_rss_bytes() / 2**30:.2f} GiB", flush=True)
+    return {"clg": net, "tied": tied, "seconds": seconds}
 
 
 def decoder_config(point=WSJ_POINT, emit_diagnostics=True) -> TorchDecoderConfig:
@@ -371,8 +504,35 @@ class _Sentences:
                 parts = line.split()
                 self.prons[parts[0]] = [phone_index[p] for p in parts[1:]]
         self.hmm_of_phone = {p: models.get_hmm_index(name) for name, p in phone_index.items()}
+        self.phone_names = list(phone_index)
+        # a triphone task's tied list, read as the toolchain reads it
+        self.tied = None
+        if os.path.exists(os.path.join(cache, TIED_LIST)):
+            self.tied = CDPhoneLookup(PhoneSet(phones=self.phone_names))
+            self.tied.add_tied_list(os.path.join(cache, TIED_LIST))
+            self.tied.bind_models(models.hmm_names)
         n_words_total = len(self.prons) - 2
         self.SB, self.SE = n_words_total, n_words_total + 1
+
+    def hmms(self, phones):
+        """The HMM of each phone of a phone sequence (sil at both ends): the
+        phone's own, or in a triphone task the physical model of its
+        cross-word triphone `l-p+r`, `sp` transparent to context and `sil`
+        and `sp` their own models."""
+        if self.tied is None:
+            return [self.hmm_of_phone[p] for p in phones]
+        names = [self.phone_names[p] for p in phones]
+        ctx = [i for i, n in enumerate(names) if n != "sp"]
+        left = {b: names[a] for a, b in zip(ctx, ctx[1:])}
+        right = {a: names[b] for a, b in zip(ctx, ctx[1:])}
+        out = []
+        for i, n in enumerate(names):
+            logical = n if n in ("sil", "sp") else f"{left[i]}-{n}+{right[i]}"
+            h = self.tied.get_model_ind(logical)
+            if h < 0:
+                raise ValueError(f"no model for {logical!r}")
+            out.append(h)
+        return out
 
     def sample_sentence(self, rng, frames_of, target_frames, free_text=False):
         """ONE sentence <s> w... </s> (the grammar has no sentence loop):
@@ -436,8 +596,7 @@ def sample_utterances(cache, models, n_utts, target_frames, seed,
         words = task.sample_close(rng, frames_of, target_frames, free_text)
         # features: sil + words + sil
         frames = []
-        for p in task.phone_seq(words):
-            h = task.hmm_of_phone[p]
+        for h in task.hmms(task.phone_seq(words)):
             n = models.get_num_states(h)
             for j in range(1, n - 1):
                 g = int(models.hmm_gmm_inds[h][j - 1])
@@ -495,8 +654,8 @@ def sample_audio(cache, models, lengths, seed):
                        for p in task.prons[f"w{w}"]) * 3
 
         words = task.sample_close(rng, frames_of, T)
-        gmms = [int(g) for p in task.phone_seq(words)
-                for g in models.hmm_gmm_inds[task.hmm_of_phone[p]]]
+        gmms = [int(g) for h in task.hmms(task.phone_seq(words))
+                for g in models.hmm_gmm_inds[h]]
         if len(gmms) > T:
             raise ValueError(f"{len(gmms)} states do not fit {T} frames")
         hold = np.full(len(gmms), T // len(gmms))
@@ -515,18 +674,20 @@ def sample_audio(cache, models, lengths, seed):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Rebuild a task's networks with the port's "
                                  "toolchain and hold them to the tracked npz files.")
-    ap.add_argument("--build", required=True, help="task name: 2k or 20k")
-    ap.add_argument("--networks", nargs="+", default=["cl", "clg"], choices=("cl", "clg"))
+    ap.add_argument("--build", required=True, help="task name: 2k, 20k or 20k-tri1")
+    ap.add_argument("--networks", nargs="+", choices=("cl", "clg"),
+                    help="default: cl and clg; a triphone task has only clg")
     ap.add_argument("--out", help="write each network to OUT/<network>.npz")
     args = ap.parse_args(argv)
+    networks = args.networks or (["clg"] if args.build in TRI_TASKS else ["cl", "clg"])
     t0 = time.perf_counter()
     try:
-        out = build_task(args.build, networks=args.networks)
+        out = build_task(args.build, networks=networks)
     except RuntimeError as e:
         print(f"[build {args.build}] FAILED: {e}", flush=True)
         return 1
     if args.out:
-        for which in args.networks:
+        for which in networks:
             out[which].save_npz(os.path.join(args.out, f"{which}.npz"))
     print(f"[build {args.build}] done in {time.perf_counter() - t0:.1f}s; peak host RSS "
           f"{peak_rss_bytes() / 2**30:.2f} GiB", flush=True)

@@ -62,14 +62,24 @@ class GmmScorer:
         self.M = torch.as_tensor(np.asarray(params.M, np.float32), device=dev)
         self.b = torch.as_tensor(np.asarray(params.b, np.float32), device=dev)
         self.mask = torch.as_tensor(np.asarray(params.mask, bool), device=dev)
+        # the real Gaussians, and the columns a frame's scoring computes:
+        # every GMM padded to the largest mixture (on the card, the kernel's
+        # padding of it)
+        self.components = int(np.asarray(params.mask, bool).sum())
+        self.columns = params.n_gmms * params.max_comps
         if dev.type == "cuda":
             W, bp = gmm_cuda.pack_params(params)
             self.W = torch.as_tensor(W, device=dev)
             self.b_packed = torch.as_tensor(bp, device=dev)
+            self.columns = params.n_gmms * bp.shape[1]
 
     def __call__(self, features) -> torch.Tensor:
-        """Traced as the span `score` (`utils.trace`)."""
-        with trace.span("score"):
+        """Traced as the span `score` (`utils.trace`), with `frames`, `G`,
+        `components` and `columns`."""
+        with trace.span("score") as attrs:
+            if attrs is not None:
+                attrs.update(frames=int(np.shape(features)[0]), G=self.n_gmms,
+                             components=self.components, columns=self.columns)
             if not isinstance(features, torch.Tensor):
                 features = torch.as_tensor(np.asarray(features, np.float32), device=self.device)
             if features.device != self.device:

@@ -40,7 +40,7 @@ import torch
 
 from .. import resolve_device
 from ..decoder.core import TorchDecoder, check_use_fused, host_batch
-from ..decoder.fused_scan import (FusedDecodeScan, assemble_results,
+from ..decoder.fused_scan import (FusedDecodeScan, assemble_results, smem_bytes,
                                   why_not_covered)
 from ..decoder.results import DecodeResult
 from ..utils import trace
@@ -157,9 +157,14 @@ class BatchDecoder:
                 raise ValueError("padded lengths need emit_diagnostics=True")
             plan.append((dec, lo, hi, fused))
         if attrs is not None and plan:
-            dec, _, _, fused = plan[0]
+            dec, lo, hi, fused = plan[0]
+            # the frame-step kernel's layout: whether the HMM tables ride in
+            # shared memory, and the bytes of it a block takes
+            d = self._scan(dec, hi - lo).dims if fused else None
             attrs.update(B=int(B), T=int(T), K=dec.K, S=dec.S,
-                         route="fused" if fused else "plain")
+                         route="fused" if fused else "plain", H=dec.H,
+                         staged=int(d is not None and d["hmm_words"] > 0),
+                         smem=smem_bytes(**d) if d is not None else 0)
         # launch every share, then read them back one by one
         launched = []
         for dec, lo, hi, fused in plan:

@@ -6,10 +6,15 @@ for none), its start and end on the host clock (`time.perf_counter_ns`,
 the clock of `time.perf_counter`), and a dict of attributes and counters
 that the code inside it fills. The hot path opens four:
 
-  - `score`: one `ops.gmm.GmmScorer` call;
+  - `score`: one `ops.gmm.GmmScorer` call, with `frames`, `G` (GMMs),
+    `components` (the real Gaussians, summed over the GMMs) and `columns`
+    (G x the mixture size the scoring computes, every GMM padded to it);
   - `entry`: one `parallel.mesh.BatchDecoder.decode_scores_batch` call,
-    with `B`, `T` (padded frames), `K` and `S` of the first share's
-    decoder and `route` ("fused" or "plain");
+    with `B`, `T` (padded frames), `K`, `S` and `H` (physical HMMs) of
+    the first share's decoder, `route` ("fused" or "plain"), and on the
+    fused route the frame-step kernel's `staged` (1 when the HMM tables
+    ride in shared memory, else 0) and `smem` (its bytes of shared memory
+    a block; both 0 on the plain route);
   - `copy`: one read-back of a decode to the host, with `dtoh_bytes`
     (the bytes copied), `records` (the records that landed), and, where
     the decode wrote its per-frame snapshots, `candidates` and

@@ -253,14 +253,16 @@ def test_batch_decoder_fused_route_equals_plain(synth, use_fused):
 
 def test_batch_decoder_refuses_ineligible(synth):
     _, pdec = decoders(synth)
-    # budgets beyond one block's shared memory (the synth network is too
-    # small to reach them through the configuration)
-    pdec.K, pdec.E = 4096, 8192
+    # an expansion budget past the kernel's 16-bit candidate numbers (the
+    # synth network is too small to reach it through the configuration;
+    # budgets past one block's shared memory are in scope, their search
+    # state in device memory)
+    pdec.K, pdec.E = 4096, 65535
     assert not fused_eligible(pdec)
     btg = np.zeros((2, 4, synth[2].shape[2]), np.float32)
-    with pytest.raises(ValueError, match="use_fused=True.*shared memory"):
+    with pytest.raises(ValueError, match="use_fused=True.*65535"):
         BatchDecoder(pdec, use_fused=True).decode_scores_batch(btg)
-    with pytest.raises(ValueError, match="outside the fused scan.*shared memory"):
+    with pytest.raises(ValueError, match="outside the fused scan.*65535"):
         FusedDecodeScan(pdec, 2)
     with pytest.raises(ValueError):
         BatchDecoder(pdec, use_fused="yes")
@@ -274,11 +276,11 @@ def test_batch_decoder_auto_on_ineligible_decoder(synth):
     btg = np.ascontiguousarray(synth[2].transpose(1, 0, 2))[:2, :8]
     want = BatchDecoder(pdec, use_fused=False).decode_scores_batch(btg)
     K, E = pdec.K, pdec.E
-    pdec.K, pdec.E = 4096, 8192  # beyond one block's shared memory; restored below
-    assert "shared memory" in fused_scan.why_not_fused(pdec)
+    pdec.K, pdec.E = 4096, 65535  # past 16-bit candidate numbers; restored below
+    assert "65535" in fused_scan.why_not_fused(pdec)
     on_card = BatchDecoder(pdec)
     pdec.device = torch.device("cuda", 0)  # routing looks at the device only
-    with pytest.raises(ValueError, match="use_fused='auto'.*shared memory.*use_fused=False"):
+    with pytest.raises(ValueError, match="use_fused='auto'.*65535.*use_fused=False"):
         on_card.decode_scores_batch(btg)
     pdec.device = torch.device("cpu")
     pdec.K, pdec.E = K, E

@@ -12,6 +12,7 @@ Without a card every test skips.
 import dataclasses
 import gc
 import itertools
+import json
 import os
 
 import numpy as np
@@ -20,7 +21,7 @@ import torch
 
 from juicer_tpu_torch.am.models import LOG_ZERO, AcousticModelSet
 from juicer_tpu_torch.convert import gmm_params_from_numpy
-from juicer_tpu_torch.decoder import autotune_budgets, fused_scan
+from juicer_tpu_torch.decoder import autotune_budgets, core, fused_scan
 from juicer_tpu_torch.decoder.artifact import DecoderArtifact
 from juicer_tpu_torch.decoder.core import (REC_FIELDS, TorchDecoder,
                                            TorchDecoderConfig, host_batch,
@@ -356,7 +357,7 @@ def test_frame_step_refuses_bad_input(card):
     assert d["hmm_words"] == dec.H * dec.S * (dec.S + 1)  # staged: they fit
     assert fused_scan._get_lib().jtpu_frame_step_smem_bytes(
         d["K"], d["E"], d["S"], d["G"], d["n_bins"], d["HT"],
-        d["hmm_words"]) == fused_scan.smem_bytes(**d)
+        d["hmm_words"], d["state_in_smem"]) == fused_scan.smem_bytes(**d)
     n0 = fused_scan.counter.launches
     with pytest.raises(ValueError, match="is on cpu"):
         fs._launch(scores.cpu(), fs.init, 0)  # the kernel entry takes no CPU tensor
@@ -530,8 +531,8 @@ def test_decode_scores_on_the_card_launches_the_kernel_once(card):
     assert fused_scan.walk_counter.launches - w0 == 1  # read back through the walk
     want = cpu.decode_scores(sc)
     assert got == want and got.n_frames == 75
-    dec.K, dec.E = 4096, 8192  # beyond one block's shared memory
-    with pytest.raises(ValueError, match="decode_scores.*shared memory"):
+    dec.K, dec.E = 4096, 65535  # past the kernel's 16-bit candidate numbers
+    with pytest.raises(ValueError, match="decode_scores.*65535"):
         dec.decode_scores(sc)
     assert fused_scan.counter.launches - n0 == 1
 
@@ -560,11 +561,14 @@ def test_stream_through_the_kernel_equals_decode_scores(card, chunk):
 
 
 @pytest.mark.gpu
-def test_autotune_on_the_card_keeps_to_the_kernel(card):
-    """Through the kernel the tuner gives the CPU plain loop's budgets; a
-    probe outside the kernel's shared memory raises with the reason (the
+def test_autotune_on_the_card_keeps_to_the_kernel(card, monkeypatch):
+    """Through the kernel the tuner gives the CPU plain loop's budgets, a
+    probe past a block's shared memory among them (its search state in
+    device memory); a probe outside the kernel raises with the reason (the
     first one, or a doubled one), and only use_fused=False runs the plain
-    loop on the card."""
+    loop on the card. Out of scope here is the sort merge, which "auto"
+    takes past E = 2048 once the threshold is lowered to that: this
+    network's 14,808 closure entries cap E below the threshold's 32768."""
     art, G = _fuzz_artifact(seed=2, n_states=500, n_models=300)
     samples = [_fuzz_scores(30 + i, 40, 1, G, card)[:, 0] for i in range(2)]
     on_cpu = [s.cpu() for s in samples]
@@ -576,12 +580,20 @@ def test_autotune_on_the_card_keeps_to_the_kernel(card):
     assert tuned == autotune_budgets(art, on_cpu, cfg=inside, device="cpu")
     assert tuned.max_insts < inside.max_insts
 
-    big = TorchDecoderConfig(max_insts=1024, expand_budget=8192, final_budget=128, **prune)
+    wide = TorchDecoderConfig(max_insts=1024, expand_budget=8192, final_budget=128, **prune)
+    assert not fused_scan._dims(TorchDecoder(art, wide, device=card))["state_in_smem"]
+    n0 = fused_scan.counter.launches
+    assert (autotune_budgets(art, samples, cfg=wide, device=card)
+            == autotune_budgets(art, on_cpu, cfg=wide, device="cpu"))
+    assert fused_scan.counter.launches - n0 == 2
+
+    monkeypatch.setattr(core, "SORT_ABOVE_E", 2048)
+    big = wide
     overflowing = TorchDecoderConfig(max_insts=1024, expand_budget=1408, final_budget=1, **prune)
     n0 = fused_scan.counter.launches
-    with pytest.raises(ValueError, match="probe K=1024, E=8192.*shared memory.*use_fused=False"):
+    with pytest.raises(ValueError, match="probe K=1024, E=8192.*sort merge.*use_fused=False"):
         autotune_budgets(art, samples, cfg=big, device=card)
-    with pytest.raises(ValueError, match="probe K=2048, E=2816.*shared memory"):
+    with pytest.raises(ValueError, match="probe K=2048, E=2816.*sort merge"):
         autotune_budgets(art, samples, cfg=overflowing, device=card)
     assert fused_scan.counter.launches - n0 == 1  # the overflowing first probe's wave
     with pytest.raises(ValueError, match="use_fused=False"):
@@ -1301,12 +1313,10 @@ def test_steady_bench_on_the_kernel_route(card):
 def test_sweep_rung_past_shared_memory_takes_the_plain_loop(card):
     """A rung whose budgets need more shared memory than a block has
     (free text on confusable, mismatched models at 60/40/300: the CPU
-    tunes K=1536, E=1664 on these two utterances) names the plain loop and
-    `why_not_fused`'s reason in its row and its bench records, decodes
-    through the plain loop only (no frame_step launch), and tuning it
-    through the kernel raises `ProbeOutOfScope` with the reason rather
-    than giving way."""
-    from juicer_tpu_torch.decoder.autotune import ProbeOutOfScope
+    tunes K=1536, E=1664 on these two utterances) runs through the kernel
+    with its search state in device memory: its row and its bench records
+    name frame_step, nothing overflows, and tuning it through the kernel
+    gives the CPU's budgets."""
     from juicer_tpu_torch.harness import wsj_sweep
 
     task = wsj_task.load_task("2k", verbose=False)
@@ -1316,15 +1326,12 @@ def test_sweep_rung_past_shared_memory_takes_the_plain_loop(card):
     inp = wsj_sweep.prepare(args, task.net, task.artifact, task.cache)
     dec = TorchDecoder(task.artifact, TorchDecoderConfig(max_insts=2048, expand_budget=4096),
                        device=card)
-    why = fused_scan.why_not_fused(dec)
-    assert why is not None and "shared memory" in why
-    with pytest.raises(ProbeOutOfScope, match="shared memory"):
-        autotune_budgets(task.artifact, inp["scores"], dec.cfg, device=card)
+    assert fused_scan.why_not_fused(dec) is None and not fused_scan._dims(dec)["state_in_smem"]
     fused_scan.counter.launches = 0
     row = wsj_sweep.rung(args, "60,40,300", task.net, task.artifact, inp, "card")
-    assert fused_scan.counter.launches == 0
+    assert fused_scan.counter.launches > 0
     assert "error" not in row and row["overflow"] == 0
-    assert row["route"].startswith("plain loop: ") and "shared memory" in row["route"]
+    assert row["route"] == "frame_step" and (row["K"], row["E"]) == (1536, 1664)
     assert row["bench"]["2"]["route"] == row["route"] and row["bench"]["2"]["overflow"] == 0
 
 
@@ -1570,6 +1577,46 @@ def test_probe_against_this_tree(card, capsys):
     assert "PASS E_onehot_gather_2d (probe_gather)" in capsys.readouterr().out
 
 
+CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "port_bench", "configs")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name, config, in_smem", [("2k", "wsj20k", True),
+                                                   ("2k", "wsj20k-tri1", False),
+                                                   ("20k-tri1", "wsj20k-tri1", False)])
+def test_frame_step_at_the_benchmark_points_equals_plain(card, name, config, in_smem):
+    """A wave of 4 sentences at a benchmark configuration's point: at the
+    monophone's (K=1,024, E=1,664) the search state rides in shared memory
+    beside one frame's score row; at the triphone's (K=8,576, E=12,672) it
+    lies in a workspace of device memory. On the 20k-tri1 task (G=2,000
+    tied states of 3 to 12 components, ~9,800 HMMs) the HMM tables stay in
+    device memory; on the 2k monophone task (G=141) they are staged. The
+    kernel equals the plain loop bit for bit, and every utterance's words
+    are its transcript."""
+    with open(os.path.join(CONFIGS, f"{config}.json")) as fd:
+        point = json.load(fd)["point"]
+    task = wsj_task.load_task(name, verbose=False, cache=name == "2k")
+    utts = wsj_task.sample_utterances(task.cache, task.models, 4, 200, seed=12)
+    scorer = make_gmm_scorer(task.models.flat_params(), device=card)
+    lens = [len(f) for _, f in utts]
+    scores = torch.stack([scorer(torch.as_tensor(f, device=card)[
+        torch.arange(max(lens), device=card).clamp(max=len(f) - 1)]) for _, f in utts])
+    dec = TorchDecoder(task.artifact, wsj_task.decoder_config(point), device=card)
+    assert fused_scan.fused_eligible(dec)
+    fs, got = _assert_kernel_equals_plain(dec, scores.transpose(0, 1).contiguous())
+    staged = fs.dims["hmm_words"] > 0
+    assert (fs.dims["G"], staged) == ((141, True) if name == "2k" else (2000, False))
+    assert fs.dims["state_in_smem"] is in_smem
+    labels, markers = wsj_task.word_labels(task.cache)
+    for (words, _), r in zip(utts, assemble_results(dec, fs, *got, lens)):
+        assert not r.overflow
+        assert [w for w in r.words if w not in markers] == [labels[w] for w in words]
+    del task, dec, fs, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 @pytest.fixture(scope="module")
 def scale_small():
     """`scale_bench`'s network kind at 20,000 arcs with its 2,000 models
@@ -1582,22 +1629,22 @@ def scale_small():
 
 @pytest.mark.gpu
 def test_frame_step_at_6000_gmms_equals_plain(card, scale_small):
-    """K=768 / E=1024 at G=6,000 fits a block (two frames of scores take 48
-    KB of it): the kernel equals the plain loop bit for bit on a B=2 wave
-    of the script's scores; K=1024 / E=1408 does not fit, and
-    `why_not_fused` says so."""
+    """K=768 / E=1024 at G=6,000 fits a block (a frame of scores takes 24
+    KB of it); K=1024 / E=1408 does not, and the kernel keeps its search
+    state in device memory. On a B=2 wave of the script's scores the
+    kernel equals the plain loop bit for bit at both."""
     from juicer_tpu_torch.harness import scale_bench
 
     models, art = scale_small
-    dec = TorchDecoder(art, scale_bench.decoder_config(768, 1024), device=card)
-    assert fused_scan.why_not_fused(dec) is None
-    big = TorchDecoder(art, scale_bench.decoder_config(1024, 1408), device=card)
-    assert "shared memory" in fused_scan.why_not_fused(big)
-    sc = dec.scores_tensor(scale_bench.score_batch(2, models.n_gmms, T=60))
-    fs = FusedDecodeScan(dec, 2)
-    got = fs(sc.transpose(0, 1).contiguous())
-    carry, ys, _ = dec.run(sc)
-    assert state_differences(got, (carry, compact_records(ys))) == []
+    for K, E, in_smem in ((768, 1024, True), (1024, 1408, False)):
+        dec = TorchDecoder(art, scale_bench.decoder_config(K, E), device=card)
+        assert fused_scan.why_not_fused(dec) is None
+        sc = dec.scores_tensor(scale_bench.score_batch(2, models.n_gmms, T=60))
+        fs = FusedDecodeScan(dec, 2)
+        assert fs.dims["state_in_smem"] is in_smem
+        got = fs(sc.transpose(0, 1).contiguous())
+        carry, ys, _ = dec.run(sc)
+        assert state_differences(got, (carry, compact_records(ys))) == []
 
 
 @pytest.mark.gpu

@@ -287,6 +287,6 @@ def test_decode_scores_on_cpu_decoder_is_the_plain_loop(synth, monkeypatch):
     assert set(ys) == set(YS_NAMES) and fs is dec._fused1 and fs.B == 1
     assert dec.traceback(host_batch(carry, ys, fs.rec0), 0, T_pad, true_T=len(utt)) == want
     assert fused_scan.assemble_results(dec, fs, carry, ys, [len(utt)]) == [want]
-    dec.K, dec.E = 4096, 8192  # beyond one block's shared memory
-    with pytest.raises(ValueError, match="decode_scores.*shared memory.*TorchDecoder.run"):
+    dec.K, dec.E = 4096, 65535  # past the kernel's 16-bit candidate numbers
+    with pytest.raises(ValueError, match="decode_scores.*65535.*TorchDecoder.run"):
         dec._fused_single(sc)

@@ -106,9 +106,17 @@ def test_entry_holds_copy_and_traceback_and_score_stands_alone(task, use_fused, 
     assert sorted(by_name) == ["copy", "entry", "score", "traceback"]
     (score,), (entry,) = by_name["score"], by_name["entry"]
     assert score.parent == 0 and entry.parent == 0 and score.end_ns <= entry.start_ns
-    assert score.attrs == {}
+    # the scoring's size: every GMM padded to the largest mixture
+    n_comps = [len(m) for m in pmodels.gmm_means]
+    assert score.attrs == {"frames": 20, "G": len(n_comps), "components": sum(n_comps),
+                           "columns": len(n_comps) * max(n_comps)}
+    # the kernel's layout on the fused route (its plain version on the CPU)
+    dims = fused_scan._dims(pdec)
+    layout = ({"staged": int(dims["hmm_words"] > 0), "smem": fused_scan.smem_bytes(**dims)}
+              if use_fused else {"staged": 0, "smem": 0})
     assert entry.attrs == {"B": 3, "T": max(LENGTHS), "K": pdec.K, "S": pdec.S,
-                           "route": "fused" if use_fused else "plain"}
+                           "route": "fused" if use_fused else "plain", "H": pdec.H, **layout}
+    assert use_fused is False or layout["staged"] == 1 and layout["smem"] > 0
     # one copy and one traceback a share, each inside the entry
     assert len(by_name["copy"]) == len(by_name["traceback"]) == n_devices
     for r in by_name["copy"] + by_name["traceback"]:
@@ -216,10 +224,11 @@ def test_profile_decode_reads_union_and_entry_spans():
     Span = trace.Span
     records = [Span("entry", 1, 0, 0, 10_000_000),
                Span("copy", 2, 1, 1_000_000, 2_000_000, {"dtoh_bytes": 9}),
-               Span("entry", 3, 0, 20_000_000, 30_000_000),
+               Span("entry", 3, 0, 20_000_000, 30_000_000, {"H": 9, "staged": 0}),
                Span("copy", 4, 3, 21_000_000, 23_000_000, {"dtoh_bytes": 5, "records": 2}),
                Span("copy", 5, 3, 23_000_000, 24_000_000, {"dtoh_bytes": 6, "records": 1}),
                Span("traceback", 6, 3, 24_000_000, 29_500_000, {"utterances": 4}),
                Span("score", 7, 0, 30_000_000, 31_000_000)]
     assert entry_spans(records) == {"entry_ms": 10.0, "copy_ms": 3.0, "traceback_ms": 5.5,
+                                    "entry_H": 9, "entry_staged": 0,
                                     "dtoh_bytes": 11, "records": 3, "utterances": 4}
